@@ -15,6 +15,14 @@ Phases:
      beams 10/16/32/64 against exact ground truth. Every kernel's launch
      count is zeroed before and read after this phase. Kernel 3 is then
      checked against its plain version on the built graph.
+  4. the ClusterIndex slice on the same set: ``build_cluster_index`` (m=64,
+     Rc=16, slack 1.5) with the f32 and the int8 ext layout, each searched
+     by 10K queries at n_probe 3/4/6/8/12/16 with cut=0 and at the adaptive
+     (12, 2, 1.35) setting; then kernel 5 against its plain version on each
+     built index.
+  5. the FlatIndex slice on the same set: f32 and q8 tiers through kernel 4.
+  Launch counts are zeroed just before phases 3, 4 and 5 and read just
+  after each; every kernel of the phase's path must have launched.
 
 The second-to-last line is a JSON summary of the kernels, the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -34,6 +42,10 @@ SEED = 7
 K = 10
 BEAMS = (10, 16, 32, 64)
 RECALL_BAR = 0.95  # recall@10 at beam 64
+PROBES = (3, 4, 6, 8, 12, 16)
+ADAPTIVE = (12, 2, 1.35)  # n_probe, min_probe, cut
+CLUSTER_BAR = 0.95  # recall@10 of the f32 layout at n_probe 16, cut 0
+FLAT_BAR = 0.999  # recall@10 of the f32 FlatIndex
 
 
 def log(*a):
@@ -174,20 +186,96 @@ def bitonic_check(gen, dev):
         "(key, payload) pairs equal a stable lexsort")
 
 
-def slice_run(dev):
-    import parlayann_tpu_torch as pt
-    from parlayann_tpu_torch.ops.kernels.expand import expand_distances
-    from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
-    from parlayann_tpu_torch.ops.kernels.fusedbeam import beam_search_fused
+def make_data():
     from parlayann_tpu_torch.utils import synthetic
-    from parlayann_tpu_torch.search import exact
-    from parlayann_tpu_torch.harness.recall import compute_recall
 
     t0 = time.perf_counter()
     X, Q = synthetic.clustered(100_000, 128, n_queries=10_000, n_clusters=1000,
                                cluster_std=0.35, seed=SEED)
     log(f"data: synthetic clustered {X.shape}, {len(Q)} queries "
         f"({time.perf_counter() - t0:.2f} s)")
+    return X, Q
+
+
+def check_topk(got, want, scale, what):
+    """Kernel 4 against its plain version on f32 points -> max relative
+    distance error. The two sum the dot products in another order and the
+    L2 algebra cancels ||q||^2 + ||x||^2 down to the distance, so distances
+    must agree to rtol 1e-5 plus 1e-6 x (||q||^2 + max ||x||^2) (``scale``),
+    and ids must be equal except where two distances lie within that
+    tolerance."""
+    ids, d = got
+    rids, rd = want
+    check(torch.equal(ids < 0, rids < 0), f"{what}: empty slots differ")
+    ok = rids >= 0
+    tol = 1e-5 * rd.abs() + 1e-6 * scale[:, None]
+    diff = (d - rd).abs()
+    check(bool((diff <= tol)[ok].all()), f"{what}: distances differ")
+    bad = (ids != rids).any(dim=1).nonzero()[:, 0].tolist()
+    for r in bad:
+        last = int(ok[r].sum()) - 1
+        only = ~torch.isin(ids[r], rids[r])
+        check(bool(((d[r][only] - rd[r, last]).abs() <= tol[r, last]).all()),
+              f"{what}: row {r} ids differ beyond a tie")
+        only = ~torch.isin(rids[r], ids[r])
+        check(bool(((rd[r][only] - d[r, last]).abs() <= tol[r, last]).all()),
+              f"{what}: row {r} ids differ beyond a tie")
+    return float((diff / rd.abs().clamp(min=1e-30))[ok].max()), len(bad)
+
+
+def kernel_flat(X, Q, gen, dev):
+    from parlayann_tpu_torch.types import Metric
+    from parlayann_tpu_torch.data.pointset import PointSet
+    from parlayann_tpu_torch.ops import quantize
+    from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk, flat_topk_plain
+
+    n, B = len(X), len(Q)
+    q = torch.from_numpy(Q).to(dev)
+    err, abs_err, out = 0.0, 0.0, {}
+    for metric in (Metric.L2, Metric.MIPS):
+        ps = PointSet.from_numpy(X, metric=metric, device=dev)
+        tier = quantize.quantize_pointset(ps, bits=8)
+        q8 = quantize.translate_query(q, tier).float()
+        scale = (q * q).sum(1) + (ps.data * ps.data).sum(1).max()
+        cases = [("f32", q, ps.data, None, None), ("int8", q8, tier.data, None, None)]
+        if metric is Metric.L2:
+            mask = (torch.rand(n, generator=gen) < 0.5).to(dev)
+            excl = torch.randint(0, n, (B,), generator=gen, dtype=torch.int32).to(dev)
+            cases.append(("f32 masked", q, ps.data, mask, excl))
+        for name, qq, xx, mk, ex in cases:
+            kw = dict(k=K, metric=metric, n_valid=n)
+            got = flat_topk(qq, xx, mk, ex, **kw)
+            want = flat_topk_plain(qq, xx, mk, ex, **kw)
+            what = f"flat_topk {name} {metric.name}"
+            if name == "int8":
+                check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                      f"{what}: not equal")
+                note = "equal"
+            else:
+                rel, n_tie = check_topk(got, want, scale, what)
+                err = max(err, rel)
+                ok = want[0] >= 0
+                abs_err = max(abs_err, float((got[1] - want[1]).abs()[ok].max()))
+                note = f"max rel err {rel:.3g}, {n_tie} rows with tie swaps"
+            if ex is not None:
+                check(not bool((got[0] == ex[:, None]).any()), f"{what}: excluded id")
+            if metric is Metric.L2 and mk is None:
+                ms = time_ms(lambda: flat_topk(qq, xx, **kw), 3)
+                plain_ms = time_ms(lambda: flat_topk_plain(qq, xx, **kw), 2)
+                out[name] = (ms, plain_ms)
+                note += f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms"
+            log(f"kernel 4 flat_topk {name} {metric.name} B={B} N={n} d=128 k={K}: {note}")
+    ms, plain_ms = out["f32"]
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+
+
+def slice_run(X, Q, dev):
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.ops.kernels.expand import expand_distances
+    from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
+    from parlayann_tpu_torch.ops.kernels.fusedbeam import beam_search_fused
+    from parlayann_tpu_torch.search import exact
+    from parlayann_tpu_torch.harness.recall import compute_recall
 
     wrappers = (expand_distances, occlusion_rounds, beam_search_fused)
     for w in wrappers:
@@ -227,7 +315,7 @@ def slice_run(dev):
           f"recall@{K} at beam 64 is {recall[64]:.4f} < {RECALL_BAR}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched by the slice")
-    return idx, Q, launches
+    return idx, launches, (gt_ids, gt_d)
 
 
 def kernel_fusedbeam(idx, Q, dev):
@@ -265,6 +353,128 @@ def kernel_fusedbeam(idx, Q, dev):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
 
 
+def _no_duplicates(ids):
+    s, _ = torch.sort(ids, dim=1)
+    return not bool(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any())
+
+
+def cluster_run(X, Q, gt, dev):
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.ops.kernels.clusterbeam import cluster_walk
+    from parlayann_tpu_torch.harness.recall import compute_recall
+
+    gt_ids, gt_d = gt
+    settings = [(p, 0, 0.0) for p in PROBES] + [ADAPTIVE]
+    indexes, recall = {}, {}
+    cluster_walk.launches = 0
+    torch.cuda.synchronize()
+    for layout in ("auto", "int8"):
+        t0 = time.perf_counter()
+        ci = pt.build_cluster_index(X, m=64, Rc=16, slack=1.5, ext_dtype=layout,
+                                    device=dev)
+        torch.cuda.synchronize()
+        log(f"cluster build (ext_dtype={layout!r} -> {ci.ext_dtype}): "
+            f"{time.perf_counter() - t0:.3f} s; C={ci.C}, ext {tuple(ci.ext.shape)}")
+        for n_probe, min_probe, cut in settings:
+            ids, _, (nv, cm), dt = ci.search_timed(
+                Q, k=K, n_probe=n_probe, min_probe=min_probe, cut=cut, rounds=3)
+            r = compute_recall(ids.cpu().numpy(), gt_ids, gt_d, K)
+            recall[(ci.ext_dtype, n_probe, cut)] = r
+            check(ids.shape == (len(Q), K) and bool((ids >= 0).all()),
+                  f"cluster {ci.ext_dtype} n_probe={n_probe}: malformed ids")
+            check(_no_duplicates(ids), f"cluster {ci.ext_dtype}: duplicate ids")
+            check(bool((nv <= n_probe).all()), f"cluster {ci.ext_dtype}: nv > n_probe")
+            log(f"cluster search {ci.ext_dtype} n_probe={n_probe} min_probe={min_probe} "
+                f"cut={cut}: recall@{K} {r:.4f}  QPS {len(Q) / dt:.1f}  "
+                f"({dt * 1e3:.3f} ms; nv {float(nv.float().mean()):.3f} "
+                f"cmps {float(cm.float().mean()):.1f})")
+        indexes[ci.ext_dtype] = ci
+    torch.cuda.synchronize()
+    launches = cluster_walk.launches
+    log("launches during the ClusterIndex slice:", {"cluster_walk": launches})
+    check(launches > 0, "cluster_walk was not launched by the ClusterIndex slice")
+    check(set(indexes) == {"f32", "int8"}, f"layouts built: {sorted(indexes)}")
+    r16 = recall[("f32", 16, 0.0)]
+    check(r16 >= CLUSTER_BAR, f"f32 ClusterIndex recall@{K} at n_probe 16 is "
+          f"{r16:.4f} < {CLUSTER_BAR}")
+    return indexes, launches
+
+
+def kernel_cluster(indexes, Q, dev):
+    from parlayann_tpu_torch.ops import quantize
+    from parlayann_tpu_torch.ops.distance import INF
+    from parlayann_tpu_torch.ops.kernels.clusterbeam import (
+        cluster_walk, cluster_walk_plain, seed_centroids)
+
+    q_full = torch.as_tensor(Q[:1024]).to(dev)
+    out = {}
+    for layout, ci in indexes.items():
+        q = q_full
+        if ci.qpoints is not None:
+            q = quantize.translate_query(q_full, ci.qpoints).float()
+        sd, sid = seed_centroids(q, ci.centroids_q, C=ci.C, S=2,
+                                 metric=ci.points.metric)
+        args = (q, ci.ext, sd.contiguous(), sid.contiguous())
+        err = 0.0
+        for n_probe, min_probe, cut in ((16, 0, 0.0), ADAPTIVE):
+            kw = dict(metric=ci.points.metric, C=ci.C, m=ci.m, Rc=ci.Rc,
+                      n_points=ci.points.n, n_probe=n_probe, min_probe=min_probe,
+                      cut=cut)
+            pd, pi, nv = cluster_walk(*args, **kw)
+            wd, wi, wnv = cluster_walk_plain(*args, **kw)
+            what = f"cluster_walk {layout} n_probe={n_probe} cut={cut}"
+            check(torch.equal(nv, wnv), f"{what}: nv (and so cmps) differ")
+            # the valid (dist, id) pool entries as sets: rows ordered by id
+            oi, o = torch.sort(pi, dim=1)
+            wi_s, wo = torch.sort(wi, dim=1)
+            check(torch.equal(oi, wi_s), f"{what}: pool ids differ")
+            a, b = pd.gather(1, o), wd.gather(1, wo)
+            ok = oi >= 0
+            check(bool((b[ok] < INF).all()), f"{what}: a pool id without distance")
+            # L2 sums of squares cannot cancel; a negated dot can
+            atol = 0.0 if ci.points.metric.is_metric else 1e-5 * float(b[ok].abs().max())
+            torch.testing.assert_close(a[ok], b[ok], rtol=1e-5, atol=atol)
+            if layout == "int8":
+                check(torch.equal(pd, wd) and torch.equal(pi, wi), f"{what}: not equal")
+            err = max(err, float((a[ok] - b[ok]).abs().max()))
+        kw = dict(metric=ci.points.metric, C=ci.C, m=ci.m, Rc=ci.Rc,
+                  n_points=ci.points.n, n_probe=16)
+        ms = time_ms(lambda: cluster_walk(*args, **kw), 10)
+        plain_ms = time_ms(lambda: cluster_walk_plain(*args, **kw), 2)
+        out[layout] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        log(f"kernel 5 cluster_walk {layout} ext B=1024 m={ci.m} Rc={ci.Rc} on the built "
+            f"index: nv, cmps and valid (dist, id) pool sets equal at n_probe 16 and "
+            f"adaptive; max abs err {err:.3g}; n_probe=16 {ms:.4f} ms vs plain "
+            f"{plain_ms:.4f} ms")
+    return out
+
+
+def flat_run(X, Q, gt, dev):
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk
+    from parlayann_tpu_torch.harness.recall import compute_recall
+
+    gt_ids, gt_d = gt
+    recall = {}
+    flat_topk.launches = 0
+    torch.cuda.synchronize()
+    for name, quantized in (("f32", False), ("q8", True)):
+        fi = pt.FlatIndex(pt.PointSet.from_numpy(X, device=dev), quantize=quantized)
+        ids, _, dt = fi.batch_search_timed(Q, k=K, select="pallas", rounds=3)
+        recall[name] = compute_recall(ids.cpu().numpy(), gt_ids, gt_d, K)
+        check(ids.shape == (len(Q), K) and bool((ids >= 0).all()),
+              f"FlatIndex {name}: malformed ids")
+        log(f"FlatIndex {name} select=pallas: recall@{K} {recall[name]:.4f}  "
+            f"QPS {len(Q) / dt:.1f}  ({dt * 1e3:.3f} ms / {len(Q)} queries)")
+    torch.cuda.synchronize()
+    launches = flat_topk.launches
+    log("launches during the FlatIndex slice:", {"flat_topk": launches})
+    check(launches > 0, "flat_topk was not launched by the FlatIndex slice")
+    check(recall["f32"] >= FLAT_BAR,
+          f"f32 FlatIndex recall@{K} is {recall['f32']:.4f} < {FLAT_BAR}")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -276,14 +486,22 @@ def main():
 
     log("== phase 1: environment and build")
     phase_environment()
+    X, Q = make_data()
     log("== phase 2: kernels against their plain versions")
     k1 = kernel_expand(gen, dev)
     k2 = kernel_occlude(gen, dev)
     bitonic_check(gen, dev)
+    k4 = kernel_flat(X, Q, gen, dev)
     log("== phase 3: the slice (q8 Vamana build + q8 fused search)")
-    idx, Q, launches = slice_run(dev)
+    idx, launches, gt = slice_run(X, Q, dev)
     log("== phase 2 (continued): kernel 3 on the built graph")
     k3 = kernel_fusedbeam(idx, Q, dev)
+    log("== phase 4: the ClusterIndex slice (build + cluster-beam search)")
+    indexes, launches["cluster_walk"] = cluster_run(X, Q, gt, dev)
+    log("== phase 2 (continued): kernel 5 on the built indexes")
+    k5 = kernel_cluster(indexes, Q, dev)
+    log("== phase 5: the FlatIndex slice")
+    launches["flat_topk"] = flat_run(X, Q, gt, dev)
 
     kernels = [
         dict(name="expand_distances", route="cuda",
@@ -298,6 +516,14 @@ def main():
              source="parlayann_tpu_torch/csrc/fusedbeam.cu",
              replaces="parlayann_tpu/ops/pallas/fusedbeam.py:627",
              launches=launches["beam_search_fused"], **k3),
+        dict(name="flat_topk", route="cuda",
+             source="parlayann_tpu_torch/csrc/flatscan.cu",
+             replaces="parlayann_tpu/ops/pallas/flatscan.py:121",
+             launches=launches["flat_topk"], **k4),
+        dict(name="cluster_walk", route="cuda",
+             source="parlayann_tpu_torch/csrc/clusterbeam.cu",
+             replaces="parlayann_tpu/ops/pallas/clusterbeam.py:351",
+             launches=launches["cluster_walk"], **k5["f32"]),
     ]
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,16 +6,19 @@ is PyTorch; every Pallas kernel on the ported path is a hand-written CUDA
 kernel for Hopper (``csrc/``), built with nvcc at first use and bound through
 ctypes. Nothing here imports jax.
 
-Ported so far (the Vamana q8 slice): the q8 Vamana build
-(:func:`build_vamana_index`) and the q8 fused beam search with full-precision
-rerank (:class:`Index`).
+Ported so far: the q8 Vamana build (:func:`build_vamana_index`) and the q8
+fused beam search with full-precision rerank (:class:`Index`); the
+ClusterIndex build and search (:func:`build_cluster_index`,
+:class:`ClusterIndex`); the flat brute-force search (:class:`FlatIndex`).
 """
 
 from parlayann_tpu_torch.types import BuildParams, QueryParams, Metric
 from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.data.graph import GraphIndexData
-from parlayann_tpu_torch.api import build_vamana_index
+from parlayann_tpu_torch.api import build_vamana_index, build_cluster_index
 from parlayann_tpu_torch.index import Index
+from parlayann_tpu_torch.build.clusterindex import ClusterIndex
+from parlayann_tpu_torch.search.flat import FlatIndex
 
 __version__ = "0.1.0"
 
@@ -26,5 +29,8 @@ __all__ = [
     "PointSet",
     "GraphIndexData",
     "build_vamana_index",
+    "build_cluster_index",
     "Index",
+    "ClusterIndex",
+    "FlatIndex",
 ]

@@ -1,7 +1,8 @@
 """High-level API with boundary validation (ParlayANNpy parity).
 
-Counterpart of the Vamana part of parlayann_tpu/api.py: a bad dtype,
-metric or shape raises ValueError before any device work starts.
+Counterpart of the Vamana and ClusterIndex parts of parlayann_tpu/api.py:
+a bad dtype, metric or shape raises ValueError before any device work
+starts.
 """
 
 from __future__ import annotations
@@ -66,3 +67,25 @@ def build_vamana_index(data, metric="Euclidian", R: int = 64, L: int = 128,
     return vamana.build_vamana_index(
         data, metric=valid_metric(metric), R=R, L=L, alpha=alpha,
         two_pass=two_pass, **kwargs)
+
+
+def build_cluster_index(data, metric="Euclidian", m: int = 64, Rc: int = 16,
+                        device="cpu", **kwargs):
+    """Validated ClusterIndex build (api.py:132-151) -> ClusterIndex.
+    ``data`` becomes a PointSet on ``device`` unless it is one; keyword
+    arguments go to :meth:`ClusterIndex.build` (``slack``, ``iters``,
+    ``ext_dtype``, ``seed``, ...)."""
+    from parlayann_tpu_torch.build.clusterindex import ClusterIndex
+
+    data = _valid_data(data)
+    _valid_pos("m", m, lo=8), _valid_pos("Rc", Rc, lo=8)
+    if m % 8 or Rc % 8:
+        raise ValueError(f"m and Rc must be multiples of 8, got {m}, {Rc}")
+    if not isinstance(data, PointSet):
+        data = PointSet.from_numpy(data, metric=valid_metric(metric),
+                                   device=device)
+    if data.d < m or data.d < Rc:
+        raise ValueError(
+            f"packed id planes need d >= m and d >= Rc "
+            f"(d={data.d}, m={m}, Rc={Rc})")
+    return ClusterIndex.build(data, m=m, Rc=Rc, **kwargs)

@@ -10,7 +10,8 @@
 //
 // Each stage is a compare-exchange of the pairs (lo, lo + stride) spread
 // over the block, followed by __syncthreads(). Callers synchronise before
-// the first stage.
+// the first stage. The functions are inline: several kernel files include
+// this header into one library.
 #pragma once
 
 #include "common.cuh"
@@ -35,7 +36,7 @@ __device__ __forceinline__ void compare_exchange(float* key, int* val, int lo, i
 }
 
 // Ascending sort of n (a power of two) entries.
-__device__ void bitonic_sort(float* key, int* val, int n) {
+__device__ inline void bitonic_sort(float* key, int* val, int n) {
   for (int size = 2; size <= n; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) {
@@ -49,7 +50,7 @@ __device__ void bitonic_sort(float* key, int* val, int n) {
 
 // Ascending merge of n (a power of two) entries that form a bitonic
 // sequence: non-decreasing, then non-increasing.
-__device__ void bitonic_merge(float* key, int* val, int n) {
+__device__ inline void bitonic_merge(float* key, int* val, int n) {
   for (int stride = n >> 1; stride > 0; stride >>= 1) {
     for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) {
       const int lo = 2 * stride * (i / stride) + (i % stride);

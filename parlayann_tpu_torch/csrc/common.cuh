@@ -25,13 +25,13 @@ __device__ __forceinline__ int warp_sum(int x) {
   return x;
 }
 
-// Distance from an f32 query to one int8 vector, reduced across the warp:
-// squared L2 as sum((v - q)^2), MIPS as -sum(v * q). Every lane returns the
-// total. On integer-valued queries every partial sum is an integer below
-// 2^24, so the result is exact whatever the summation order.
-template <bool kMips>
-__device__ __forceinline__ float warp_dist(const float* q, const int8_t* v, int d,
-                                           int lane) {
+// Distance from an f32 query to one int8 or f32 vector, reduced across the
+// warp: squared L2 as sum((v - q)^2), MIPS as -sum(v * q). Every lane
+// returns the total. On int8 vectors and integer-valued queries every
+// partial sum is an integer below 2^24, so the result is exact whatever the
+// summation order.
+template <bool kMips, typename T>
+__device__ __forceinline__ float warp_dist(const float* q, const T* v, int d, int lane) {
   float acc = 0.f;
   for (int t = lane; t < d; t += 32) {
     const float x = static_cast<float>(v[t]);

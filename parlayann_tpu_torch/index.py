@@ -12,7 +12,6 @@ path.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -24,6 +23,7 @@ from parlayann_tpu_torch.data.graph import GraphIndexData
 from parlayann_tpu_torch.ops import quantize
 from parlayann_tpu_torch.ops.kernels.fusedbeam import beam_search_fused
 from parlayann_tpu_torch.search.rerank import rerank_topk
+from parlayann_tpu_torch.utils.timing import timed_rounds
 
 
 class FusedResult(NamedTuple):
@@ -131,25 +131,15 @@ class Index:
                                  metric=self.points.metric)
         return ids, dists, FusedResult(ids, dists, nv, cmps)
 
-    def _fence(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def batch_search_timed(self, queries, warmup: bool = True, rounds: int = 1,
                            **kw):
         """Timed steady-state search -> (ids, dists, res, seconds per round):
         queries uploaded first, one warm-up search, then ``rounds``
         back-to-back searches fenced by ``torch.cuda.synchronize``."""
         queries = torch.as_tensor(queries).to(self.device, torch.float32)
-        if warmup:
-            self.batch_search(queries, **kw)
-        self._fence()
-        t0 = time.perf_counter()
-        out = None
-        for _ in range(rounds):
-            out = self.batch_search(queries, **kw)
-        self._fence()
-        return (*out, (time.perf_counter() - t0) / rounds)
+        out, secs = timed_rounds(lambda: self.batch_search(queries, **kw),
+                                 self.device, rounds, warmup)
+        return (*out, secs)
 
     def single_search(self, query, k: int = 10, beam_size: int = 128, **kw):
         ids, dists, _ = self.batch_search(

@@ -1,8 +1,9 @@
 """Carry state between the JAX package and the port, as numpy arrays.
 
-The JAX package's ``PointSet``, ``GraphIndexData`` and ``Index.entry_ids``
-are plain arrays plus metadata; these functions build the port's objects
-from those arrays (given as numpy), so both packages can search one graph.
+The JAX package's ``PointSet``, ``GraphIndexData``, ``Index.entry_ids``,
+``ClusterIndex`` and ``FlatIndex`` are plain arrays plus metadata; these
+functions build the port's objects from those arrays (given as numpy), so
+both packages can search one graph or one cluster index.
 The other direction needs nothing here: the port's tensors convert with
 ``.cpu().numpy()``. Only numpy and torch are imported here.
 """
@@ -18,6 +19,8 @@ from parlayann_tpu_torch.types import Metric
 from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.data.graph import GraphIndexData
 from parlayann_tpu_torch.index import Index
+from parlayann_tpu_torch.build.clusterindex import ClusterIndex
+from parlayann_tpu_torch.search.flat import FlatIndex
 
 
 def _metric(metric) -> Metric:
@@ -59,3 +62,31 @@ def index_from_state(points: PointSet, graph: GraphIndexData,
         idx.entry_vecs = points.data[idx.entry_ids.long()]
     return idx
 
+
+
+def cluster_index_from_state(points: PointSet, members: np.ndarray,
+                             adj: np.ndarray, centroids_q: np.ndarray,
+                             ext: np.ndarray, C: int, m: int, Rc: int,
+                             ext_dtype: str, qpoints: Optional[PointSet] = None
+                             ) -> ClusterIndex:
+    """A ClusterIndex over the JAX ``ClusterIndex`` state: ``members``,
+    ``adj``, ``centroids_q`` and the packed ``ext`` rows (byte-compatible
+    layouts), with ``points`` and, for the int8 layout, the q8 tier
+    ``qpoints`` already converted."""
+    dev = points.device
+    return ClusterIndex(
+        points=points, qpoints=qpoints,
+        centroids_q=torch.tensor(np.asarray(centroids_q)).to(dev),
+        members=np.asarray(members, dtype=np.int32),
+        adj=np.asarray(adj, dtype=np.int32),
+        ext=torch.tensor(np.asarray(ext)).to(dev), C=int(C), m=int(m),
+        Rc=int(Rc), ext_dtype=str(ext_dtype))
+
+
+def flat_index_from_state(points: PointSet,
+                          qpoints: Optional[PointSet] = None) -> FlatIndex:
+    """A FlatIndex over converted points and, if the JAX index had one,
+    its q8 tier (installed as it is, not recomputed)."""
+    fi = FlatIndex(points)
+    fi.qpoints = qpoints
+    return fi

@@ -1,0 +1,166 @@
+"""Kernel 4: exact brute-force top-k (flat search).
+
+Counterpart of parlayann_tpu/ops/pallas/flatscan.py (``flat_topk_pallas``
+:121). The Pallas kernel approximates the exact top-k through a per-lane-
+class pool (recall ~0.999); its own docstring names ``select="sort"`` as
+the oracle. The port's kernel (``csrc/flatscan.cu``) returns that oracle's
+answer: the exact k smallest, ordered by (distance, id). The distance
+algebra is the JAX package's: selection runs on ``||x||^2 - 2 q.x`` (L2)
+or ``-q.x`` (MIPS), and ``||q||^2`` is added back to the k survivors and
+clamped at 0, so L2 distances are true squared distances.
+
+``precision`` is accepted for the JAX signature: "exact" and "fast" both
+compute in float32 here (the TPU's "fast" is bf16 MXU passes; a
+tensor-core path is later work, ROADMAP queue 2).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from parlayann_tpu_torch.types import Metric
+from parlayann_tpu_torch.ops.distance import INF
+from parlayann_tpu_torch.ops.kernels import _lib
+
+# the kernel keeps 64 sorted (distance, id) lists of k entries in shared
+# memory: 8 bytes * 64 * k, 128 KB at k = 256
+MAX_K = 256
+PRECISIONS = ("fast", "exact")
+
+
+def _bias(points: torch.Tensor, valid_mask: Optional[torch.Tensor],
+          n_valid: int, metric: Metric) -> torch.Tensor:
+    """(n_pad,) f32: ||x||^2 (L2) or 0 (MIPS), INF where x is not a valid
+    point (id >= n_valid, or masked out)."""
+    n_pad = points.shape[0]
+    if metric is Metric.MIPS:
+        bias = torch.zeros(n_pad, dtype=torch.float32, device=points.device)
+    else:
+        xf = points.float()
+        bias = (xf * xf).sum(dim=1)
+    ok = torch.arange(n_pad, device=points.device) < n_valid
+    if valid_mask is not None:
+        ok &= valid_mask.to(torch.bool)
+    return torch.where(ok, bias, INF)
+
+
+def _finish(sel_d: torch.Tensor, sel_i: torch.Tensor, qf: torch.Tensor,
+            metric: Metric):
+    """Selection-domain (B, k) results -> (ids with -1 where empty, true
+    distances: ||q||^2 added back and clamped at 0 for L2)."""
+    ok = sel_d < INF
+    ids = torch.where(ok, sel_i, -1).to(torch.int32)
+    if metric is Metric.MIPS:
+        return ids, sel_d
+    qn = (qf * qf).sum(dim=1, keepdim=True)
+    return ids, torch.where(ok, torch.clamp(sel_d + qn, min=0.0), INF)
+
+
+def _check_args(k: int, precision: str):
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+
+
+def flat_topk_plain(queries: torch.Tensor, points: torch.Tensor,
+                    valid_mask: Optional[torch.Tensor] = None,
+                    exclude_ids: Optional[torch.Tensor] = None, *, k: int,
+                    metric: Metric, n_valid: int, precision: str = "fast",
+                    chunk: int = 32768):
+    """The kernel's function in PyTorch: one float32 matmul per chunk of
+    points, then an exact selection. A stable sort by distance orders ties
+    by id, because ids grow along each chunk and every earlier chunk's
+    survivors precede the current one's."""
+    _check_args(k, precision)
+    qf = queries.float()
+    B = qf.shape[0]
+    n_pad = points.shape[0]
+    bias = _bias(points, valid_mask, n_valid, metric)
+    scale = -1.0 if metric is Metric.MIPS else -2.0
+    excl = None if exclude_ids is None else exclude_ids.long()[:, None]
+    run_d = torch.full((B, 0), INF, dtype=torch.float32, device=qf.device)
+    run_i = torch.full((B, 0), -1, dtype=torch.int64, device=qf.device)
+    for lo in range(0, n_pad, chunk):
+        hi = min(lo + chunk, n_pad)
+        dot = qf @ points[lo:hi].float().T
+        d = bias[None, lo:hi] + scale * dot
+        ids = torch.arange(lo, hi, device=qf.device)[None, :].expand(B, -1)
+        ok = bias[None, lo:hi] < INF
+        if excl is not None:
+            ok = ok & (ids != excl)
+        d = torch.where(ok, d, INF)
+        if k == 1:  # argmin keeps the first (lowest-id) minimum
+            cd, pos = d.min(dim=1, keepdim=True)
+        else:
+            cd, pos = torch.sort(d, dim=1, stable=True)
+            cd, pos = cd[:, :k], pos[:, :k]
+        md = torch.cat([run_d, cd], dim=1)
+        mi = torch.cat([run_i, pos + lo], dim=1)
+        md, order = torch.sort(md, dim=1, stable=True)
+        run_d, run_i = md[:, :k], torch.gather(mi, 1, order[:, :k])
+    if run_d.shape[1] < k:  # fewer points than k
+        pad = k - run_d.shape[1]
+        run_d = torch.cat([run_d, run_d.new_full((B, pad), INF)], dim=1)
+        run_i = torch.cat([run_i, run_i.new_full((B, pad), -1)], dim=1)
+    return _finish(run_d, run_i, qf, metric)
+
+
+def flat_topk(queries: torch.Tensor, points: torch.Tensor,
+              valid_mask: Optional[torch.Tensor] = None,
+              exclude_ids: Optional[torch.Tensor] = None, *, k: int,
+              metric: Metric, n_valid: int, precision: str = "fast"):
+    """Exact top-k of each query row over ``points`` -> (ids (B, k) int32,
+    -1 where fewer than k valid points; dists (B, k) f32, true squared L2
+    or -dot, INF where empty), ordered by (distance, id).
+
+    ``queries`` (B, d) f32; ``points`` (n_pad, d) f32 or int8 (rows >=
+    ``n_valid`` never match); ``valid_mask`` (n_pad,) bool; ``exclude_ids``
+    (B,) int32, one id per query that must not match. CPU tensors run
+    :func:`flat_topk_plain`; CUDA tensors launch the kernel, for k up to
+    ``MAX_K``."""
+    extra = [t for t in (valid_mask, exclude_ids) if t is not None]
+    if not _lib.route(queries, points, *extra):
+        return flat_topk_plain(queries, points, valid_mask, exclude_ids, k=k,
+                               metric=metric, n_valid=n_valid,
+                               precision=precision)
+    _check_args(k, precision)
+    if k > MAX_K:
+        raise ValueError(f"k={k} exceeds the kernel's {MAX_K}")
+    _lib.require(queries, "queries", torch.float32, 2)
+    if points.dtype not in (torch.float32, torch.int8):
+        raise ValueError(f"points must be float32 or int8 (got {points.dtype})")
+    _lib.require(points, "points", points.dtype, 2)
+    B, d = queries.shape
+    n_pad = points.shape[0]
+    if points.shape[1] != d:
+        raise ValueError(f"queries {tuple(queries.shape)} vs points "
+                         f"{tuple(points.shape)}")
+    if not 0 <= n_valid <= n_pad < 2**31 - 1:
+        raise ValueError(f"n_valid={n_valid}, n_pad={n_pad} out of range")
+    if valid_mask is not None and valid_mask.shape != (n_pad,):
+        raise ValueError(f"valid_mask {tuple(valid_mask.shape)} for {n_pad} points")
+    if exclude_ids is not None:
+        if exclude_ids.shape != (B,):
+            raise ValueError(f"exclude_ids {tuple(exclude_ids.shape)} for {B} queries")
+        exclude_ids = exclude_ids.to(torch.int32).contiguous()
+    bias = _bias(points, valid_mask, n_valid, metric).contiguous()
+    out_d = torch.empty((B, k), dtype=torch.float32, device=queries.device)
+    out_i = torch.empty((B, k), dtype=torch.int32, device=queries.device)
+    if B == 0:
+        return out_i, out_d
+    fn = _lib.function("pa_flat_topk", [_lib.VP] * 4 + [_lib.INT] * 4
+                       + [_lib.FLOAT, _lib.INT] + [_lib.VP] * 3)
+    rc = fn(queries.data_ptr(), points.data_ptr(), bias.data_ptr(),
+            None if exclude_ids is None else exclude_ids.data_ptr(),
+            B, n_pad, d, k, -1.0 if metric is Metric.MIPS else -2.0,
+            int(points.dtype == torch.int8), out_d.data_ptr(), out_i.data_ptr(),
+            _lib.stream())
+    flat_topk.launches += 1
+    _lib.check(rc, "flat_topk")
+    return _finish(out_d, out_i, queries, metric)
+
+
+flat_topk.launches = 0

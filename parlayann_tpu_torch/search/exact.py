@@ -1,8 +1,10 @@
-"""Exact k-NN (ground truth): chunked float32 matmuls plus an exact top-k.
+"""Exact k-NN (ground truth) through the flat scan.
 
-Counterpart of parlayann_tpu/search/exact.py. The JAX package computes
-this outside any Pallas kernel (flat.py ``select="sort"``), so library ops
-(``torch.matmul``, ``torch.topk``) do it here too.
+Counterpart of parlayann_tpu/search/exact.py: ``exact_knn`` delegates to
+``flat_search_batch(select="sort", precision="exact")``, as the JAX
+package does. That path is plain PyTorch on every device (chunked float32
+matmuls and a stable sort), so ground truth never rests on a hand-written
+kernel, and its results are ordered by (distance, id).
 """
 
 from __future__ import annotations
@@ -11,32 +13,16 @@ import numpy as np
 import torch
 
 from parlayann_tpu_torch.data.pointset import PointSet
-from parlayann_tpu_torch.ops import distance
-from parlayann_tpu_torch.ops.distance import INF
-from parlayann_tpu_torch.ops.topk import lexsort
+from parlayann_tpu_torch.search.flat import flat_search_batch
 
 
 def exact_knn(queries, points: PointSet, k: int, chunk: int = 32768):
     """Exact top-k for each query row -> (ids (B, k) int32, dists (B, k)
-    f32), ascending, ties in id order."""
+    f32), ascending, ties in id order; -1 / INF past the last point."""
     q = torch.as_tensor(queries).to(points.device, torch.float32)
-    best_d = best_i = None
-    for lo in range(0, points.n, chunk):
-        hi = min(lo + chunk, points.n)
-        d = distance.all_pairs(q, points.data[lo:hi], points.metric)
-        kk = min(k, hi - lo)
-        cd, ci = torch.topk(d, kk, dim=1, largest=False)
-        ci = ci.to(torch.int32) + lo
-        if best_d is not None:
-            cd = torch.cat([best_d, cd], dim=1)
-            ci = torch.cat([best_i, ci], dim=1)
-        cd, ci = lexsort((cd, ci))
-        best_d, best_i = cd[:, :k], ci[:, :k]
-    if best_i.shape[1] < k:  # fewer points than k
-        pad = k - best_i.shape[1]
-        best_i = torch.cat([best_i, best_i.new_full((q.shape[0], pad), -1)], 1)
-        best_d = torch.cat([best_d, best_d.new_full((q.shape[0], pad), INF)], 1)
-    return best_i, best_d
+    return flat_search_batch(q, points.data, k=k, metric=points.metric,
+                             n_valid=points.n, chunk=min(chunk, points.n_pad),
+                             select="sort", precision="exact")
 
 
 def compute_groundtruth(base: PointSet, queries: np.ndarray, k: int,

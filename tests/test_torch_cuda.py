@@ -5,8 +5,13 @@ CUDA kernel has no CPU mode. This file imports no jax, so it also runs on a
 GPU machine without the JAX package; run it there from the repository root
 with ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``
 (the shared conftest imports jax). Shapes are small versions of the main
-path's; all comparisons are exact, because on int8 data with
-integer-valued queries every distance is an exact integer.
+path's. On int8 data with integer-valued queries every distance is an
+exact integer, so those comparisons are exact. On f32 data the kernel and
+its plain version sum in another order. Flat top-k distances agree to rtol
+1e-5 plus 1e-6 x (||q||^2 + max ||x||^2) (the L2 algebra cancels the
+norms), and ids agree except where two distances lie within that
+tolerance; cluster-walk distances agree to rtol 1e-5 (L2) or to 1e-5 of
+the largest magnitude (MIPS, whose dot products can cancel).
 """
 
 import numpy as np
@@ -22,7 +27,11 @@ from parlayann_tpu_torch.ops.kernels.occlude import (
     occlusion_rounds, occlusion_rounds_plain)
 from parlayann_tpu_torch.ops.kernels.fusedbeam import (
     beam_search_fused, beam_search_fused_plain, bitonic_sort_rows)
+from parlayann_tpu_torch.ops.kernels.flatscan import MAX_K, flat_topk, flat_topk_plain
+from parlayann_tpu_torch.ops.kernels.clusterbeam import (
+    cluster_walk, cluster_walk_plain, seed_centroids)
 from parlayann_tpu_torch.ops.topk import lexsort
+from parlayann_tpu_torch.api import build_cluster_index
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +113,104 @@ def test_torch_cuda_wrappers_reject_bad_input(cuda):
         expand_distances(inl, ids, q, metric=Metric.L2)
     with pytest.raises(ValueError, match="device"):
         expand_distances(inl.to(torch.int8), ids.cpu(), q, metric=Metric.L2)
+
+
+def assert_same_topk(ids, dists, want_ids, want_d, scale):
+    """(B, k) results equal up to the f32 tolerance of the module doc;
+    ``scale`` (B,) is ||q||^2 + max ||x||^2."""
+    ids, dists = ids.cpu().numpy(), dists.cpu().numpy()
+    want_ids, want_d = want_ids.cpu().numpy(), want_d.cpu().numpy()
+    assert ((ids < 0) == (want_ids < 0)).all()
+    ok = want_ids >= 0
+    tol = 1e-5 * np.abs(want_d) + 1e-6 * scale[:, None]
+    assert (np.abs(dists - want_d)[ok] <= tol[ok]).all()
+    for r in np.flatnonzero((ids != want_ids).any(axis=1)):
+        last = ok[r].sum() - 1
+        only = ~np.isin(ids[r], want_ids[r])
+        assert (np.abs(dists[r][only] - want_d[r, last]) <= tol[r, last]).all(), r
+        only = ~np.isin(want_ids[r], ids[r])
+        assert (np.abs(want_d[r][only] - dists[r, last]) <= tol[r, last]).all(), r
+
+
+@pytest.mark.parametrize("k", [10, 128])
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.MIPS])
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_torch_cuda_flat_topk_equal(gen, cuda, dtype, metric, k):
+    """n, d and B off every tile multiple; a mask, an exclusion and 7
+    invalid tail rows."""
+    n, d, B = 5000, 100, 300
+    if dtype == "int8":
+        X = gen.integers(-128, 128, (n, d)).astype(np.int8)
+        Q = gen.integers(-128, 128, (B, d)).astype(np.float32)
+    else:
+        X = gen.standard_normal((n, d)).astype(np.float32)
+        Q = gen.standard_normal((B, d)).astype(np.float32)
+    x, q = t(X, cuda), t(Q, cuda)
+    mask = t(gen.random(n) < 0.8, cuda)
+    excl = t(gen.integers(0, n, B).astype(np.int32), cuda)
+    Xf = X.astype(np.float64)
+    scale = (Q.astype(np.float64) ** 2).sum(1) + (Xf ** 2).sum(1).max()
+    for mk, ex in ((None, None), (mask, excl)):
+        kw = dict(k=k, metric=metric, n_valid=n - 7)
+        got = flat_topk(q, x, mk, ex, **kw)
+        want = flat_topk_plain(q, x, mk, ex, **kw)
+        if dtype == "int8":
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        else:
+            assert_same_topk(*got, *want, scale)
+        if ex is not None:
+            assert not (got[0] == ex[:, None]).any()
+
+
+def test_torch_cuda_flat_topk_rejects_wide_k(cuda):
+    q = torch.zeros((4, 16), device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        flat_topk(q, torch.zeros((300, 16), device=cuda), k=MAX_K + 1,
+                  metric=Metric.L2, n_valid=300)
+
+
+@pytest.fixture(scope="module")
+def cluster_data():
+    rng = np.random.default_rng(5)
+    centers = rng.standard_normal((40, 64))
+    X = (centers[rng.integers(0, 40, 6000)]
+         + 0.35 * rng.standard_normal((6000, 64))).astype(np.float32)
+    Q = (centers[rng.integers(0, 40, 200)]
+         + 0.35 * rng.standard_normal((200, 64))).astype(np.float32)
+    return X, Q
+
+
+@pytest.mark.parametrize("n_probe,cut", [(4, 0.0), (16, 0.0), (12, 1.35)])
+@pytest.mark.parametrize("metric", ["l2", "mips"])
+@pytest.mark.parametrize("layout", ["int8", "f32"])
+def test_torch_cuda_cluster_walk_equal(cluster_data, cuda, layout, metric,
+                                       n_probe, cut):
+    """n_probe 16 makes the beam 32 lanes wide (a 64-lane merge)."""
+    X, Q = cluster_data
+    ci = build_cluster_index(X, metric=metric, m=32, Rc=16, iters=2,
+                             ext_dtype=layout, device=cuda)
+    q = t(Q, cuda)
+    if ci.qpoints is not None:
+        q = quantize.translate_query(q, ci.qpoints).float()
+    sd, sid = seed_centroids(q, ci.centroids_q, C=ci.C, S=2,
+                             metric=ci.points.metric)
+    args = (q, ci.ext, sd.contiguous(), sid.contiguous())
+    kw = dict(metric=ci.points.metric, C=ci.C, m=ci.m, Rc=ci.Rc,
+              n_points=ci.points.n, n_probe=n_probe, min_probe=2, cut=cut)
+    pd, pi, nv = cluster_walk(*args, **kw)
+    wd, wi, wnv = cluster_walk_plain(*args, **kw)
+    assert torch.equal(nv, wnv)
+    assert (nv <= n_probe).all() and (nv >= 1).all()
+    if layout == "int8":
+        assert torch.equal(pd, wd) and torch.equal(pi, wi)
+        return
+    # an L2 sum of squares cannot cancel (rtol 1e-5); a negated dot can, so
+    # its error is bounded by 1e-5 of the largest magnitude instead
+    ok = wi >= 0
+    atol = 0.0 if metric == "l2" else 1e-5 * float(wd[ok].abs().max())
+    for r in range(len(Q)):
+        a = {int(i): float(x) for x, i in zip(pd[r].tolist(), pi[r].tolist()) if i >= 0}
+        b = {int(i): float(x) for x, i in zip(wd[r].tolist(), wi[r].tolist()) if i >= 0}
+        assert a.keys() == b.keys(), r
+        np.testing.assert_allclose([a[i] for i in sorted(a)],
+                                   [b[i] for i in sorted(b)], rtol=1e-5, atol=atol)
