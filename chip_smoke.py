@@ -21,8 +21,29 @@ Phases:
      (12, 2, 1.35) setting; then kernel 5 against its plain version on each
      built index.
   5. the FlatIndex slice on the same set: f32 and q8 tiers through kernel 4.
-  Launch counts are zeroed just before phases 3, 4 and 5 and read just
+  6. the capacity tiers at the size of scripts/bench_1m_tiers.py: synthetic
+     clustered 1M x 128 (10K clusters, 10K queries), a q8 Vamana build (R=32,
+     L=64, alpha=1.2, two passes, batch_cap_frac=0.04), exact ground truth
+     on the card, then ``Index.batch_search_timed`` on the packed 1-bit tier
+     and on the JL sign-bit tier of 512 dims at beams 100/220/400
+     (rerank_factor 20), and on the sparse JL 8-bit tier of 1024 dims at
+     beam 100. One more search of each tier at its first beam runs under
+     torch.profiler, which prints the device's busy time, idle share and
+     top kernels. Kernel 6 is then checked against its plain version on the
+     tiers' inline words (W = 4 and W = 16).
+  Launch counts are zeroed just before phases 3, 4, 5 and 6 and read just
   after each; every kernel of the phase's path must have launched.
+
+Kernel times are device times from CUDA events over back-to-back launches
+(the stream sleeps while the host queues them). Each kernel's entry in the
+JSON summary carries its bound: the larger of
+the bytes it must move over 3.35 TB/s and its operations over 67 T/s (the
+H100's published device-memory rate and f32 rate outside the tensor cores;
+the XOR and popcount of kernel 6 are counted at that rate too), from this
+run's inputs, with data-dependent walks counted from their returned visit
+and distance counts. ``library_ms`` is one PyTorch call computing the same
+function where there is one (only for kernel 4: the cuBLAS product of the
+same distance matrix, which is not the top-k), else null.
 
 The second-to-last line is a JSON summary of the kernels, the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -46,6 +67,13 @@ PROBES = (3, 4, 6, 8, 12, 16)
 ADAPTIVE = (12, 2, 1.35)  # n_probe, min_probe, cut
 CLUSTER_BAR = 0.95  # recall@10 of the f32 layout at n_probe 16, cut 0
 FLAT_BAR = 0.999  # recall@10 of the f32 FlatIndex
+TIER_N = 1_000_000
+TIER_BEAMS = (100, 220, 400)
+# recall@10 floors of phase 6: (tier, beam) -> floor, below the JAX
+# package's 1M anchors (BENCHES.md:627-640)
+TIER_BARS = {("bit", 400): 0.88, ("jl512", 400): 0.95, ("jl1024-8bit", 100): 0.85}
+HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
+F32_OPS = 67e12  # H100 SXM f32 outside the tensor cores, operations/s
 
 
 def log(*a):
@@ -62,11 +90,15 @@ def card_line():
 
 
 def time_ms(fn, reps):
-    """Mean milliseconds per call over ``reps`` calls, after one warm-up."""
+    """Mean device milliseconds per call over ``reps`` calls, after one
+    warm-up. The stream first sleeps long enough for the host to queue all
+    ``reps`` calls, so a kernel shorter than its launch's host cost is
+    timed back to back, not at the host's launch rate."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6 * min(reps, 200)))  # ~1 ms of cycles a call
     start.record()
     for _ in range(reps):
         fn()
@@ -75,9 +107,55 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def profile_window(fn, what):
+    """Run ``fn`` once under torch.profiler and print the device's busy
+    time, its idle share of the fenced wall time, and the kernels that
+    took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        log(f"profile {what}: the profiler saw no device activity")
+        return
+    busy, end_at, by_name = 0.0, float("-inf"), {}
+    for lo, hi in spans:
+        busy += max(0.0, hi - max(lo, end_at))
+        end_at = max(end_at, hi)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    total = sum(by_name.values())
+    log(f"profile {what}: wall {wall_us / 1e3:.3f} ms fenced, device busy "
+        f"{busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}, "
+        f"{len(spans)} device activities")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {us / 1e3:9.3f} ms {us / total:6.1%}  {name[:90]}")
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def bound(nbytes, ops):
+    """-> dict(bound_ms, bound_by): the least time the card could take, the
+    larger of the bytes over the memory rate and the operations over the
+    f32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+    if t_bytes >= t_ops:
+        return dict(bound_ms=t_bytes, bound_by="bytes")
+    return dict(bound_ms=t_ops, bound_by="operations")
+
+
+def unique_rows(ids, n_pad):
+    return int(torch.unique(ids.long().clamp(0, n_pad - 1)).numel())
 
 
 def phase_environment():
@@ -122,10 +200,13 @@ def kernel_expand(gen, dev):
     ms = time_ms(lambda: expand_distances(inline, ids, q_int, metric=Metric.L2), 20)
     plain_ms = time_ms(
         lambda: expand_distances_plain(inline, ids, q_int, metric=Metric.L2), 5)
+    b = bound(unique_rows(ids, n_pad) * R8 * d + B * d * 4 + B * 4 + B * R8 * 4,
+              3 * B * R8 * d)
     log(f"kernel 1 expand_distances B={B} inline={tuple(inline.shape)}: "
         f"bit-equal (L2, MIPS); f32 queries within 1e-5; "
-        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
 def _prune_rows(gen, dev, B, C, d):
@@ -159,11 +240,14 @@ def kernel_occlude(gen, dev):
                                               metric=Metric.L2), 20)
         plain_ms = time_ms(lambda: occlusion_rounds_plain(
             dist, vecs, alpha, R=R, metric=Metric.L2), 3)
-        times[(C, R)] = (ms, plain_ms)
+        # each selected star is compared with the row's C candidates
+        stars = int((out < R).sum())
+        b = bound(B * C * (4 + d + 4), 3 * stars * C * d)
+        times[(C, R)] = dict(ms=ms, plain_ms=plain_ms, **b)
         log(f"kernel 2 occlusion_rounds B={B} C={C} R={R} d={d}: rounds equal; "
-            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms")
-    ms, plain_ms = times[(96, 32)]
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms)
+            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+            f"({b['bound_by']}, {stars} stars)")
+    return dict(max_abs_err=0.0, library_ms=None, **times[(96, 32)])
 
 
 def bitonic_check(gen, dev):
@@ -184,6 +268,17 @@ def bitonic_check(gen, dev):
               f"bitonic (key, payload) pairs differ from a stable lexsort (W={W})")
     log("bitonic device code (test launch, W=64/128/1024): keys equal torch.sort, "
         "(key, payload) pairs equal a stable lexsort")
+    # the cluster search's pool sort is 10K rows of 256 lanes
+    rows, W = 10_000, 256
+    keys = torch.randint(0, W, (rows, W), generator=gen).float().to(dev)
+    vals = torch.randint(0, 2**30, (rows, W), generator=gen, dtype=torch.int32).to(dev)
+    ms = time_ms(lambda: bitonic_sort_rows(keys, vals), 20)
+    plain_ms = time_ms(lambda: lexsort((keys, vals)), 20)
+    lib_ms = time_ms(lambda: torch.sort(keys, dim=1, stable=True), 20)
+    b = bound(rows * W * 16, 0)
+    log(f"bitonic_sort_rows {rows} x {W} (with its two input copies): {ms:.4f} ms; "
+        f"plain lexsort {plain_ms:.4f} ms; torch.sort of the keys {lib_ms:.4f} ms; "
+        f"bound {b['bound_ms']:.4f} ms (bytes)")
 
 
 def make_data():
@@ -266,7 +361,15 @@ def kernel_flat(X, Q, gen, dev):
                 note += f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms"
             log(f"kernel 4 flat_topk {name} {metric.name} B={B} N={n} d=128 k={K}: {note}")
     ms, plain_ms = out["f32"]
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    # no PyTorch call computes the top-k; the cuBLAS product of the same
+    # (B, N) L2 distance matrix (||x||^2 - 2 q.x, TF32 off) is the yardstick
+    x = PointSet.from_numpy(X, device=dev).data[:n]
+    xn = (x * x).sum(1)[None, :]
+    lib_ms = time_ms(lambda: torch.addmm(xn, q, x.T, beta=1.0, alpha=-2.0), 3)
+    b = bound(n * 128 * 4 + B * 128 * 4 + B * K * 8, 2 * B * n * 128)
+    log(f"kernel 4 flat_topk f32: bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
+        f"torch.addmm of the distance matrix alone {lib_ms:.4f} ms")
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
 
 
 def slice_run(X, Q, dev):
@@ -348,9 +451,16 @@ def kernel_fusedbeam(idx, Q, dev):
     err = float((torch.where(ok, dist, 0) - torch.where(rok, rdist, 0)).abs().max())
     ms = time_ms(lambda: beam_search_fused(*args, **kw), 10)
     plain_ms = time_ms(lambda: beam_search_fused_plain(*args, **kw), 2)
-    log(f"kernel 3 beam_search_fused B=1024 L={L} on the built graph: valid "
-        f"(dist, id) sets, nv, cmps equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # per expansion one adjacency row and degree, per distance one int8 row
+    B, d, R = q.shape[0], q.shape[1], g.neighbors.shape[1]
+    n_cmp, n_vis = int(cm.sum()), int(nv.sum())
+    b = bound(n_cmp * d + n_vis * (R + 1) * 4 + B * d * 4 + starts.numel() * 4
+              + B * L * 8 + B * 8, 3 * n_cmp * d)
+    log(f"kernel 3 beam_search_fused B={B} L={L} on the built graph: valid "
+        f"(dist, id) sets, nv, cmps equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms; "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {n_vis} visits, "
+        f"{n_cmp} distances)")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
 def _no_duplicates(ids):
@@ -404,7 +514,7 @@ def kernel_cluster(indexes, Q, dev):
     from parlayann_tpu_torch.ops import quantize
     from parlayann_tpu_torch.ops.distance import INF
     from parlayann_tpu_torch.ops.kernels.clusterbeam import (
-        cluster_walk, cluster_walk_plain, seed_centroids)
+        POOL_DEPTH, cluster_walk, cluster_walk_plain, seed_centroids)
 
     q_full = torch.as_tensor(Q[:1024]).to(dev)
     out = {}
@@ -441,11 +551,18 @@ def kernel_cluster(indexes, Q, dev):
                   n_points=ci.points.n, n_probe=16)
         ms = time_ms(lambda: cluster_walk(*args, **kw), 10)
         plain_ms = time_ms(lambda: cluster_walk_plain(*args, **kw), 2)
-        out[layout] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        # per probe one ext row, distances to its m members and Rc centroids
+        n_vis = int(cluster_walk(*args, **kw)[2].sum())
+        B, d = q.shape
+        row_bytes = ci.ext.shape[1] * d * ci.ext.element_size()
+        b = bound(n_vis * row_bytes + B * d * 4 + sd.numel() * 8
+                  + B * POOL_DEPTH * ci.m * 8 + B * 4, 3 * n_vis * (ci.m + ci.Rc) * d)
+        out[layout] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
         log(f"kernel 5 cluster_walk {layout} ext B=1024 m={ci.m} Rc={ci.Rc} on the built "
             f"index: nv, cmps and valid (dist, id) pool sets equal at n_probe 16 and "
             f"adaptive; max abs err {err:.3g}; n_probe=16 {ms:.4f} ms vs plain "
-            f"{plain_ms:.4f} ms")
+            f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
+            f"{n_vis} probes)")
     return out
 
 
@@ -475,6 +592,132 @@ def flat_run(X, Q, gt, dev):
     return launches
 
 
+def tier_run(dev):
+    """Phase 6: the capacity tiers at bench_1m_tiers' size -> (launches,
+    the tiers' inline words and query words for kernel 6's check)."""
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.ops import quantize
+    from parlayann_tpu_torch.ops.kernels.expand import expand_bits_flat, expand_distances
+    from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
+    from parlayann_tpu_torch.search import exact
+    from parlayann_tpu_torch.harness.recall import compute_recall
+    from parlayann_tpu_torch.utils import synthetic
+
+    t0 = time.perf_counter()
+    X, Q = synthetic.clustered(TIER_N, 128, n_queries=10_000, n_clusters=10_000,
+                               cluster_std=0.35, seed=SEED)
+    log(f"data: synthetic clustered {X.shape}, {len(Q)} queries, 10000 clusters "
+        f"({time.perf_counter() - t0:.2f} s)")
+    wrappers = (expand_distances, occlusion_rounds, expand_bits_flat)
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph, points, stats = pt.build_vamana_index(
+        X, R=32, L=64, alpha=1.2, batch_cap_frac=0.04, device=dev)
+    torch.cuda.synchronize()
+    avg_deg, max_deg = graph.stats()
+    log(f"build: {time.perf_counter() - t0:.3f} s (q8, R=32 L=64 alpha=1.2, 2 passes, "
+        f"batch_cap_frac=0.04); degree avg {avg_deg:.3f} max {max_deg}; "
+        f"visited {stats.total_visited} cmps {stats.total_cmps}")
+    t0 = time.perf_counter()
+    gt_ids, gt_d = exact.compute_groundtruth(points, Q, 2 * K)
+    log(f"ground truth: exact top-{2 * K} on the card, {time.perf_counter() - t0:.3f} s")
+
+    q = torch.from_numpy(Q).to(dev)
+    idx = pt.Index(points=points, graph=graph)
+    sample = torch.arange(0, len(Q), 37, device=dev)
+    kept, recall = {}, {}
+    tiers = (("bit", TIER_BEAMS, lambda: idx.enable_bit_tier()),
+             ("jl512", TIER_BEAMS, lambda: idx.enable_jl(jl_dims=512, bits=1)),
+             ("jl1024-8bit", (100,),
+              lambda: idx.enable_jl(jl_dims=1024, bits=8, sparse_nnz=6)))
+    for name, beams, enable in tiers:
+        idx.bit_points = idx.jl_tier = None
+        t0 = time.perf_counter()
+        enable()
+        torch.cuda.synchronize()
+        log(f"tier {name}: built in {time.perf_counter() - t0:.3f} s")
+        for beam in beams:
+            ids, dists, res, dt = idx.batch_search_timed(
+                q, k=K, beam_size=beam, rerank_factor=20, rounds=1)
+            what = f"tier {name} beam {beam}"
+            check(ids.shape == (len(Q), K) and bool((ids >= 0).all())
+                  and bool((ids < TIER_N).all()), f"{what}: malformed ids")
+            check(_no_duplicates(ids), f"{what}: duplicate ids")
+            # the reranked distances are the f32 distances of the ids
+            s_ids = ids[sample].long()
+            want = ((points.data[s_ids] - q[sample][:, None, :]) ** 2).sum(-1)
+            torch.testing.assert_close(dists[sample], want, rtol=1e-5, atol=0)
+            r = compute_recall(ids.cpu().numpy(), gt_ids, gt_d, K)
+            recall[(name, beam)] = r
+            log(f"{what}: recall@{K} {r:.4f}  QPS {len(Q) / dt:.1f}  "
+                f"({dt * 1e3:.3f} ms; visited {float(res.num_visited.float().mean()):.2f} "
+                f"cmps {float(res.dist_cmps.float().mean()):.1f})")
+        profile_window(lambda: idx.batch_search(q, k=K, beam_size=beams[0],
+                                                rerank_factor=20),
+                       f"tier {name} beam {beams[0]}")
+        if idx.jl_tier is None or idx.jl_tier.bits == 1:
+            tier = idx.bit_points if idx.jl_tier is None else idx.jl_tier.points
+            inline = idx.inline_bits
+            check(idx._inline_bits_src is tier, f"tier {name}: stale inline words")
+            qw = (quantize.bit_translate_query(q, tier) if idx.jl_tier is None
+                  else idx.jl_tier.translate_query(q))
+            kept[name] = (inline, qw)
+            log(f"tier {name}: inline words {tuple(inline.shape)} "
+                f"{inline.numel() * 4 / 1e9:.3f} GB; tier words "
+                f"{tier.data.numel() * 4 / 1e6:.1f} MB")
+        else:
+            log(f"tier {name}: int8 projections {tuple(idx.jl_tier.points.data.shape)} "
+                f"{idx.jl_tier.points.data.numel() / 1e9:.3f} GB (no inline array)")
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    log(f"peak device memory in phase 6: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("launches during the tier slice:", launches)
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by the tier slice")
+    for (name, beam), floor in TIER_BARS.items():
+        check(recall[(name, beam)] >= floor, f"tier {name} recall@{K} at beam {beam} "
+              f"is {recall[(name, beam)]:.4f} < {floor}")
+    return launches, kept
+
+
+def kernel_bits(kept, gen, dev):
+    """Kernel 6 against its plain version on the tiers' inline words, B=32000
+    random vertices with the tier's own query words. The timed launches
+    cycle through 8 id sets, more rows than the 50 MB L2 cache holds, so
+    each launch reads its rows from device memory as a search step does."""
+    import itertools
+
+    from parlayann_tpu_torch.types import Metric
+    from parlayann_tpu_torch.ops.kernels.expand import (
+        expand_bits_flat, expand_bits_flat_plain, expand_distances)
+
+    B, out = 32_000, {}
+    for name, (inline, qw) in kept.items():
+        n_pad, R8, W = inline.shape
+        id_sets = [torch.randint(0, n_pad, (B,), generator=gen, dtype=torch.int32).to(dev)
+                   for _ in range(8)]
+        ids = id_sets[0]
+        q = qw[torch.arange(B, device=dev) % qw.shape[0]].contiguous()
+        got = expand_bits_flat(inline, ids, q)
+        ref = expand_bits_flat_plain(inline, ids, q)
+        check(torch.equal(got, ref), f"expand_bits_flat W={W} not bit-equal")
+        check(torch.equal(expand_distances(inline, ids, q, metric=Metric.L2, bits=1), ref),
+              f"expand_distances(bits=1) W={W} not bit-equal")
+        cycle = itertools.cycle(id_sets)
+        ms = time_ms(lambda: expand_bits_flat(inline, next(cycle), q), 48)
+        plain_ms = time_ms(lambda: expand_bits_flat_plain(inline, ids, q), 5)
+        b = bound(unique_rows(ids, n_pad) * R8 * W * 4 + B * W * 4 + B * 4 + B * R8 * 4,
+                  3 * B * R8 * W)
+        out[W] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+        log(f"kernel 6 expand_bits_flat {name} B={B} inline={tuple(inline.shape)}: "
+            f"bit-equal, and through expand_distances(bits=1); {ms:.4f} ms vs plain "
+            f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -502,6 +745,12 @@ def main():
     k5 = kernel_cluster(indexes, Q, dev)
     log("== phase 5: the FlatIndex slice")
     launches["flat_topk"] = flat_run(X, Q, gt, dev)
+    del indexes, idx
+    log("== phase 6: the capacity tiers at 1M (q8 build, 1-bit and JL search)")
+    tier_launches, kept = tier_run(dev)
+    launches["expand_bits_flat"] = tier_launches["expand_bits_flat"]
+    log("== phase 2 (continued): kernel 6 on the tiers' inline words")
+    k6 = kernel_bits(kept, gen, dev)
 
     kernels = [
         dict(name="expand_distances", route="cuda",
@@ -524,6 +773,11 @@ def main():
              source="parlayann_tpu_torch/csrc/clusterbeam.cu",
              replaces="parlayann_tpu/ops/pallas/clusterbeam.py:351",
              launches=launches["cluster_walk"], **k5["f32"]),
+        # also the bits=1 mode of expand_distances (expand.py:129)
+        dict(name="expand_bits_flat", route="cuda",
+             source="parlayann_tpu_torch/csrc/expandbits.cu",
+             replaces="parlayann_tpu/ops/pallas/expand.py:301",
+             launches=launches["expand_bits_flat"], **k6[4]),
     ]
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

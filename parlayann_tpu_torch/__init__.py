@@ -6,10 +6,14 @@ is PyTorch; every Pallas kernel on the ported path is a hand-written CUDA
 kernel for Hopper (``csrc/``), built with nvcc at first use and bound through
 ctypes. Nothing here imports jax.
 
-Ported so far: the q8 Vamana build (:func:`build_vamana_index`) and the q8
-fused beam search with full-precision rerank (:class:`Index`); the
+Ported so far: the q8 Vamana build (:func:`build_vamana_index`); the
+search of :class:`Index` on the q8 tier (the fused beam), on the packed
+1-bit tier (``enable_bit_tier``) and on the JL tiers (``enable_jl``, 1-bit
+and 8-bit, dense and sparse), each with a full-precision rerank; the
 ClusterIndex build and search (:func:`build_cluster_index`,
 :class:`ClusterIndex`); the flat brute-force search (:class:`FlatIndex`).
+Entry points that place data take ``device``; ``None`` means the CUDA
+card, and without one they raise rather than run on the CPU.
 """
 
 from parlayann_tpu_torch.types import BuildParams, QueryParams, Metric

@@ -70,11 +70,11 @@ def build_vamana_index(data, metric="Euclidian", R: int = 64, L: int = 128,
 
 
 def build_cluster_index(data, metric="Euclidian", m: int = 64, Rc: int = 16,
-                        device="cpu", **kwargs):
+                        device=None, **kwargs):
     """Validated ClusterIndex build (api.py:132-151) -> ClusterIndex.
-    ``data`` becomes a PointSet on ``device`` unless it is one; keyword
-    arguments go to :meth:`ClusterIndex.build` (``slack``, ``iters``,
-    ``ext_dtype``, ``seed``, ...)."""
+    ``data`` becomes a PointSet on ``device`` (None: the card) unless it
+    is one; keyword arguments go to :meth:`ClusterIndex.build` (``slack``,
+    ``iters``, ``ext_dtype``, ``seed``, ...)."""
     from parlayann_tpu_torch.build.clusterindex import ClusterIndex
 
     data = _valid_data(data)

@@ -212,13 +212,14 @@ def build_vamana_index(
     verbose: bool = False,
     seed: int = 0,
     batch_cap_frac: float = 0.02,
-    device="cpu",
+    device=None,
 ):
     """diskannpy-style wrapper (python/builder.cpp:40-90): MIPS data is
     normalized with a dimension-dependent alpha, and float or uint8 inputs
     build on the q8 tier; search reranks at full precision. Returns
-    (graph, full-precision PointSet, BuildStats). ``data`` is an array or a
-    PointSet (which keeps its own device)."""
+    (graph, full-precision PointSet, BuildStats). ``data`` is an array,
+    placed on ``device`` (None: the card), or a PointSet (which keeps its
+    own device)."""
     metric = Metric.coerce(metric)
     ps = data if isinstance(data, PointSet) else PointSet.from_numpy(
         np.asarray(data), metric=metric, normalize=(metric is Metric.MIPS),

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from parlayann_tpu_torch.data.pointset import pad_to
+from parlayann_tpu_torch.utils.device import resolve
 
 
 @dataclasses.dataclass
@@ -32,7 +33,9 @@ class GraphIndexData:
 
     @staticmethod
     def from_numpy(neighbors: np.ndarray, degrees: np.ndarray, n=None,
-                   row_pad: int = 8, device="cpu") -> "GraphIndexData":
+                   row_pad: int = 8, device=None) -> "GraphIndexData":
+        """``device=None`` is the card (utils/device.py:resolve)."""
+        device = resolve(device)
         n = n if n is not None else neighbors.shape[0]
         max_degree = neighbors.shape[1]
         n_p = pad_to(max(n, 1), row_pad)

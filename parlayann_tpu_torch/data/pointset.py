@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from parlayann_tpu_torch.types import Metric
+from parlayann_tpu_torch.utils.device import resolve
 
 
 def pad_to(x: int, m: int) -> int:
@@ -26,9 +27,13 @@ class PointSet:
     """A set of n d-dimensional vectors on ``data.device``.
 
     ``data`` is ``(n_pad, d)`` in the storage dtype (float32, uint8 or
-    int8). ``bits`` is the quantization tier: 32 (full precision) or 8
-    (scalar-quantized int8). ``quant_slope``/``quant_offset`` are 0-d
-    float32 tensors on the same device for a quantized tier.
+    int8). ``bits`` is the quantization tier: 32 (full precision), 8
+    (scalar-quantized int8) or 1 (packed sign bits). ``quant_slope`` and
+    ``quant_offset`` are 0-d float32 tensors on the same device for the
+    8-bit tier. The 1-bit tier's ``data`` is ``(n_pad, W)`` int32 words,
+    W = ceil(d / 32), bit j of word w holding coordinate 32 w + j (the JAX
+    package's uint32 words with the same bits); its ``quant_offset`` is the
+    ``(d,)`` float32 threshold vector and ``quant_slope`` is None.
     """
 
     data: torch.Tensor
@@ -53,8 +58,10 @@ class PointSet:
         metric: Metric = Metric.L2,
         normalize: bool = False,
         row_pad: int = 8,
-        device="cpu",
+        device=None,
     ) -> "PointSet":
+        """``device=None`` is the card (utils/device.py:resolve)."""
+        device = resolve(device)
         arr = np.asarray(arr)
         metric = Metric.coerce(metric)
         n, d = arr.shape

@@ -1,12 +1,22 @@
-"""Index — the query-side handle (graph + points + the q8 tier).
+"""Index — the query-side handle (graph + points + the search tiers).
 
 Counterpart of parlayann_tpu/index.py (GraphIndex, python/graph_index.cpp:
-82-305). ``batch_search`` on the q8 tier is the JAX package's fused path
-(``_fused_search_1d``, index.py:63-93): entry top-1 over a sampled tier (or
-the given starts) -> query translation to q8 -> kernel 3's beam search ->
-full-precision rerank. The configurations this slice does not serve raise
-NotImplementedError naming the ROADMAP item; none falls back to another
-path.
+82-305). ``batch_search`` picks the tier by the JAX package's priority,
+1-bit > JL > q8 (index.py:343-367):
+
+- the packed 1-bit tier (``enable_bit_tier``) and the JL sign-bit tier
+  (``enable_jl(bits=1)``) run the lock-step ``beam_search_batch(bits=1)``
+  with ``k=0`` over an inline word array through kernel 6
+  (``expand_bits_flat``);
+- the JL 8-bit tier (``enable_jl(bits=8)``) runs the lock-step search with
+  ``k`` over its int8 projections, gathering rows;
+- the q8 tier is the JAX package's fused path (``_fused_search_1d``,
+  index.py:63-93) on kernel 3.
+
+Every tier starts from the entry top-1 over a sampled tier (or the given
+starts, or ``start_point``) and ends in the full-precision rerank. The
+configurations this slice does not serve raise NotImplementedError naming
+the ROADMAP item; none falls back to another path.
 """
 
 from __future__ import annotations
@@ -21,7 +31,9 @@ from parlayann_tpu_torch.types import Metric, QueryParams
 from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.data.graph import GraphIndexData
 from parlayann_tpu_torch.ops import quantize
+from parlayann_tpu_torch.ops.kernels.expand import build_inline_bits
 from parlayann_tpu_torch.ops.kernels.fusedbeam import beam_search_fused
+from parlayann_tpu_torch.search.beam import beam_search_batch
 from parlayann_tpu_torch.search.rerank import rerank_topk
 from parlayann_tpu_torch.utils.timing import timed_rounds
 
@@ -56,6 +68,11 @@ class Index:
     graph: GraphIndexData
     start_point: int = 0
     qpoints: Optional[PointSet] = None  # q8 tier (graph_index.cpp:86-101)
+    bit_points: Optional[PointSet] = None  # packed 1-bit tier
+    jl_tier: Optional[quantize.JLTier] = None
+    # (n_pad, R8, W) int32 inline words of a 1-bit tier, and that tier
+    inline_bits: Optional[torch.Tensor] = None
+    _inline_bits_src: Optional[PointSet] = None
     # sampled entry tier: each query starts from its exact nearest point in
     # a fixed ~4K uniform sample instead of ``start_point``
     entry_ids: Optional[torch.Tensor] = None
@@ -71,6 +88,34 @@ class Index:
         """Build the scalar-quantized search tier (graph_index.cpp:86-101)."""
         self.qpoints = quantize.quantize_pointset(self.points, bits=bits, trim=trim)
         return self
+
+    def enable_bit_tier(self) -> "Index":
+        """Build the packed 1-bit tier (Euclidean_Bit_Point /
+        Mips_Bit_Point, euclidian_point.h:332-420, mips_point.h:625-700):
+        beam search runs on hamming distances, the rerank restores
+        precision."""
+        self.bit_points = quantize.bit_quantize(self.points)
+        return self
+
+    def enable_jl(self, jl_dims: int = 64, bits: int = 8, seed: int = 0,
+                  sparse_nnz: int = 0) -> "Index":
+        """Build a JL search tier (jl_point.h; graph_index.cpp:86-101) over
+        quantized random projections; ``bits=1`` is the sign-bit hamming
+        variant."""
+        self.jl_tier = quantize.JLTier(self.points, jl_dims=jl_dims, bits=bits,
+                                       seed=seed, sparse_nnz=sparse_nnz)
+        return self
+
+    def build_inline_bits_cache(self, src: PointSet) -> torch.Tensor:
+        """Inline words of the 1-bit tier ``src`` (n_pad, R8, W) for kernel
+        6, kept for the next search. Keyed on the source tier itself: the
+        1-bit and the JL sign-bit tiers have different W, and a cache of
+        the other tier would give wrong distances."""
+        if self.inline_bits is None or self._inline_bits_src is not src:
+            self.inline_bits = None  # free the stale array before the new one
+            self.inline_bits = build_inline_bits(src.data, self.graph.neighbors)
+            self._inline_bits_src = src
+        return self.inline_bits
 
     def build_entry_cache(self, E: int = 4096, seed: int = 0):
         """Fixed uniform sample for the entry tier, drawn as the JAX package
@@ -88,23 +133,22 @@ class Index:
                      degree_limit: Optional[int] = None, expand: int = 1,
                      rerank_factor: int = 10, random_starts: int = 0,
                      starts=None):
-        """Search all query rows -> (ids (B, k), dists (B, k), FusedResult).
+        """Search all query rows -> (ids (B, k), dists (B, k), result): a
+        FusedResult on the q8 tier, the BeamResult of the lock-step search
+        on the 1-bit and JL tiers.
 
         ``starts``: optional per-query start ids, (B,) or (B, S); they take
         precedence over the entry tier and ``start_point``. The rerank pool
         is min(k * rerank_factor, beam)."""
-        if self.qpoints is None:
-            _not_ported("search without the q8 tier (the f32 tier)",
-                        "queue 1, item 17")
-        if expand != 1:
-            _not_ported("multi-expansion search (expand > 1)", "queue 2")
         if random_starts > 0:
             _not_ported("random_starts", "queue 1, item 11")
+        if (self.bit_points is None and self.jl_tier is None
+                and self.qpoints is None):
+            _not_ported("search without a quantized tier (the f32 tier)",
+                        "queue 1, item 17")
         qp = QueryParams(k=k, beamSize=beam_size, cut=cut, limit=limit,
                          degree_limit=degree_limit).resolved(
             self.graph.max_degree, self.points.n)
-        if qp.degree_limit < self.graph.max_degree:
-            _not_ported("degree_limit < R on the fused path", "queue 2")
         qf = torch.as_tensor(queries).to(self.device, torch.float32)
         if starts is not None:
             start_arr = torch.as_tensor(starts).to(self.device, torch.int32)
@@ -119,14 +163,46 @@ class Index:
         else:
             start_arr = torch.tensor([self.start_point], dtype=torch.int32,
                                      device=self.device)
-        tier = self.qpoints
         L = max(qp.beamSize, k)
+        pool = min(max(k * rerank_factor, k), L)
+        # the coarse 1-bit tiers have huge tie classes, so the metric cut
+        # rule is unusable: they search with k=0 (pure beam) and the rerank
+        # restores precision (beamSearch.h:394-454)
+        if self.bit_points is not None:
+            tier = self.bit_points
+            q = quantize.bit_translate_query(qf, tier)
+            bits, search_k = 1, 0
+        elif self.jl_tier is not None:
+            tier = self.jl_tier.points
+            q = self.jl_tier.translate_query(qf)
+            bits = 1 if self.jl_tier.bits == 1 else 32
+            search_k = 0 if bits == 1 else k
+        else:
+            return self._search_q8(qf, start_arr, qp, k, L, pool, expand)
+        inline = self.build_inline_bits_cache(tier) if bits == 1 else None
+        res = beam_search_batch(
+            q, tier.data, self.graph.neighbors, self.graph.degrees, start_arr,
+            None, inline, metric=tier.metric, n_valid=tier.n, k=search_k, L=L,
+            cut=qp.cut, limit=qp.limit, degree_limit=qp.degree_limit,
+            expand=expand, bits=bits)
+        ids, dists = rerank_topk(qf, self.points.data, res.beam_ids, k=k,
+                                 pool=pool, metric=self.points.metric)
+        return ids, dists, res
+
+    def _search_q8(self, qf, start_arr, qp, k, L, pool, expand):
+        """The q8 tier's fused path: kernel 3 walks each query, then the
+        rerank."""
+        if expand != 1:
+            _not_ported("multi-expansion search (expand > 1) on the q8 tier",
+                        "queue 2")
+        if qp.degree_limit < self.graph.max_degree:
+            _not_ported("degree_limit < R on the fused path", "queue 2")
+        tier = self.qpoints
         q_t = quantize.translate_query(qf, tier).float()
         fid, _, nv, cmps = beam_search_fused(
             q_t, tier.data, self.graph.neighbors, self.graph.degrees, start_arr,
             metric=tier.metric, n_valid=tier.n, k=k, L=L, cut=qp.cut,
             limit=qp.limit)
-        pool = min(max(k * rerank_factor, k), L)
         ids, dists = rerank_topk(qf, self.points.data, fid, k=k, pool=pool,
                                  metric=self.points.metric)
         return ids, dists, FusedResult(ids, dists, nv, cmps)

@@ -1,7 +1,8 @@
 """Carry state between the JAX package and the port, as numpy arrays.
 
-The JAX package's ``PointSet``, ``GraphIndexData``, ``Index.entry_ids``,
-``ClusterIndex`` and ``FlatIndex`` are plain arrays plus metadata; these
+The JAX package's ``PointSet`` (every tier), ``GraphIndexData``,
+``Index.entry_ids``, ``JLTier``, ``ClusterIndex`` and ``FlatIndex`` are
+plain arrays plus metadata; these
 functions build the port's objects from those arrays (given as numpy), so
 both packages can search one graph or one cluster index.
 The other direction needs nothing here: the port's tensors convert with
@@ -19,8 +20,10 @@ from parlayann_tpu_torch.types import Metric
 from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.data.graph import GraphIndexData
 from parlayann_tpu_torch.index import Index
+from parlayann_tpu_torch.ops.quantize import JLTier
 from parlayann_tpu_torch.build.clusterindex import ClusterIndex
 from parlayann_tpu_torch.search.flat import FlatIndex
+from parlayann_tpu_torch.utils.device import resolve
 
 
 def _metric(metric) -> Metric:
@@ -30,38 +33,59 @@ def _metric(metric) -> Metric:
 
 def pointset_from_state(data: np.ndarray, n: int, d: int, metric, bits: int = 32,
                         quant_slope=None, quant_offset=None,
-                        device="cpu") -> PointSet:
-    """A PointSet from ``PointSet.data`` (already padded) and its fields."""
-    def scalar(v):
-        return None if v is None else torch.tensor(
-            float(np.asarray(v)), dtype=torch.float32, device=device)
+                        device=None) -> PointSet:
+    """A PointSet from ``PointSet.data`` (already padded) and its fields,
+    on ``device`` (None: the card). The 1-bit tier's uint32 words become
+    int32 words with the same bits, and its ``(d,)`` threshold vector stays
+    a vector."""
+    device = resolve(device)
 
+    def f32(v):
+        return None if v is None else torch.tensor(
+            np.asarray(v, dtype=np.float32), device=device)
+
+    arr = np.asarray(data)
+    if arr.dtype == np.uint32:
+        arr = arr.view(np.int32)
     return PointSet(
-        data=torch.tensor(np.asarray(data)).to(device), n=int(n),
+        data=torch.tensor(arr).to(device), n=int(n),
         d=int(d), metric=_metric(metric), bits=int(bits),
-        quant_slope=scalar(quant_slope), quant_offset=scalar(quant_offset))
+        quant_slope=f32(quant_slope), quant_offset=f32(quant_offset))
 
 
 def graph_from_state(neighbors: np.ndarray, degrees: np.ndarray, n: int,
-                     max_degree: int, device="cpu") -> GraphIndexData:
-    """A GraphIndexData from the padded ``neighbors``/``degrees`` arrays."""
+                     max_degree: int, device=None) -> GraphIndexData:
+    """A GraphIndexData from the padded ``neighbors``/``degrees`` arrays,
+    on ``device`` (None: the card)."""
+    device = resolve(device)
     return GraphIndexData(
         neighbors=torch.tensor(np.asarray(neighbors, dtype=np.int32)).to(device),
         degrees=torch.tensor(np.asarray(degrees, dtype=np.int32)).to(device),
         n=int(n), max_degree=int(max_degree))
 
 
+def jl_tier_from_state(points: PointSet, proj: np.ndarray, bits: int,
+                       tier_state: PointSet) -> JLTier:
+    """A JLTier from the JAX ``JLTier.proj`` and its quantized ``points``
+    (already converted by :func:`pointset_from_state`), installed as they
+    are over the full-precision ``points``."""
+    return JLTier(points, bits=bits, proj=np.array(proj, dtype=np.float32),
+                  points=tier_state)
+
+
 def index_from_state(points: PointSet, graph: GraphIndexData,
                      entry_ids: Optional[np.ndarray] = None,
-                     qpoints: Optional[PointSet] = None) -> Index:
-    """An Index over converted points and graph; ``entry_ids`` (the JAX
-    Index's sampled entry tier) are installed as they are."""
-    idx = Index(points=points, graph=graph, qpoints=qpoints)
+                     qpoints: Optional[PointSet] = None,
+                     bit_points: Optional[PointSet] = None,
+                     jl_tier: Optional[JLTier] = None) -> Index:
+    """An Index over converted points, graph and tiers; ``entry_ids`` (the
+    JAX Index's sampled entry tier) are installed as they are."""
+    idx = Index(points=points, graph=graph, qpoints=qpoints,
+                bit_points=bit_points, jl_tier=jl_tier)
     if entry_ids is not None:
         idx.entry_ids = torch.tensor(np.asarray(entry_ids, dtype=np.int32)).to(points.device)
         idx.entry_vecs = points.data[idx.entry_ids.long()]
     return idx
-
 
 
 def cluster_index_from_state(points: PointSet, members: np.ndarray,

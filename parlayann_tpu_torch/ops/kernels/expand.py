@@ -1,12 +1,20 @@
-"""Kernel 1: frontier-expansion distances over inline neighbour vectors.
+"""Kernels 1 and 6: frontier-expansion distances over inline neighbours.
 
 Counterpart of parlayann_tpu/ops/pallas/expand.py (``build_inline`` :30,
-``expand_distances`` :129). ``inline[v, j]`` is the vector of the j-th
-neighbour of vertex v; for B queries the kernel returns the distances to
-the R8 inline neighbours of ``expand_ids[b]``. Slots at or beyond a
-vertex's degree hold garbage distances that the caller masks. The CUDA
-kernel is ``csrc/expand.cu``; ``expand_distances_plain`` is the same
-function in PyTorch.
+``expand_distances`` :129, ``expand_bits_flat`` :301). ``inline[v, j]`` is
+the vector of the j-th neighbour of vertex v; for B queries a kernel
+returns the distances to the R8 inline neighbours of ``expand_ids[b]``.
+Slots at or beyond a vertex's degree hold garbage distances that the
+caller masks.
+
+Kernel 1 (``expand_distances``, ``csrc/expand.cu``) reads int8 vectors.
+Kernel 6 (``expand_bits_flat``, ``csrc/expandbits.cu``) reads the 1-bit
+tier's packed int32 words and returns XOR + popcount hamming distances; it
+also serves ``expand_distances(bits=1)``. Its inline array is
+``build_inline`` of the word array, ``(n_pad, R8, W)``: the JAX package's
+flat ``(n_pad, rws, 128)`` layout and its lane-group sums exist only for
+Mosaic's 128-lane DMA rule and are not carried over. Each ``*_plain``
+function is the same function in PyTorch.
 """
 
 from __future__ import annotations
@@ -14,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from parlayann_tpu_torch.types import Metric
-from parlayann_tpu_torch.ops import distance
+from parlayann_tpu_torch.ops import distance, quantize
 from parlayann_tpu_torch.ops.kernels import _lib
 
 
@@ -35,22 +43,74 @@ def build_inline(points_data: torch.Tensor, nbrs: torch.Tensor,
     return out
 
 
+def build_inline_bits(words: torch.Tensor, nbrs: torch.Tensor,
+                      chunk_rows: int = 65536) -> torch.Tensor:
+    """(n_pad, W) int32 words, (n_pad, R) -> (n_pad, R8, W) int32 inline
+    words: :func:`build_inline` of the word array, the layout the JAX
+    ``expand_distances(bits=1)`` reads."""
+    return build_inline(words, nbrs, chunk_rows)
+
+
+def expand_bits_flat_plain(inline: torch.Tensor, expand_ids: torch.Tensor,
+                           q_words: torch.Tensor) -> torch.Tensor:
+    """Kernel 6's function in PyTorch: (B, R8) f32 hamming distances."""
+    rows = inline[expand_ids.long().clamp(0, inline.shape[0] - 1)]
+    return quantize.hamming_distance(q_words, rows)
+
+
+def expand_bits_flat(inline: torch.Tensor, expand_ids: torch.Tensor,
+                     q_words: torch.Tensor) -> torch.Tensor:
+    """-> (B, R8) f32 hamming distances from the packed query b to the
+    inline neighbours of ``expand_ids[b]`` (ids are clamped into range).
+    CPU tensors run :func:`expand_bits_flat_plain`; CUDA tensors launch
+    kernel 6, which takes an int32 ``(n_pad, R8, W)`` inline array, int32
+    ids and ``(B, W)`` int32 query words."""
+    if not _lib.route(inline, expand_ids, q_words):
+        return expand_bits_flat_plain(inline, expand_ids, q_words)
+    _lib.require(inline, "inline", torch.int32, 3)
+    _lib.require(expand_ids, "expand_ids", torch.int32, 1)
+    _lib.require(q_words, "q_words", torch.int32, 2)
+    n_pad, R8, W = inline.shape
+    B = q_words.shape[0]
+    if expand_ids.shape[0] != B or q_words.shape[1] != W:
+        raise ValueError(
+            f"shape mismatch: inline {tuple(inline.shape)}, expand_ids "
+            f"{tuple(expand_ids.shape)}, q_words {tuple(q_words.shape)}")
+    out = torch.empty((B, R8), dtype=torch.float32, device=q_words.device)
+    if B == 0:
+        return out
+    fn = _lib.function("pa_expand_bits", [_lib.VP] * 4 + [_lib.INT] * 4 + [_lib.VP])
+    rc = fn(inline.data_ptr(), expand_ids.data_ptr(), q_words.data_ptr(),
+            out.data_ptr(), B, n_pad, R8, W, _lib.stream())
+    expand_bits_flat.launches += 1
+    _lib.check(rc, "expand_bits_flat")
+    return out
+
+
+expand_bits_flat.launches = 0
+
+
 def expand_distances_plain(inline: torch.Tensor, expand_ids: torch.Tensor,
-                           queries: torch.Tensor, *,
-                           metric: Metric) -> torch.Tensor:
-    """The kernel's function in PyTorch: (B, R8) f32 distances."""
+                           queries: torch.Tensor, *, metric: Metric,
+                           bits: int = 32) -> torch.Tensor:
+    """The kernels' function in PyTorch: (B, R8) f32 distances."""
+    if bits == 1:
+        return expand_bits_flat_plain(inline, expand_ids, queries)
     rows = inline[expand_ids.long().clamp(0, inline.shape[0] - 1)]
     return distance.gathered(queries, rows, metric)
 
 
 def expand_distances(inline: torch.Tensor, expand_ids: torch.Tensor,
-                     queries: torch.Tensor, *, metric: Metric) -> torch.Tensor:
+                     queries: torch.Tensor, *, metric: Metric,
+                     bits: int = 32) -> torch.Tensor:
     """-> (B, R8) f32 distances from query b to the inline neighbours of
     ``expand_ids[b]`` (ids are clamped into range). CPU tensors run
-    :func:`expand_distances_plain`; CUDA tensors launch the kernel, which
-    takes an int8 inline array, int32 ids and f32 queries. The packed
-    1-bit (``bits=1``) mode of the JAX kernel is not ported yet (ROADMAP
-    queue 2)."""
+    :func:`expand_distances_plain`; CUDA tensors launch kernel 1, which
+    takes an int8 inline array, int32 ids and f32 queries. ``bits=1``: the
+    inline array and the queries are packed int32 words and the call is
+    :func:`expand_bits_flat` (kernel 6)."""
+    if bits == 1:
+        return expand_bits_flat(inline, expand_ids, queries)
     if not _lib.route(inline, expand_ids, queries):
         return expand_distances_plain(inline, expand_ids, queries, metric=metric)
     _lib.require(inline, "inline", torch.int8, 3)

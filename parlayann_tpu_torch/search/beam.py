@@ -18,8 +18,10 @@ advance in lock-step; each step
 
 With ``record_visited`` it runs exactly ceil(limit / E) steps and returns
 the expansion sequence as the visited list (the candidates robustPrune
-reads). The filter mode (``filter_data``) and the bit tiers are not ported
-yet (ROADMAP queue 1, item 11).
+reads). ``bits=1`` searches a packed 1-bit tier: queries and points are
+int32 words and distances are XOR + popcount hamming counts, through
+``expand_distances(bits=1)`` (kernel 6) when an inline word array is given. The
+filter mode (``filter_data``) is not ported yet (ROADMAP queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from parlayann_tpu_torch.types import Metric
-from parlayann_tpu_torch.ops import distance
+from parlayann_tpu_torch.ops import distance, quantize
 from parlayann_tpu_torch.ops.distance import INF
 from parlayann_tpu_torch.ops.kernels.expand import expand_distances
 from parlayann_tpu_torch.ops.topk import lexsort
@@ -80,7 +82,7 @@ def beam_search_batch(
     degs: torch.Tensor,  # (n_pad,) int32
     starts: torch.Tensor,  # (S,) or (B, S) int32 start vertices
     self_ids: Optional[torch.Tensor] = None,  # (B,) id to exclude
-    inline: Optional[torch.Tensor] = None,  # (n_pad, R8, d) inline vectors
+    inline: Optional[torch.Tensor] = None,  # (n_pad, R8, d or W) inline rows
     *,
     metric: Metric,
     n_valid: int,
@@ -92,6 +94,7 @@ def beam_search_batch(
     expand: int = 1,
     record_visited: bool = False,
     exclude_self: bool = False,
+    bits: int = 32,
 ) -> BeamResult:
     """(See module docstring.)"""
     B = queries.shape[0]
@@ -110,6 +113,8 @@ def beam_search_batch(
 
     def gather_distances(ids, valid):
         vecs = points_data[ids.long().clamp(0, n_pad - 1)]
+        if bits == 1:
+            return torch.where(valid, quantize.hamming_distance(queries, vecs), INF)
         return torch.where(valid, distance.gathered(queries, vecs, metric), INF)
 
     # ---- init: seed the beam with the start points. Self-exclusion applies
@@ -165,11 +170,12 @@ def beam_search_batch(
             cand_valid &= cand_ids != self_ids[:, None]
         dist_cmps_new = dist_cmps + cand_valid.sum(dim=1, dtype=torch.int32)
         if inline is not None:
-            qrep = queries.float()
+            # packed words stay int32; the int8 kernel takes f32 queries
+            qrep = queries if bits == 1 else queries.float()
             if E > 1:
                 qrep = qrep.repeat_interleave(E, dim=0)
             dmat = expand_distances(inline, exp_ids_c.reshape(B * E).contiguous(),
-                                    qrep.contiguous(), metric=metric)
+                                    qrep.contiguous(), metric=metric, bits=bits)
             cand_dists = dmat.reshape(B, E, -1)[:, :, :rwidth].reshape(B, K)
             cand_dists = torch.where(cand_valid, cand_dists, INF)
         else:

@@ -48,12 +48,12 @@ def built():
     jf = jci.ClusterIndex._finish(jps, j8.members, j8.adj, cents, j8.C, M_, RC,
                                   ext_dtype="f32")
     tps = interop.pointset_from_state(np.asarray(jps.data), jps.n, jps.d,
-                                      jps.metric)
+                                      jps.metric, device="cpu")
     q8 = j8.qpoints
     tq8 = interop.pointset_from_state(
         np.asarray(q8.data), q8.n, q8.d, q8.metric, bits=8,
         quant_slope=np.asarray(q8.quant_slope),
-        quant_offset=np.asarray(q8.quant_offset))
+        quant_offset=np.asarray(q8.quant_offset), device="cpu")
     port_view = {
         "int8": interop.cluster_index_from_state(
             tps, j8.members, j8.adj, np.asarray(j8.centroids_q),
@@ -136,7 +136,8 @@ def test_torch_cluster_build_parity(built):
     X, Q = built["X"], built["Q"]
     gt_i, gt_d = built["gt"]
     j8 = built["jax"]["int8"]
-    ci = pt.build_cluster_index(X, m=M_, Rc=RC, iters=3, ext_dtype="int8")
+    ci = pt.build_cluster_index(X, m=M_, Rc=RC, iters=3, ext_dtype="int8",
+                                device="cpu")
     assert ci.C == j8.C and ci.ext.shape == j8.ext.shape
     mem = ci.members[ci.members >= 0]
     assert len(mem) == len(X) and len(np.unique(mem)) == len(X)
@@ -160,7 +161,7 @@ def test_torch_cluster_f32_layout_scores_are_exact(built):
     squared distances (no rerank)."""
     X, Q = built["X"], built["Q"]
     gt_i, gt_d = built["gt"]
-    ci = pt.build_cluster_index(X, m=M_, Rc=RC, iters=3)
+    ci = pt.build_cluster_index(X, m=M_, Rc=RC, iters=3, device="cpu")
     assert ci.ext_dtype == "f32" and ci.qpoints is None
     ids, dists, _ = ci.search_timed(Q, k=K, n_probe=8, cut=0.0)[:3]
     ids, dists = ids.numpy(), dists.numpy()
@@ -173,7 +174,7 @@ def test_torch_cluster_f32_layout_scores_are_exact(built):
 def test_torch_cluster_mips_smoke():
     X, Q = synthetic.clustered(4000, 64, n_queries=32, n_clusters=40,
                                cluster_std=0.35, seed=3)
-    ps = PointSet.from_numpy(X, metric=Metric.MIPS)
+    ps = PointSet.from_numpy(X, metric=Metric.MIPS, device="cpu")
     ci = tci.ClusterIndex.build(ps, m=64, Rc=16, iters=2)
     gt_i, gt_d = compute_groundtruth(ps, Q, K)
     ids, _, _ = ci.search(Q, k=K, n_probe=12, cut=0.0)
@@ -199,10 +200,10 @@ def test_torch_cluster_unported_paths_raise(built, monkeypatch, tmp_path):
 def test_torch_cluster_api_validation():
     X = np.random.default_rng(0).normal(size=(500, 64)).astype(np.float32)
     with pytest.raises(ValueError):
-        pt.build_cluster_index(X, m=63)  # not a multiple of 8
+        pt.build_cluster_index(X, m=63, device="cpu")  # not a multiple of 8
     with pytest.raises(ValueError):
-        pt.build_cluster_index(X, m=128)  # d < m
+        pt.build_cluster_index(X, m=128, device="cpu")  # d < m
     with pytest.raises(ValueError):
-        pt.build_cluster_index(X, metric="cosine")
-    ci = pt.build_cluster_index(X, m=32, Rc=8, iters=2)
+        pt.build_cluster_index(X, metric="cosine", device="cpu")
+    ci = pt.build_cluster_index(X, m=32, Rc=8, iters=2, device="cpu")
     assert ci.C >= 8

@@ -11,7 +11,8 @@ its plain version sum in another order. Flat top-k distances agree to rtol
 1e-5 plus 1e-6 x (||q||^2 + max ||x||^2) (the L2 algebra cancels the
 norms), and ids agree except where two distances lie within that
 tolerance; cluster-walk distances agree to rtol 1e-5 (L2) or to 1e-5 of
-the largest magnitude (MIPS, whose dot products can cancel).
+the largest magnitude (MIPS, whose dot products can cancel). Hamming
+distances over packed words are exact integers: equal.
 """
 
 import numpy as np
@@ -22,7 +23,8 @@ from parlayann_tpu_torch.types import Metric
 from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.ops import quantize
 from parlayann_tpu_torch.ops.kernels.expand import (
-    expand_distances, expand_distances_plain)
+    expand_bits_flat, expand_bits_flat_plain, expand_distances,
+    expand_distances_plain)
 from parlayann_tpu_torch.ops.kernels.occlude import (
     occlusion_rounds, occlusion_rounds_plain)
 from parlayann_tpu_torch.ops.kernels.fusedbeam import (
@@ -31,7 +33,9 @@ from parlayann_tpu_torch.ops.kernels.flatscan import MAX_K, flat_topk, flat_topk
 from parlayann_tpu_torch.ops.kernels.clusterbeam import (
     cluster_walk, cluster_walk_plain, seed_centroids)
 from parlayann_tpu_torch.ops.topk import lexsort
-from parlayann_tpu_torch.api import build_cluster_index
+from parlayann_tpu_torch.api import build_cluster_index, build_vamana_index
+from parlayann_tpu_torch.index import Index
+from parlayann_tpu_torch import interop
 
 pytestmark = pytest.mark.cuda
 
@@ -214,3 +218,83 @@ def test_torch_cuda_cluster_walk_equal(cluster_data, cuda, layout, metric,
         assert a.keys() == b.keys(), r
         np.testing.assert_allclose([a[i] for i in sorted(a)],
                                    [b[i] for i in sorted(b)], rtol=1e-5, atol=atol)
+
+
+def _bit_case(gen, dev, n_pad, R8, W, B):
+    """Random int32 words over the full range (bit 31 set in about half)."""
+    info = np.iinfo(np.int32)
+    inl = t(gen.integers(info.min, info.max, (n_pad, R8, W), endpoint=True,
+                         dtype=np.int32), dev)
+    ids = t(gen.integers(-3, n_pad + 3, B).astype(np.int32), dev)  # clamped
+    q = t(gen.integers(info.min, info.max, (B, W), endpoint=True, dtype=np.int32), dev)
+    return inl, ids, q
+
+
+@pytest.mark.parametrize("R8", [16, 32, 64])
+@pytest.mark.parametrize("W", [1, 3, 4, 16, 32])
+def test_torch_cuda_expand_bits_equal(gen, cuda, W, R8):
+    """W = 4, 16, 32 take the 16-byte-load path, 1 and 3 the generic one;
+    the bits=1 route of expand_distances is the same kernel."""
+    inl, ids, q = _bit_case(gen, cuda, 300, R8, W, 777)
+    assert bool((inl < 0).any()) and bool((q < 0).any())
+    want = expand_bits_flat_plain(inl, ids, q)
+    before = expand_bits_flat.launches
+    assert torch.equal(expand_bits_flat(inl, ids, q), want)
+    assert torch.equal(expand_distances(inl, ids, q, metric=Metric.L2, bits=1), want)
+    assert expand_bits_flat.launches == before + 2
+    assert torch.equal(expand_distances_plain(inl, ids, q, metric=Metric.L2, bits=1),
+                       want)
+
+
+def test_torch_cuda_expand_bits_unaligned_queries(gen, cuda):
+    """A query array that starts 4 bytes off a 16-byte boundary takes the
+    generic loop and gives the same counts."""
+    inl, ids, q = _bit_case(gen, cuda, 200, 32, 4, 100)
+    flat = torch.empty(q.numel() + 1, dtype=torch.int32, device=cuda)
+    q_off = flat[1:].view(q.shape)
+    q_off.copy_(q)
+    assert q_off.data_ptr() % 16 == 4
+    assert torch.equal(expand_bits_flat(inl, ids, q_off), expand_bits_flat_plain(inl, ids, q))
+
+
+def test_torch_cuda_expand_bits_rejects_bad_input(cuda):
+    inl = torch.zeros((8, 8, 4), dtype=torch.int32, device=cuda)
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    q = torch.zeros((4, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        expand_bits_flat(inl.float(), ids, q)
+    with pytest.raises(ValueError, match="int32"):
+        expand_bits_flat(inl, ids, q.float())
+    with pytest.raises(ValueError, match="shape mismatch"):
+        expand_bits_flat(inl, ids, q[:, :3].contiguous())
+    with pytest.raises(ValueError, match="shape mismatch"):
+        expand_bits_flat(inl, ids[:3], q)
+    with pytest.raises(ValueError, match="dims"):
+        expand_bits_flat(inl[0], ids, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        expand_bits_flat(inl, ids, q.t())
+    with pytest.raises(ValueError, match="device"):
+        expand_bits_flat(inl, ids.cpu(), q)
+
+
+def test_torch_cuda_bit_tier_search_equals_cpu(cluster_data, cuda):
+    """The bit tier's Index.batch_search on the card (kernel 6) equals the
+    same search on the CPU (the plain version): beams, visits and distance
+    counts exactly; the reranked f32 distances to rtol 1e-5."""
+    X, Q = cluster_data
+    g, ps, _ = build_vamana_index(X[:3000], R=16, L=32, device="cpu")
+    idx = {}
+    for dev in ("cpu", cuda):
+        pts = interop.pointset_from_state(ps.data.numpy(), ps.n, ps.d, ps.metric,
+                                          device=dev)
+        gr = interop.graph_from_state(g.neighbors.numpy(), g.degrees.numpy(), g.n,
+                                      g.max_degree, device=dev)
+        idx[str(dev)] = Index(points=pts, graph=gr).enable_bit_tier()
+    before = expand_bits_flat.launches
+    got = idx[str(cuda)].batch_search(Q, k=10, beam_size=48, rerank_factor=4)
+    assert expand_bits_flat.launches > before
+    want = idx["cpu"].batch_search(Q, k=10, beam_size=48, rerank_factor=4)
+    for name in ("beam_ids", "beam_dists", "num_visited", "dist_cmps"):
+        assert torch.equal(getattr(got[2], name).cpu(), getattr(want[2], name)), name
+    assert torch.equal(got[0].cpu(), want[0])
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)

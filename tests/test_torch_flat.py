@@ -51,7 +51,8 @@ def points_and_queries(data, dtype, metric):
     X, Q = data
     if dtype == "f32":
         return X, Q
-    ps = quantize.quantize_pointset(PointSet.from_numpy(X, metric=metric))
+    ps = quantize.quantize_pointset(PointSet.from_numpy(X, metric=metric,
+                                                     device="cpu"))
     q = quantize.translate_query(torch.from_numpy(Q), ps).float()
     return ps.data[:len(X)].numpy(), q.numpy()
 
@@ -158,7 +159,7 @@ def test_torch_flat_index_matches_jax(data, quantized):
     X, Q = data
     jfi = JFlatIndex(JPointSet.from_numpy(X), quantize=quantized)
     want_i, want_d = jfi.batch_search(Q, k=K)
-    fi = FlatIndex(PointSet.from_numpy(X), quantize=quantized)
+    fi = FlatIndex(PointSet.from_numpy(X, device="cpu"), quantize=quantized)
     ids, dists = fi.batch_search(Q, k=K, select="pallas")
     if quantized:  # the q8 tier is bit-equal and its distances exact
         np.testing.assert_array_equal(
@@ -173,7 +174,7 @@ def test_torch_flat_index_matches_jax(data, quantized):
     tier = None if jq is None else interop.pointset_from_state(
         np.asarray(jq.data), jq.n, jq.d, jq.metric, bits=jq.bits,
         quant_slope=np.asarray(jq.quant_slope),
-        quant_offset=np.asarray(jq.quant_offset))
+        quant_offset=np.asarray(jq.quant_offset), device="cpu")
     fi2 = interop.flat_index_from_state(fi.points, qpoints=tier)
     ids2, dists2 = fi2.batch_search(Q, k=K, select="pallas")
     assert torch.equal(ids2, ids) and torch.equal(dists2, dists)
@@ -187,7 +188,7 @@ def test_torch_exact_knn_ties_in_id_order(rng):
     base = rng.integers(-4, 5, (40, 8)).astype(np.float32)
     X = np.concatenate([base, base, base])
     Q = rng.integers(-4, 5, (9, 8)).astype(np.float32)
-    ids, dists = exact_knn(Q, PointSet.from_numpy(X), 10, chunk=7)
+    ids, dists = exact_knn(Q, PointSet.from_numpy(X, device="cpu"), 10, chunk=7)
     d64 = ((Q[:, None, :].astype(np.float64) - X[None]) ** 2).sum(-1)
     want = np.argsort(d64, axis=1, kind="stable")[:, :10]
     np.testing.assert_array_equal(ids.numpy(), want)

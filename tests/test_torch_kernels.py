@@ -46,7 +46,8 @@ def q8_points(rng, n, d, metric="l2"):
     """The same q8 tier in both packages (bit-equal, test_torch_ops)."""
     X = rng.standard_normal((n, d)).astype(np.float32)
     jps = jquantize.quantize_pointset(JPointSet.from_numpy(X, metric=metric), bits=8)
-    tps = quantize.quantize_pointset(PointSet.from_numpy(X, metric=metric), bits=8)
+    tps = quantize.quantize_pointset(
+        PointSet.from_numpy(X, metric=metric, device="cpu"), bits=8)
     return X, jps, tps
 
 
@@ -252,7 +253,7 @@ def test_torch_rerank_matches_jax(rng):
 def test_torch_exact_knn_matches_float64(rng):
     X = rng.standard_normal((301, 24)).astype(np.float32)
     Q = rng.standard_normal((7, 24)).astype(np.float32)
-    ids, dists = exact_knn(Q, PointSet.from_numpy(X), 10, chunk=64)
+    ids, dists = exact_knn(Q, PointSet.from_numpy(X, device="cpu"), 10, chunk=64)
     d64 = ((Q[:, None, :].astype(np.float64) - X[None]) ** 2).sum(-1)
     want = np.argsort(d64, axis=1, kind="stable")[:, :10]
     np.testing.assert_array_equal(ids.numpy(), want)

@@ -44,7 +44,8 @@ def test_torch_q8_quantize_bit_equal(rng, metric):
     X[:5, :4] = np.float32(0.5)  # exact .5 steps after the affine map
     Q = rng.standard_normal((17, 32)).astype(np.float32) * 4.0  # some clamp
     jps = jquantize.quantize_pointset(JPointSet.from_numpy(X, metric=metric), bits=8)
-    tps = quantize.quantize_pointset(PointSet.from_numpy(X, metric=metric), bits=8)
+    tps = quantize.quantize_pointset(
+        PointSet.from_numpy(X, metric=metric, device="cpu"), bits=8)
     np.testing.assert_array_equal(tps.data.numpy(), np.asarray(jps.data))
     assert tps.data.dtype == torch.int8 and tps.n_pad == jps.n_pad == 208
     assert np.float32(tps.quant_slope) == np.float32(jps.quant_slope)
@@ -57,17 +58,18 @@ def test_torch_q8_quantize_bit_equal(rng, metric):
 def test_torch_q8_uint8_input_is_exact_affine(rng):
     X = rng.integers(0, 256, (64, 16)).astype(np.uint8)
     jps = jquantize.quantize_pointset(JPointSet.from_numpy(X), bits=8)
-    tps = quantize.quantize_pointset(PointSet.from_numpy(X), bits=8)
+    tps = quantize.quantize_pointset(PointSet.from_numpy(X, device="cpu"), bits=8)
     np.testing.assert_array_equal(tps.data.numpy(), np.asarray(jps.data))
 
 
 def test_torch_unported_tiers_raise():
-    ps = PointSet.from_numpy(np.ones((8, 4), np.float32))
+    ps = PointSet.from_numpy(np.ones((8, 4), np.float32), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         quantize.quantize_pointset(ps, bits=4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         quantize.quantize_pointset(PointSet.from_numpy(
-            np.ones((8, 4), np.float32), metric="mips"), bits=8, trim=0.01)
+            np.ones((8, 4), np.float32), metric="mips", device="cpu"), bits=8,
+            trim=0.01)
 
 
 def test_torch_int8_distances_accumulate_in_f32(rng):
@@ -124,11 +126,47 @@ def test_torch_argmax_of_mask_is_first_true():
 
 def test_torch_data_layer_padding_and_stats(rng):
     X = rng.standard_normal((13, 4)).astype(np.float32)
-    ps = PointSet.from_numpy(X)
+    ps = PointSet.from_numpy(X, device="cpu")
     assert ps.n_pad == JPointSet.from_numpy(X).n_pad == 16
     np.testing.assert_array_equal(ps.data[:13].numpy(), X)
     assert not ps.data[13:].any()
     nb = rng.integers(0, 13, (13, 5)).astype(np.int32)
     dg = rng.integers(0, 6, 13).astype(np.int32)
-    g = GraphIndexData.from_numpy(nb, dg)
+    g = GraphIndexData.from_numpy(nb, dg, device="cpu")
     assert g.n_pad == 16 and g.stats() == (float(dg.mean()), int(dg.max()))
+
+
+def _entry_points():
+    """Every entry point that places data, called without ``device``."""
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch import interop
+    from parlayann_tpu_torch.utils.device import resolve
+
+    X = np.zeros((64, 32), np.float32)
+    nb, dg = np.zeros((64, 8), np.int32), np.zeros(64, np.int32)
+    return {
+        "resolve": lambda: resolve(),
+        "PointSet.from_numpy": lambda: PointSet.from_numpy(X),
+        "GraphIndexData.from_numpy": lambda: GraphIndexData.from_numpy(nb, dg),
+        "build_vamana_index": lambda: pt.build_vamana_index(X, R=8, L=16),
+        "build_cluster_index": lambda: pt.build_cluster_index(X, m=32, Rc=8),
+        "pointset_from_state": lambda: interop.pointset_from_state(X, 64, 32, "l2"),
+        "graph_from_state": lambda: interop.graph_from_state(nb, dg, 64, 8),
+    }
+
+
+@pytest.mark.parametrize("entry", list(_entry_points()))
+def test_torch_entry_points_default_to_the_card(entry):
+    """No ``device``: the card, and without one a RuntimeError naming the
+    way to the CPU, never a silent fall back."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default resolves to it")
+    with pytest.raises(RuntimeError, match="no CUDA device; pass device='cpu'"):
+        _entry_points()[entry]()
+
+
+def test_torch_resolve_keeps_an_explicit_device():
+    from parlayann_tpu_torch.utils.device import resolve
+
+    assert resolve("cpu") == torch.device("cpu")
+    assert resolve(torch.device("meta")) == torch.device("meta")

@@ -32,7 +32,8 @@ def built():
     gt = np.argsort(d64, axis=1, kind="stable")[:, :2 * K]
     gt_d = np.take_along_axis(d64, gt, 1)
     jg, jps, jstats = jpt.build_vamana_index(X, R=16, L=32, alpha=1.2)
-    tg, tps, stats = pt.build_vamana_index(X, R=16, L=32, alpha=1.2)
+    tg, tps, stats = pt.build_vamana_index(X, R=16, L=32, alpha=1.2,
+                                           device="cpu")
     return dict(X=X, Q=Q, gt=gt, gt_d=gt_d, jg=jg, jps=jps, tg=tg, tps=tps,
                 jstats=jstats, stats=stats)
 
@@ -71,7 +72,8 @@ def test_torch_slice_search_matches_jax(built, entry_min_n):
     tg_in_jax = JGraph.from_numpy(tg.neighbors.numpy(), tg.degrees.numpy(),
                                   n=tg.n)
     jg_in_torch = interop.graph_from_state(
-        np.asarray(jg.neighbors), np.asarray(jg.degrees), jg.n, jg.max_degree)
+        np.asarray(jg.neighbors), np.asarray(jg.degrees), jg.n, jg.max_degree,
+        device="cpu")
 
     def jax_search(graph):
         idx = jpt.Index(points=b["jps"], graph=graph, entry_min_n=entry_min_n)
@@ -99,7 +101,8 @@ def test_torch_slice_search_matches_jax(built, entry_min_n):
         # the JAX Index's entry tier carried over through interop
         idx = interop.index_from_state(
             interop.pointset_from_state(
-                np.asarray(b["jps"].data), b["jps"].n, b["jps"].d, b["jps"].metric),
+                np.asarray(b["jps"].data), b["jps"].n, b["jps"].d, b["jps"].metric,
+                device="cpu"),
             jg_in_torch, entry_ids=np.asarray(j_idx.entry_ids))
         idx.entry_min_n = 0
         ids, _, _ = idx.enable_quantized(bits=8).batch_search(Q, k=K, beam_size=BEAM)
@@ -118,7 +121,8 @@ def test_torch_slice_unported_configurations_raise(built):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             idx.batch_search(Q, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.build_vamana_index(built["X"][:50], R=8, L=16, quantize_build=False)
+        pt.build_vamana_index(built["X"][:50], R=8, L=16, quantize_build=False,
+                              device="cpu")
 
 
 def test_torch_slice_entry_cache_is_not_clobbered(built):
@@ -136,7 +140,8 @@ def test_torch_slice_q8_tier_state_carries_over(built):
     tq = pt.Index(points=built["tps"], graph=built["tg"]).enable_quantized(8).qpoints
     moved = interop.pointset_from_state(
         np.asarray(jq.data), jq.n, jq.d, jq.metric, bits=jq.bits,
-        quant_slope=np.asarray(jq.quant_slope), quant_offset=np.asarray(jq.quant_offset))
+        quant_slope=np.asarray(jq.quant_slope), quant_offset=np.asarray(jq.quant_offset),
+        device="cpu")
     assert torch.equal(moved.data, tq.data) and moved.bits == tq.bits == 8
     assert (moved.n, moved.d, moved.metric) == (tq.n, tq.d, tq.metric)
     assert torch.equal(moved.quant_slope, tq.quant_slope)
