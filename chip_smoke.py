@@ -41,8 +41,10 @@ the bytes it must move over 3.35 TB/s and its operations over 67 T/s (the
 H100's published device-memory rate and f32 rate outside the tensor cores;
 the XOR and popcount of kernel 6 are counted at that rate too), from this
 run's inputs, with data-dependent walks counted from their returned visit
-and distance counts. ``library_ms`` is one PyTorch call computing the same
-function where there is one (only for kernel 4: the cuBLAS product of the
+and distance counts. Kernel 4 runs on the tensor cores in 3xTF32, so its
+operations are 3 TF32 passes (2 for int8 points) of 2 B N d over 495 T/s,
+the H100 SXM dense TF32 rate. ``library_ms`` is one PyTorch call
+computing the same function where there is one (only for kernel 4: the cuBLAS product of the
 same distance matrix, which is not the top-k), else null.
 
 The second-to-last line is a JSON summary of the kernels, the last line
@@ -74,6 +76,7 @@ TIER_BEAMS = (100, 220, 400)
 TIER_BARS = {("bit", 400): 0.88, ("jl512", 400): 0.95, ("jl1024-8bit", 100): 0.85}
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 F32_OPS = 67e12  # H100 SXM f32 outside the tensor cores, operations/s
+TF32_OPS = 495e12  # H100 SXM dense TF32 tensor cores, operations/s
 
 
 def log(*a):
@@ -144,14 +147,14 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, rate=F32_OPS, ops_name="operations"):
     """-> dict(bound_ms, bound_by): the least time the card could take, the
-    larger of the bytes over the memory rate and the operations over the
-    f32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+    larger of the bytes over the memory rate and the operations over
+    ``rate`` (the f32 rate unless a kernel runs on the tensor cores)."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
     if t_bytes >= t_ops:
         return dict(bound_ms=t_bytes, bound_by="bytes")
-    return dict(bound_ms=t_ops, bound_by="operations")
+    return dict(bound_ms=t_ops, bound_by=ops_name)
 
 
 def unique_rows(ids, n_pad):
@@ -322,7 +325,8 @@ def kernel_flat(X, Q, gen, dev):
     from parlayann_tpu_torch.types import Metric
     from parlayann_tpu_torch.data.pointset import PointSet
     from parlayann_tpu_torch.ops import quantize
-    from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk, flat_topk_plain
+    from parlayann_tpu_torch.ops.kernels.flatscan import (
+        flat_topk, flat_topk_plain, splits)
 
     n, B = len(X), len(Q)
     q = torch.from_numpy(Q).to(dev)
@@ -355,21 +359,31 @@ def kernel_flat(X, Q, gen, dev):
             if ex is not None:
                 check(not bool((got[0] == ex[:, None]).any()), f"{what}: excluded id")
             if metric is Metric.L2 and mk is None:
-                ms = time_ms(lambda: flat_topk(qq, xx, **kw), 3)
+                ms = time_ms(lambda: flat_topk(qq, xx, **kw), 10)
                 plain_ms = time_ms(lambda: flat_topk_plain(qq, xx, **kw), 2)
                 out[name] = (ms, plain_ms)
                 note += f"; {ms:.4f} ms vs plain {plain_ms:.4f} ms"
             log(f"kernel 4 flat_topk {name} {metric.name} B={B} N={n} d=128 k={K}: {note}")
-    ms, plain_ms = out["f32"]
     # no PyTorch call computes the top-k; the cuBLAS product of the same
     # (B, N) L2 distance matrix (||x||^2 - 2 q.x, TF32 off) is the yardstick
     x = PointSet.from_numpy(X, device=dev).data[:n]
     xn = (x * x).sum(1)[None, :]
     lib_ms = time_ms(lambda: torch.addmm(xn, q, x.T, beta=1.0, alpha=-2.0), 3)
-    b = bound(n * 128 * 4 + B * 128 * 4 + B * K * 8, 2 * B * n * 128)
-    log(f"kernel 4 flat_topk f32: bound {b['bound_ms']:.4f} ms ({b['bound_by']}); "
-        f"torch.addmm of the distance matrix alone {lib_ms:.4f} ms")
-    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+    bounds = {}
+    for name, passes, size in (("f32", 3, 4), ("int8", 2, 1)):
+        # inputs read once (points, queries, bias), the (B, k) lists written
+        b = bound(n * 128 * size + B * 128 * 4 + n * 4 + B * K * 8,
+                  passes * 2 * B * n * 128, TF32_OPS, "tensor-core operations (3xTF32)")
+        S, per = splits(B, n, K, name == "int8", dev)
+        ms, plain_ms = out[name]
+        log(f"kernel 4 flat_topk {name} L2: {ms:.4f} ms vs plain {plain_ms:.4f} ms; "
+            f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {passes} TF32 passes); "
+            f"S={S} splits of {per} points")
+        bounds[name] = b
+    log(f"kernel 4 flat_topk: torch.addmm of the f32 distance matrix alone {lib_ms:.4f} ms")
+    ms, plain_ms = out["f32"]
+    return dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                **bounds["f32"])
 
 
 def slice_run(X, Q, dev):

@@ -9,13 +9,23 @@ algebra is the JAX package's: selection runs on ``||x||^2 - 2 q.x`` (L2)
 or ``-q.x`` (MIPS), and ``||q||^2`` is added back to the k survivors and
 clamped at 0, so L2 distances are true squared distances.
 
-``precision`` is accepted for the JAX signature: "exact" and "fast" both
-compute in float32 here (the TPU's "fast" is bf16 MXU passes; a
-tensor-core path is later work, ROADMAP queue 2).
+The kernel computes its distance tiles on the tensor cores in 3xTF32
+(each f32 operand split into two TF32 parts, three products summed), which
+is float32-accurate: each product misses at most about 3 * 2^-22 of
+|q_i x_i|. ``precision`` is accepted for the JAX signature: "exact" and
+"fast" both compute that f32-accurate product (the TPU's "fast" is bf16
+MXU passes; a single-pass TF32 or bf16 "fast" is ROADMAP item 9).
+
+The grid also splits the points: S CTAs scan S contiguous id ranges of one
+block of queries, each keeping its own sorted lists, and
+:func:`merge_split_topk` merges them (:func:`split_plan` picks S). The
+splits of a row share the best k-th entry any of them has reached through
+a (B,) scratch, so each filters its candidates against it.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -28,6 +38,10 @@ from parlayann_tpu_torch.ops.kernels import _lib
 # memory: 8 bytes * 64 * k, 128 KB at k = 256
 MAX_K = 256
 PRECISIONS = ("fast", "exact")
+QUERY_TILE = 64   # queries per CTA (csrc/flatscan.cu kBT)
+POINT_TILE = 128  # points per tile (kCT); a split is a multiple of it
+WAVES = 4         # CTAs the splits aim for, in waves over the card
+MIN_SPLIT = 4096  # points; no split is cut smaller
 
 
 def _bias(points: torch.Tensor, valid_mask: Optional[torch.Tensor],
@@ -63,6 +77,29 @@ def _check_args(k: int, precision: str):
         raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
+
+
+def split_plan(B: int, n_pad: int, slots: int):
+    """-> (S, points per split): enough splits of the point range for about
+    ``WAVES`` waves of CTAs over ``slots`` (CTAs resident on the card at
+    once), none smaller than ``MIN_SPLIT`` points; splits are whole tiles,
+    and S = 1 when one split covers every point."""
+    rows = -(-B // QUERY_TILE)
+    want = -(-WAVES * slots // max(rows, 1))
+    S = max(1, min(want, n_pad // MIN_SPLIT))
+    per = max(POINT_TILE, -(-n_pad // (S * POINT_TILE)) * POINT_TILE)
+    return max(1, -(-n_pad // per)), per
+
+
+def merge_split_topk(dists: torch.Tensor, ids: torch.Tensor, k: int):
+    """(B, S, k) sorted (distance, id) lists of S contiguous id ranges, the
+    range of list s below that of s + 1 -> the (B, k) lists of their union.
+    One stable sort by distance over the concatenation keeps equal
+    distances in list order and, within a list, in id order: (distance, id)
+    order. Empty slots (INF) sort last."""
+    B = dists.shape[0]
+    d, order = torch.sort(dists.reshape(B, -1), dim=1, stable=True)
+    return d[:, :k], torch.gather(ids.reshape(B, -1), 1, order[:, :k])
 
 
 def flat_topk_plain(queries: torch.Tensor, points: torch.Tensor,
@@ -147,20 +184,58 @@ def flat_topk(queries: torch.Tensor, points: torch.Tensor,
             raise ValueError(f"exclude_ids {tuple(exclude_ids.shape)} for {B} queries")
         exclude_ids = exclude_ids.to(torch.int32).contiguous()
     bias = _bias(points, valid_mask, n_valid, metric).contiguous()
-    out_d = torch.empty((B, k), dtype=torch.float32, device=queries.device)
-    out_i = torch.empty((B, k), dtype=torch.int32, device=queries.device)
     if B == 0:
-        return out_i, out_d
-    fn = _lib.function("pa_flat_topk", [_lib.VP] * 4 + [_lib.INT] * 4
-                       + [_lib.FLOAT, _lib.INT] + [_lib.VP] * 3)
+        return (torch.empty((0, k), dtype=torch.int32, device=queries.device),
+                torch.empty((0, k), dtype=torch.float32, device=queries.device))
+    x_int8 = points.dtype == torch.int8
+    S, per = splits(B, n_pad, k, x_int8, queries.device)
+    out_d = torch.empty((B, S, k), dtype=torch.float32, device=queries.device)
+    out_i = torch.empty((B, S, k), dtype=torch.int32, device=queries.device)
+    # the splits' shared per-row threshold (the kernel's launch resets it)
+    thr = torch.empty((B,), dtype=torch.int64, device=queries.device) if S > 1 else None
+    fn = _lib.function("pa_flat_topk", [_lib.VP] * 5 + [_lib.INT] * 4
+                       + [_lib.FLOAT] + [_lib.INT] * 5 + [_lib.VP] * 3)
     rc = fn(queries.data_ptr(), points.data_ptr(), bias.data_ptr(),
             None if exclude_ids is None else exclude_ids.data_ptr(),
-            B, n_pad, d, k, -1.0 if metric is Metric.MIPS else -2.0,
-            int(points.dtype == torch.int8), out_d.data_ptr(), out_i.data_ptr(),
-            _lib.stream())
+            None if thr is None else thr.data_ptr(), B, n_pad, d, k,
+            -1.0 if metric is Metric.MIPS else -2.0, int(x_int8), S, per,
+            _copy_width(queries), _copy_width(points),
+            out_d.data_ptr(), out_i.data_ptr(), _lib.stream())
     flat_topk.launches += 1
     _lib.check(rc, "flat_topk")
-    return _finish(out_d, out_i, queries, metric)
+    if S == 1:
+        sel_d, sel_i = out_d[:, 0], out_i[:, 0]
+    else:
+        sel_d, sel_i = merge_split_topk(out_d, out_i, k)
+    return _finish(sel_d, sel_i, queries, metric)
 
 
 flat_topk.launches = 0
+
+
+def _copy_width(t: torch.Tensor) -> int:
+    """The widest copy (16, 8 or 4 bytes) that every row slot of ``t`` keeps
+    aligned; 1 means the kernel loads that array with plain loads."""
+    row = t.shape[1] * t.element_size()
+    for w in (16, 8, 4):
+        if row % w == 0 and t.data_ptr() % w == 0:
+            return w
+    return 1
+
+
+_resident: dict = {}
+
+
+def splits(B: int, n_pad: int, k: int, x_int8: bool, device: torch.device):
+    """-> (S, points per split) that :func:`flat_topk` launches with on
+    ``device``: :func:`split_plan` over the CTAs the card holds at once at
+    this k (the kernel's occupancy times the SM count)."""
+    key = (k, bool(x_int8), device.index)
+    if key not in _resident:
+        fn = _lib.function("pa_flat_topk_resident",
+                           [_lib.INT, _lib.INT, ctypes.POINTER(ctypes.c_int)])
+        blocks = ctypes.c_int(0)
+        _lib.check(fn(k, int(x_int8), ctypes.byref(blocks)), "flat_topk occupancy")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _resident[key] = max(1, blocks.value) * sms
+    return split_plan(B, n_pad, _resident[key])

@@ -39,7 +39,9 @@ def flat_search_batch(queries, points_data, valid_mask=None, exclude_ids=None,
     ``points_data`` (n_pad, d) f32 or int8; ``valid_mask`` (n_pad,) bool
     and ``exclude_ids`` (B,) int32 (a per-query id never returned) are the
     builder's exact-candidate options. ``precision`` "fast" and "exact"
-    both compute in float32."""
+    both compute float32-accurate distances: the plain path in float32,
+    kernel 4 in 3xTF32 on the tensor cores (a single-pass "fast" is
+    ROADMAP item 9)."""
     if select not in SELECTS:
         raise ValueError(f"select must be one of {SELECTS}, got {select!r}")
     if select == "pallas":

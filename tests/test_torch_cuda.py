@@ -29,7 +29,8 @@ from parlayann_tpu_torch.ops.kernels.occlude import (
     occlusion_rounds, occlusion_rounds_plain)
 from parlayann_tpu_torch.ops.kernels.fusedbeam import (
     beam_search_fused, beam_search_fused_plain, bitonic_sort_rows)
-from parlayann_tpu_torch.ops.kernels.flatscan import MAX_K, flat_topk, flat_topk_plain
+from parlayann_tpu_torch.ops.kernels.flatscan import (
+    MAX_K, flat_topk, flat_topk_plain, splits)
 from parlayann_tpu_torch.ops.kernels.clusterbeam import (
     cluster_walk, cluster_walk_plain, seed_centroids)
 from parlayann_tpu_torch.ops.topk import lexsort
@@ -136,34 +137,68 @@ def assert_same_topk(ids, dists, want_ids, want_d, scale):
         assert (np.abs(want_d[r][only] - dists[r, last]) <= tol[r, last]).all(), r
 
 
-@pytest.mark.parametrize("k", [10, 128])
+def _flat_case(gen, dev, dtype, n, d, B):
+    """-> (x, q, scale) for a dtype of the module doc's flat cases: "f32";
+    "int8" (integer queries, exact); "int8-f32q" (int8 points, real-valued
+    queries: the f32 tolerance)."""
+    if dtype == "f32":
+        X = gen.standard_normal((n, d)).astype(np.float32)
+        Q = gen.standard_normal((B, d)).astype(np.float32)
+    else:
+        X = gen.integers(-128, 128, (n, d)).astype(np.int8)
+        Q = gen.integers(-128, 128, (B, d)).astype(np.float32)
+        if dtype == "int8-f32q":
+            Q = Q + gen.standard_normal((B, d)).astype(np.float32)
+    Xf = X.astype(np.float64)
+    scale = (Q.astype(np.float64) ** 2).sum(1) + (Xf ** 2).sum(1).max()
+    return t(X, dev), t(Q, dev), scale
+
+
+def _check_flat(got, want, dtype, scale, excl=None):
+    if dtype == "int8":
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert_same_topk(*got, *want, scale)
+    if excl is not None:
+        assert not (got[0] == excl[:, None]).any()
+
+
+@pytest.mark.parametrize("k", [1, 10, 128, 256])
 @pytest.mark.parametrize("metric", [Metric.L2, Metric.MIPS])
-@pytest.mark.parametrize("dtype", ["f32", "int8"])
+@pytest.mark.parametrize("dtype", ["f32", "int8", "int8-f32q"])
 def test_torch_cuda_flat_topk_equal(gen, cuda, dtype, metric, k):
     """n, d and B off every tile multiple; a mask, an exclusion and 7
     invalid tail rows."""
     n, d, B = 5000, 100, 300
-    if dtype == "int8":
-        X = gen.integers(-128, 128, (n, d)).astype(np.int8)
-        Q = gen.integers(-128, 128, (B, d)).astype(np.float32)
-    else:
-        X = gen.standard_normal((n, d)).astype(np.float32)
-        Q = gen.standard_normal((B, d)).astype(np.float32)
-    x, q = t(X, cuda), t(Q, cuda)
+    x, q, scale = _flat_case(gen, cuda, dtype, n, d, B)
     mask = t(gen.random(n) < 0.8, cuda)
     excl = t(gen.integers(0, n, B).astype(np.int32), cuda)
-    Xf = X.astype(np.float64)
-    scale = (Q.astype(np.float64) ** 2).sum(1) + (Xf ** 2).sum(1).max()
     for mk, ex in ((None, None), (mask, excl)):
         kw = dict(k=k, metric=metric, n_valid=n - 7)
-        got = flat_topk(q, x, mk, ex, **kw)
-        want = flat_topk_plain(q, x, mk, ex, **kw)
-        if dtype == "int8":
-            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        else:
-            assert_same_topk(*got, *want, scale)
-        if ex is not None:
-            assert not (got[0] == ex[:, None]).any()
+        _check_flat(flat_topk(q, x, mk, ex, **kw), flat_topk_plain(q, x, mk, ex, **kw),
+                    dtype, scale, ex)
+
+
+@pytest.mark.parametrize("B,n,d,k,many", [
+    (64, 70000, 128, 10, True),   # S > 1: one block of queries, many splits
+    (1, 100, 100, 10, False),     # fewer points than a tile, one query
+    (3, 90, 37, 128, False),      # k > n; d = 37: 4-byte f32 copies, int8 plain loads
+    (130, 9000, 10, 256, True),   # 8-byte f32 copies, int8 plain loads, S > 1
+])
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_torch_cuda_flat_topk_splits_and_edges(gen, cuda, dtype, B, n, d, k, many):
+    """The split of the point range (merged by merge_split_topk) and the
+    copy widths the row lengths allow, against the plain version."""
+    x, q, scale = _flat_case(gen, cuda, dtype, n, d, B)
+    S, per = splits(B, n, k, dtype != "f32", cuda)
+    assert (S > 1) == many and per % 128 == 0 and (S - 1) * per < n <= S * per
+    excl = t(gen.integers(0, n, B).astype(np.int32), cuda)
+    for metric in (Metric.L2, Metric.MIPS):
+        kw = dict(k=k, metric=metric, n_valid=n)
+        before = flat_topk.launches
+        got = flat_topk(q, x, None, excl, **kw)
+        assert flat_topk.launches == before + 1
+        _check_flat(got, flat_topk_plain(q, x, None, excl, **kw), dtype, scale, excl)
 
 
 def test_torch_cuda_flat_topk_rejects_wide_k(cuda):

@@ -28,7 +28,10 @@ from parlayann_tpu_torch import interop
 from parlayann_tpu_torch.types import Metric
 from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.ops import quantize
-from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk_plain
+from parlayann_tpu_torch.ops.distance import INF
+from parlayann_tpu_torch.ops.kernels.flatscan import (
+    MIN_SPLIT, POINT_TILE, _bias, _finish, flat_topk_plain, merge_split_topk,
+    split_plan)
 from parlayann_tpu_torch.search.flat import FlatIndex, flat_search_batch
 from parlayann_tpu_torch.search.exact import exact_knn
 from parlayann_tpu_torch.harness.recall import compute_recall
@@ -205,3 +208,132 @@ def test_torch_flat_rejects_bad_arguments(data):
     with pytest.raises(ValueError, match="precision"):
         flat_search_batch(q, x, k=K, metric=Metric.L2, n_valid=len(X),
                           precision="bf16")
+
+
+# ---- kernel 4's split point range and its 3xTF32 arithmetic, on the CPU ----
+
+
+def split_lists(Q, X, k, metric, S, mask=None, excl=None, n_valid=None):
+    """flat_topk_plain over S contiguous id ranges of X, ids made global:
+    the (B, S, k) lists the kernel's splits write."""
+    n = len(X) if n_valid is None else n_valid
+    bounds = np.linspace(0, len(X), S + 1).astype(int)
+    ds, ids = [], []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        i, d = flat_topk_plain(
+            torch.from_numpy(Q), torch.from_numpy(X[lo:hi]),
+            None if mask is None else torch.from_numpy(mask[lo:hi]),
+            None if excl is None else torch.from_numpy(excl - lo),
+            k=k, metric=metric, n_valid=int(np.clip(n - lo, 0, hi - lo)))
+        ds.append(d)
+        ids.append(torch.where(i >= 0, i + lo, -1))
+    return torch.stack(ds, 1), torch.stack(ids, 1)
+
+
+@pytest.mark.parametrize("S,k", [(2, 10), (3, 1), (7, 10), (5, 150), (4, 300)])
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.MIPS])
+def test_torch_flat_merge_split_topk_equals_one_scan(rng, metric, S, k):
+    """Integer-valued points and queries force ties across and within the
+    splits; k = 150 and 300 exceed the points of a split (600 / S); a mask,
+    an exclusion and an invalid tail (n_valid < n) drop points."""
+    X = rng.integers(-3, 4, (600, 6)).astype(np.float32)
+    Q = rng.integers(-3, 4, (17, 6)).astype(np.float32)
+    mask = rng.random(len(X)) < 0.7
+    excl = rng.integers(0, len(X), len(Q)).astype(np.int32)
+    for mk, ex in ((None, None), (mask, excl)):
+        want = flat_topk_plain(torch.from_numpy(Q), torch.from_numpy(X),
+                               None if mk is None else torch.from_numpy(mk),
+                               None if ex is None else torch.from_numpy(ex),
+                               k=k, metric=metric, n_valid=590)
+        d, i = split_lists(Q, X, k, metric, S, mk, ex, n_valid=590)
+        got_d, got_i = merge_split_topk(d, i, k)
+        assert torch.equal(got_i, want[0]) and torch.equal(got_d, want[1])
+
+
+def test_torch_flat_split_plan():
+    """About four waves of CTAs, splits of whole tiles and never below
+    MIN_SPLIT points; one split where the points are few."""
+    assert split_plan(10_000, 100_000, 264) == (7, 14336)
+    assert split_plan(64, 70_000, 264)[0] > 1
+    assert split_plan(1, 100, 264) == (1, POINT_TILE)
+    assert split_plan(5, 0, 132) == (1, POINT_TILE)
+    for B in (1, 64, 300, 10_000, 200_000):
+        for n in (1, 127, 4095, 4096, 70_000, 1_000_000):
+            for slots in (132, 264):
+                S, per = split_plan(B, n, slots)
+                assert per % POINT_TILE == 0 and (S - 1) * per < n <= S * per
+                assert S == 1 or per >= MIN_SPLIT
+
+
+def tf32_rna(a: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the f32 bit pattern: add half a TF32 ulp, clear
+    the 13 low bits (ties away from zero)."""
+    return ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def dot_3xtf32(Q: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """The kernel's products: each operand split into hi = rna(a) and
+    lo = rna(a - hi); lo_q.hi_x + hi_q.lo_x + hi_q.hi_x summed in f32 (the
+    int8 points' lo is 0)."""
+    qh = tf32_rna(Q)
+    ql = tf32_rna(Q - qh)
+    xh = tf32_rna(X)
+    xl = tf32_rna(X - xh)
+    return ql @ xh.T + qh @ xl.T + qh @ xh.T
+
+
+def topk_3xtf32(Q, X, k, metric):
+    """The kernel's function with its arithmetic emulated: select on
+    bias + scale * (3xTF32 dot), stable by id, finish as the wrapper does."""
+    q, x = torch.from_numpy(Q), torch.from_numpy(X)
+    bias = _bias(x, None, len(X), metric)
+    scale = -1.0 if metric is Metric.MIPS else -2.0
+    sel = torch.where(bias[None] < INF, bias[None] + scale * dot_3xtf32(q, x.float()), INF)
+    d, order = torch.sort(sel, dim=1, stable=True)
+    return _finish(d[:, :k], order[:, :k], q, metric)
+
+
+def test_torch_flat_tf32_split_error_bound(rng):
+    """hi + lo carries 22 bits: each emulated product misses at most about
+    3 * 2^-22 of |q_i x_i| (the dropped lo.lo term and the two roundings),
+    plus the f32 sum's own rounding."""
+    Q = (rng.standard_normal((40, 96)) * 10).astype(np.float32)
+    X = rng.standard_normal((300, 96)).astype(np.float32)
+    got = dot_3xtf32(torch.from_numpy(Q), torch.from_numpy(X)).double().numpy()
+    want = Q.astype(np.float64) @ X.astype(np.float64).T
+    absdot = np.abs(Q.astype(np.float64)) @ np.abs(X.astype(np.float64)).T
+    assert (np.abs(got - want) <= (3 * 2.0 ** -22 + 96 * 2.0 ** -24) * absdot).all()
+    # a single TF32 pass misses by up to 2^-10 relative: far outside
+    one = (tf32_rna(torch.from_numpy(Q)) @ tf32_rna(torch.from_numpy(X)).T).double()
+    assert (np.abs(one.numpy() - want) > 1e-4 * absdot).any()
+
+
+@pytest.mark.parametrize("metric", ["l2", "mips"])
+@pytest.mark.parametrize("source", ["gaussian", "clustered"])
+def test_torch_flat_3xtf32_within_tolerance(data, rng, source, metric):
+    """Selecting on the emulated 3xTF32 distances passes the f32 tolerance
+    of the module doc against flat_topk_plain."""
+    tm, _ = METRICS[metric]
+    if source == "clustered":
+        X, Q = data
+    else:
+        X = rng.standard_normal((3000, 32)).astype(np.float32)
+        Q = rng.standard_normal((64, 32)).astype(np.float32)
+    want_i, want_d = flat_topk_plain(torch.from_numpy(Q), torch.from_numpy(X), k=K,
+                                     metric=tm, n_valid=len(X))
+    ids, dists = topk_3xtf32(Q, X, K, tm)
+    assert_same_topk(ids.numpy(), dists.numpy(), want_i.numpy(), want_d.numpy(), Q, X,
+                     exact=False)
+
+
+@pytest.mark.parametrize("metric", ["l2", "mips"])
+def test_torch_flat_3xtf32_int8_integer_queries_equal(data, metric):
+    """On the q8 tier (int8 points, integer-valued translated queries) lo is
+    0 on both sides and every sum an exact integer: equal to the plain
+    version."""
+    tm, _ = METRICS[metric]
+    X, Q = points_and_queries(data, "int8", tm)
+    want = flat_topk_plain(torch.from_numpy(Q), torch.from_numpy(X), k=K, metric=tm,
+                           n_valid=len(X))
+    got = topk_3xtf32(Q, X, K, tm)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
