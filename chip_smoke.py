@@ -8,13 +8,18 @@ Phases:
   1. environment: torch, CUDA, nvcc, the card's name and power limit; build
      the CUDA kernels from ``parlayann_tpu_torch/csrc``.
   2. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes, with both times (CUDA events, after a warm-up).
+     path's shapes, with both times (CUDA events, after a warm-up); kernel
+     2 at the build's four prune shapes, (C, R) = (96, 32), (64, 32),
+     (40, 32) and (192, 64) over B=2048 rows of d=128, under L2 and MIPS,
+     each on rows of its own metric's distances.
   3. the slice through the user entry points: a q8 Vamana build of the
      synthetic clustered 100K x 128 set (R=32, L=64, alpha=1.2, two passes,
      batch_cap_frac=0.16), then q8 ``Index.batch_search`` of 10K queries at
      beams 10/16/32/64 against exact ground truth. Every kernel's launch
-     count is zeroed before and read after this phase. Kernel 3 is then
-     checked against its plain version on the built graph.
+     count is zeroed before and read after this phase. The same build
+     then runs once more under torch.profiler, which prints kernel 2's
+     summed device time and launches and the build's idle share. Kernel 3
+     is then checked against its plain version on the built graph.
   4. the ClusterIndex slice on the same set: ``build_cluster_index`` (m=64,
      Rc=16, slack 1.5) with the f32 and the int8 ext layout, each searched
      by 10K queries at n_probe 3/4/6/8/12/16 with cut=0 and at the adaptive
@@ -43,7 +48,10 @@ the XOR and popcount of kernel 6 are counted at that rate too), from this
 run's inputs, with data-dependent walks counted from their returned visit
 and distance counts. Kernel 4 runs on the tensor cores in 3xTF32, so its
 operations are 3 TF32 passes (2 for int8 points) of 2 B N d over 495 T/s,
-the H100 SXM dense TF32 rate. ``library_ms`` is one PyTorch call
+the H100 SXM dense TF32 rate; kernel 2's are its stars' 2 C d int8
+products over 1,979 T/s, the dense int8 rate, and its bytes each row's
+distances and rounds (8 B C) and its live candidates' vectors.
+``library_ms`` is one PyTorch call
 computing the same function where there is one (only for kernel 4: the cuBLAS product of the
 same distance matrix, which is not the top-k), else null.
 
@@ -77,6 +85,7 @@ TIER_BARS = {("bit", 400): 0.88, ("jl512", 400): 0.95, ("jl1024-8bit", 100): 0.8
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 F32_OPS = 67e12  # H100 SXM f32 outside the tensor cores, operations/s
 TF32_OPS = 495e12  # H100 SXM dense TF32 tensor cores, operations/s
+INT8_OPS = 1979e12  # H100 SXM dense int8 tensor cores, operations/s
 
 
 def log(*a):
@@ -113,11 +122,14 @@ def time_ms(fn, reps):
 def profile_window(fn, what):
     """Run ``fn`` once under torch.profiler and print the device's busy
     time, its idle share of the fenced wall time, and the kernels that
-    took the most device time."""
+    took the most device time -> dict(idle=share, by_name={kernel: device
+    us}), None if the profiler saw no device activity. Only device
+    activity is traced: host operators would add their own cost to the
+    wall time, and their events make a build's trace slow to parse."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -126,7 +138,7 @@ def profile_window(fn, what):
                    if e.device_type == torch.autograd.DeviceType.CUDA)
     if not spans:
         log(f"profile {what}: the profiler saw no device activity")
-        return
+        return None
     busy, end_at, by_name = 0.0, float("-inf"), {}
     for lo, hi in spans:
         busy += max(0.0, hi - max(lo, end_at))
@@ -140,6 +152,7 @@ def profile_window(fn, what):
         f"{len(spans)} device activities")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {us / 1e3:9.3f} ms {us / total:6.1%}  {name[:90]}")
+    return dict(idle=1 - busy / wall_us, by_name=by_name)
 
 
 def check(cond, what):
@@ -212,14 +225,15 @@ def kernel_expand(gen, dev):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def _prune_rows(gen, dev, B, C, d):
-    """Candidate rows as robustPrune sees them: distances to a point p,
-    ascending, with a tail of INF (invalid) slots."""
+def _prune_rows(gen, dev, B, C, d, mips=False):
+    """Candidate rows as robustPrune sees them: the metric's distances to a
+    point p (squared L2, or -p.c under MIPS), ascending, with a tail of INF
+    (invalid) slots."""
     from parlayann_tpu_torch.ops.distance import INF
 
     p = torch.randint(-128, 128, (B, 1, d), generator=gen)
     vecs = torch.randint(-128, 128, (B, C, d), generator=gen)
-    dist = ((vecs - p) ** 2).sum(-1).float()
+    dist = (-(vecs * p).sum(-1) if mips else ((vecs - p) ** 2).sum(-1)).float()
     n_bad = torch.randint(0, C // 4, (B, 1), generator=gen)
     dist = torch.where(torch.arange(C)[None, :] >= C - n_bad, INF, dist)
     dist, order = torch.sort(dist, dim=1, stable=True)
@@ -227,30 +241,44 @@ def _prune_rows(gen, dev, B, C, d):
     return dist.to(dev), vecs.to(torch.int8).to(dev)
 
 
+OCCLUDE_SHAPES = ((96, 32), (64, 32), (40, 32), (192, 64))  # (C, R) of the build's prunes
+
+
 def kernel_occlude(gen, dev):
     from parlayann_tpu_torch.types import Metric
+    from parlayann_tpu_torch.ops.distance import INF
     from parlayann_tpu_torch.ops.kernels.occlude import (
         occlusion_rounds, occlusion_rounds_plain)
 
     B, d, alpha = 2048, 128, 1.2
     times = {}
-    for C, R in ((96, 32), (64, 32), (40, 32), (192, 64)):
-        dist, vecs = _prune_rows(gen, dev, B, C, d)
-        out = occlusion_rounds(dist, vecs, alpha, R=R, metric=Metric.L2)
-        ref = occlusion_rounds_plain(dist, vecs, alpha, R=R, metric=Metric.L2)
-        check(torch.equal(out, ref), f"occlusion_rounds C={C} R={R} differs")
-        ms = time_ms(lambda: occlusion_rounds(dist, vecs, alpha, R=R,
-                                              metric=Metric.L2), 20)
-        plain_ms = time_ms(lambda: occlusion_rounds_plain(
-            dist, vecs, alpha, R=R, metric=Metric.L2), 3)
-        # each selected star is compared with the row's C candidates
-        stars = int((out < R).sum())
-        b = bound(B * C * (4 + d + 4), 3 * stars * C * d)
-        times[(C, R)] = dict(ms=ms, plain_ms=plain_ms, **b)
-        log(f"kernel 2 occlusion_rounds B={B} C={C} R={R} d={d}: rounds equal; "
-            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
-            f"({b['bound_by']}, {stars} stars)")
-    return dict(max_abs_err=0.0, library_ms=None, **times[(96, 32)])
+    for C, R in OCCLUDE_SHAPES:
+        for metric in (Metric.L2, Metric.MIPS):
+            dist, vecs = _prune_rows(gen, dev, B, C, d, mips=metric is Metric.MIPS)
+            what = f"kernel 2 occlusion_rounds B={B} C={C} R={R} d={d} {metric.name}"
+            out = occlusion_rounds(dist, vecs, alpha, R=R, metric=metric)
+            ref = occlusion_rounds_plain(dist, vecs, alpha, R=R, metric=metric)
+            check(torch.equal(out, ref), f"{what}: rounds differ")
+            ms = time_ms(lambda: occlusion_rounds(dist, vecs, alpha, R=R, metric=metric), 20)
+            plain_ms = time_ms(lambda: occlusion_rounds_plain(
+                dist, vecs, alpha, R=R, metric=metric), 3)
+            # the rows are ascending, so a row's live candidates are its first
+            # n_live: its distances and rounds move once, and the vectors of
+            # its live candidates; each star's distances to the row's C
+            # candidates are 2 C d int8 operations
+            is_star = (out < R).int()
+            stars, n_live = int(is_star.sum()), int((dist < INF).sum())
+            strips = float(torch.nn.functional.pad(is_star, (0, -C % 16))
+                           .view(B, -1, 16).amax(2).sum(1).float().mean())
+            # a star in a later strip runs that strip's epilogue
+            check(strips > 1.0, f"{what}: the stars stay in one strip a row")
+            b = bound(B * C * 8 + n_live * d, 2 * stars * C * d, INT8_OPS,
+                      "int8 tensor-core operations")
+            times[(C, R, metric)] = dict(ms=ms, plain_ms=plain_ms, **b)
+            log(f"{what}: rounds equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms; bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {stars} stars, "
+                f"{stars / B:.2f} and {strips:.2f} strips a row; {n_live} live candidates)")
+    return dict(max_abs_err=0.0, library_ms=None, **times[(96, 32, Metric.L2)])
 
 
 def bitonic_check(gen, dev):
@@ -433,6 +461,24 @@ def slice_run(X, Q, dev):
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched by the slice")
     return idx, launches, (gt_ids, gt_d)
+
+
+def profiled_build(X, dev):
+    """The 100K q8 build of phase 3 once more, under torch.profiler (the
+    timed build stays unprofiled): kernel 2's summed device time and
+    launches, and the build's idle share."""
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
+
+    before = occlusion_rounds.launches
+    prof = profile_window(lambda: pt.build_vamana_index(
+        X, R=32, L=64, alpha=1.2, batch_cap_frac=0.16, device=dev), "100K q8 build")
+    check(prof is not None, "the profiled build saw no device activity")
+    n = occlusion_rounds.launches - before
+    occl_ms = sum(us for name, us in prof["by_name"].items() if "occlusion" in name) / 1e3
+    check(n > 0 and occl_ms > 0, "the profiled build ran no occlusion_rounds")
+    log(f"profiled build: occlusion_rounds {occl_ms:.4f} ms of device time over {n} "
+        f"launches ({occl_ms / n:.4f} ms each); idle share {prof['idle']:.3f}")
 
 
 def kernel_fusedbeam(idx, Q, dev):
@@ -751,6 +797,8 @@ def main():
     k4 = kernel_flat(X, Q, gen, dev)
     log("== phase 3: the slice (q8 Vamana build + q8 fused search)")
     idx, launches, gt = slice_run(X, Q, dev)
+    log("== phase 3 (continued): the 100K build once more under torch.profiler")
+    profiled_build(X, dev)
     log("== phase 2 (continued): kernel 3 on the built graph")
     k3 = kernel_fusedbeam(idx, Q, dev)
     log("== phase 4: the ClusterIndex slice (build + cluster-beam search)")

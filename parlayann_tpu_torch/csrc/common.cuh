@@ -46,6 +46,59 @@ __device__ __forceinline__ float warp_dist(const float* q, const T* v, int d, in
   return kMips ? -acc : acc;
 }
 
+// Asynchronous copies from device memory into shared memory (cp.async).
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int kBytes>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, int src_bytes) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(src_bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+                 "n"(kBytes), "r"(src_bytes)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Fill the 16-byte shared slot `dst` with the `valid` bytes at `src`, zeros
+// after. `vec` is the widest copy the array's alignment allows: `valid` is a
+// multiple of it. A zero-byte copy reads nothing, but is still handed the
+// array's base `safe`, a valid address. vec = 1 (an int8 row length that is
+// not a multiple of 4) falls back to plain loads.
+__device__ __forceinline__ void stage_slot(char* dst, const char* src, const char* safe,
+                                           int valid, int vec) {
+  if (vec == 16) {
+    cp_async<16>(smem_addr(dst), valid > 0 ? src : safe, valid);
+  } else if (vec == 8) {
+#pragma unroll
+    for (int o = 0; o < 16; o += 8) {
+      const int v = min(max(valid - o, 0), 8);
+      cp_async<8>(smem_addr(dst + o), v > 0 ? src + o : safe, v);
+    }
+  } else if (vec == 4) {
+#pragma unroll
+    for (int o = 0; o < 16; o += 4) {
+      const int v = min(max(valid - o, 0), 4);
+      cp_async<4>(smem_addr(dst + o), v > 0 ? src + o : safe, v);
+    }
+  } else {
+#pragma unroll
+    for (int o = 0; o < 16; ++o) dst[o] = o < valid ? src[o] : 0;
+  }
+}
+
 // Allow a kernel more than the default 48 KB of dynamic shared memory.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -7,91 +7,335 @@
 // live c with alpha * d(star, c) <= d(p, c). Output: the round in which each
 // candidate became the star, else R + C.
 //
-// What bounds it on the H100: the R dependent rounds, not bytes. A row
-// reads C * d bytes once (12 KB at C = 96, d = 128) and then does
-// O(R * C * d) integer work on them with a barrier per round. The TPU
-// kernel precomputed the C x C distance matrix on the MXU and had to refuse
-// any C whose matrix overflowed VMEM; here the row's vectors sit in shared
-// memory (C * d bytes: 24 KB at C = 192) and each round recomputes only the
-// star's row, sum((a - b)^2) in int32, which is exact. So every C the build
-// produces fits, and above 48 KB the launch raises the shared-memory limit.
-//
-// Design: one CTA per row, four warps. Candidates are sorted, and every
-// candidate before the star is dead, so thread 0 finds the next star by a
-// forward scan that costs O(C) over all rounds. A warp handles one
-// candidate at a time, lanes striding over d, and reduces with shuffles.
-// Dead candidates are skipped. The loop stops as soon as no candidate is
-// left. Distances are exact integers, so `rounds` equals the plain PyTorch
-// version exactly.
+// What bounds it on the H100: bytes. A row reads its C distances and the d
+// bytes of each live candidate and writes 4C; its distances are 2 C d
+// integer operations a star, which the int8 tensor cores (1,979 TOPS)
+// finish well before the row's bytes arrive at 3.35 TB/s (at B = 2048,
+// C = 96, d = 128, about 85 live candidates a row: about 0.007 ms of bytes
+// against 0.0007 ms of operations). What keeps a kernel from that bound
+// is the chain of R dependent rounds inside each row, so the design makes a
+// round a few warp instructions and keeps every row's chain independent:
+//  1. One warp owns one row and is its CTA, so nothing waits on another
+//     row and no barrier exists. A row whose candidates are all INF (the
+//     pad rows of the build's minimum batches) writes R + C and returns at
+//     once; a row stages and computes only up to its last live candidate.
+//  2. Candidate-candidate distances come from the tensor cores: int8
+//     mma.sync.m16n8k32 with s32 accumulators gives exact dot products,
+//     L2 is n_i + n_j - 2 dot (the same int32 as sum((a - b)^2), taken
+//     modulo 2^32 as that sum is) and MIPS is -dot. Each is rounded to f32
+//     once, as the plain version rounds it, and tested as
+//     alpha * d(i, c) <= d(p, c) in f32, so the rounds equal the plain
+//     version's exactly.
+//  3. The tests are made lazily, in strips of 16 candidates: when the star
+//     first falls in strip s, the warp computes that strip's 16 rows
+//     against every later candidate, two 8-candidate tiles a step (a pair
+//     of tiles whose 16 candidates are all dead is skipped), and keeps
+//     only the outcome: 16 rows of kill bits, one a candidate, in its
+//     shared memory. No C x C matrix exists, and a strip no star falls in
+//     is never made. An f32 mode (ROADMAP A1) adds a second producer of
+//     these bits and nothing else.
+//  4. A round is then bit arithmetic in registers: lane w holds live word
+//     w (ceil(C / 32) words); a ballot and __ffs find the star (every
+//     candidate before it is dead), and each lane clears its word's bits
+//     that the star's kill row sets. The loop ends when no candidate is
+//     live or after R rounds.
+//  5. The row's vectors reach shared memory by cp.async in 16-byte copies
+//     (8, 4 or plain loads where the array's alignment and d allow no
+//     wider), d zero-padded to a multiple of 32. Vector rows are d + 16
+//     bytes apart, an odd multiple of 16, so the 8 x 4 lanes of a fragment
+//     load and the 8 lanes of a 16-byte norm load fall on distinct banks.
+// A row's shared memory is (C rounded to 16) (d rounded to 32, + 16) bytes
+// of vectors, 16 x C kill bits and 12 bytes a candidate: 14784 bytes at
+// C = 96, d = 128; CTAs of one warp pack an SM's shared memory about as
+// densely as CTAs of two or four rows would (each CTA also holds 1 KB the
+// card reserves), and a short row frees its share at once. A row that does
+// not fit one CTA's 227 KB, or has more than 1024 candidates (32 live
+// words), runs the global-memory variant: the same rounds on live words in
+// shared memory, each lane computing its candidate's distance to the star
+// from the vectors in device memory.
+
+#include <atomic>
+#include <mutex>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kStrip = 16;         // candidates a strip: the m of one mma
+constexpr int kMaxLiveWords = 32;  // one a lane
+constexpr int kSmemBlock = 227 * 1024;
+
+// One row's shared workspace (bytes); the host computes it, the kernel
+// reads it.
+struct Layout {
+  int Cv;  // candidate rows stored: C rounded up to 16
+  int dp;  // bytes a vector: d rounded up to 32, zeros past d
+  int vs;  // vector row stride: dp + 16
+  int W;   // live words: ceil(C / 32); also the words of a kill row
+  int kill_off, dist_off, norm_off, bytes;
+};
+
+inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
+
+Layout make_layout(int C, int d) {
+  Layout L;
+  L.Cv = round_up(C, kStrip);
+  L.dp = round_up(d, 32);
+  L.vs = L.dp + 16;
+  L.W = (C + 31) / 32;
+  L.kill_off = L.Cv * L.vs;
+  L.dist_off = L.kill_off + kStrip * L.W * 4;
+  L.norm_off = L.dist_off + L.W * 32 * 4;
+  L.bytes = round_up(L.norm_off + L.Cv * 4, 16);
+  return L;
+}
+
+__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// D = A B + D on one m16n8k32 int8 fragment (PTX ISA, "Matrix Fragments
+// for mma.m16n8k32" with .s8): A row-major 16 x 32, a0 (g, 4t..4t+3), a1
+// (g + 8, 4t..), a2 (g, 16 + 4t..), a3 (g + 8, 16 + 4t..); B column-major
+// 32 x 8, b0 (4t..4t+3, g), b1 (16 + 4t.., g); C/D c0 (g, 2t), c1 (g,
+// 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1); g = lane / 4, t = lane % 4.
+// Both operands are candidate-major rows of the staged vectors.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Bits 0..3 of x to bits 0, 2, 4, 6.
+__device__ __forceinline__ unsigned spread4(unsigned x) {
+  return (x & 1u) | ((x & 2u) << 1) | ((x & 4u) << 2) | ((x & 8u) << 3);
+}
+
+// Read a row's distances, write R + C to its rounds and make its live words
+// (a candidate lives unless its distance is >= INF, as in the plain
+// version): lane w keeps word w in `mine` (for w < 32), and `live` (W
+// words), `sd` (32 W floats) receive the words and the distances when not
+// null. Returns 1 + the last live candidate, 0 if none.
+__device__ __forceinline__ int init_row(const float* db, int* rb, float* sd, unsigned* live,
+                                        unsigned& mine, int C, int R, int W, int lane) {
+  int n_live = 0;
+  mine = 0;
+  for (int w = 0; w < W; ++w) {
+    const int c = 32 * w + lane;
+    float x = pa::kInf;
+    if (c < C) {
+      x = db[c];
+      rb[c] = R + C;
+    }
+    if (sd != nullptr) sd[c] = x;
+    const unsigned m = __ballot_sync(pa::kFullMask, !(x >= pa::kInf));
+    if (lane == w) mine = m;
+    if (live != nullptr && lane == 0) live[w] = m;
+    if (m) n_live = 32 * w + 32 - __clz(static_cast<int>(m));
+  }
+  __syncwarp();
+  return n_live;
+}
 
 template <bool kMips>
-__global__ void __launch_bounds__(kThreads)
-occlusion_kernel(const float* __restrict__ dist, const int8_t* __restrict__ vecs,
-                 float alpha, int* __restrict__ rounds, int C, int d, int R,
-                 size_t vec_bytes) {
+__global__ void __launch_bounds__(32)
+occlusion_mma_kernel(const float* __restrict__ dist, const int8_t* __restrict__ vecs,
+                     float alpha, int* __restrict__ rounds, int C, int d, int R, int vec,
+                     Layout L) {
   extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* sv = reinterpret_cast<int8_t*>(smem);           // C * d
-  float* sd = reinterpret_cast<float*>(smem + vec_bytes);  // C
-  int* dead = reinterpret_cast<int*>(sd + C);              // C
-  __shared__ int s_star;
-
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int8_t* vb = vecs + static_cast<size_t>(b) * C * d;
-  const float* db = dist + static_cast<size_t>(b) * C;
+  const int lane = threadIdx.x, b = blockIdx.x;
+  int8_t* sv = reinterpret_cast<int8_t*>(smem);
+  unsigned* kill = reinterpret_cast<unsigned*>(smem + L.kill_off);  // 16 rows of W words
+  float* sd = reinterpret_cast<float*>(smem + L.dist_off);
+  int* nrm = reinterpret_cast<int*>(smem + L.norm_off);
   int* rb = rounds + static_cast<size_t>(b) * C;
 
-  for (int i = threadIdx.x; i < C * d; i += blockDim.x) sv[i] = vb[i];
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    const float x = db[c];
-    sd[c] = x;
-    dead[c] = x >= pa::kInf;
-    rb[c] = R + C;
-  }
-  __syncthreads();
+  unsigned live;  // lane w: live word w
+  const int n_live =
+      init_row(dist + static_cast<size_t>(b) * C, rb, sd, nullptr, live, C, R, L.W, lane);
+  if (n_live == 0) return;
 
-  int star = -1;
-  for (int r = 0; r < R; ++r) {
-    if (threadIdx.x == 0) {
-      int s = star + 1;
-      while (s < C && dead[s]) ++s;
-      s_star = s;
-      if (s < C) {
-        rb[s] = r;
-        dead[s] = 1;
-      }
-    }
-    __syncthreads();
-    star = s_star;
-    if (star >= C) break;
-    const int8_t* vs = sv + static_cast<size_t>(star) * d;
-    for (int c = star + 1 + warp; c < C; c += n_warps) {
-      if (dead[c]) continue;  // warp-uniform
-      const int8_t* vc = sv + static_cast<size_t>(c) * d;
+  // stage vectors [0, n_live) as 16-byte slots, zeros past d
+  const int8_t* vb = vecs + static_cast<size_t>(b) * C * d;
+  const int slots = L.dp / 16;
+  for (int i = lane; i < n_live * slots; i += 32) {
+    const int c = i / slots, j = i - c * slots;
+    pa::stage_slot(reinterpret_cast<char*>(sv + c * L.vs + 16 * j),
+                   reinterpret_cast<const char*>(vb + static_cast<size_t>(c) * d + 16 * j),
+                   reinterpret_cast<const char*>(vecs), min(max(d - 16 * j, 0), 16), vec);
+  }
+  pa::cp_async_commit();
+  pa::cp_async_wait_all();
+  __syncwarp();
+  if (!kMips) {
+    for (int c = lane; c < n_live; c += 32) {
+      const int4* row = reinterpret_cast<const int4*>(sv + c * L.vs);
       int acc = 0;
-      for (int t = lane; t < d; t += 32) {
-        const int x = vs[t], y = vc[t];
-        if (kMips) {
-          acc += x * y;
-        } else {
-          acc += (x - y) * (x - y);
+      for (int j = 0; j < slots; ++j) {
+        const int4 v = row[j];
+        acc = __dp4a(v.x, v.x, acc);
+        acc = __dp4a(v.y, v.y, acc);
+        acc = __dp4a(v.z, v.z, acc);
+        acc = __dp4a(v.w, v.w, acc);
+      }
+      nrm[c] = acc;
+    }
+    __syncwarp();
+  }
+
+  // Strip s: kill bit (i, c) = alpha * d(16 s + i, c) <= d(p, c) for the
+  // candidates c of every pair of tiles with a live one. Bits of skipped
+  // tiles, of columns before the strip and past n_live, and of rows past
+  // n_live (never staged) are never written or are garbage: they only
+  // meet dead candidates, whose live bits are already clear.
+  const int g = lane >> 2, t = lane & 3;
+  unsigned char* kill_bytes = reinterpret_cast<unsigned char*>(kill);
+  auto make_strip = [&](int s) {
+    const int r0 = s * kStrip;
+    const int8_t* a_lo = sv + (r0 + g) * L.vs + 4 * t;
+    const int8_t* a_hi = a_lo + 8 * L.vs;
+    for (int n0 = r0; n0 < n_live; n0 += 16) {
+      const unsigned word = __shfl_sync(pa::kFullMask, live, n0 >> 5);
+      if (((word >> (n0 & 31)) & 0xffffu) == 0) continue;
+      const int8_t* bp = sv + (n0 + g) * L.vs + 4 * t;
+      int acc[2][4] = {};
+      for (int k0 = 0; k0 < L.dp; k0 += 32) {
+        const uint32_t a[4] = {ld32(a_lo + k0), ld32(a_hi + k0), ld32(a_lo + k0 + 16),
+                               ld32(a_hi + k0 + 16)};
+        mma_s8(acc[0], a, ld32(bp + k0), ld32(bp + k0 + 16));
+        mma_s8(acc[1], a, ld32(bp + 8 * L.vs + k0), ld32(bp + 8 * L.vs + k0 + 16));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = n0 + 8 * h + 2 * t;
+        const float2 dpc = *reinterpret_cast<const float2*>(sd + col);
+        unsigned bits[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float dic;
+          if (kMips) {
+            dic = -static_cast<float>(acc[h][i]);
+          } else {
+            // unsigned: the int32 wraps exactly as sum((a - b)^2) would
+            const unsigned l2 = static_cast<unsigned>(nrm[r0 + g + 8 * (i >> 1)]) +
+                                static_cast<unsigned>(nrm[col + (i & 1)]) -
+                                2u * static_cast<unsigned>(acc[h][i]);
+            dic = static_cast<float>(static_cast<int>(l2));
+          }
+          bits[i] = __ballot_sync(pa::kFullMask, alpha * dic <= ((i & 1) ? dpc.y : dpc.x));
+        }
+        if (t == 0) {  // lane 4g + t holds columns 2t, 2t + 1 of rows g, g + 8
+          const int at = (n0 >> 3) + h, sh = 4 * g;
+          kill_bytes[g * 4 * L.W + at] = static_cast<unsigned char>(
+              spread4(bits[0] >> sh) | (spread4(bits[1] >> sh) << 1));
+          kill_bytes[(g + 8) * 4 * L.W + at] = static_cast<unsigned char>(
+              spread4(bits[2] >> sh) | (spread4(bits[3] >> sh) << 1));
         }
       }
-      acc = pa::warp_sum(acc);
-      if (lane == 0) {
-        const float dsp = kMips ? -static_cast<float>(acc) : static_cast<float>(acc);
-        if (alpha * dsp <= sd[c]) dead[c] = 1;
-      }
     }
-    __syncthreads();
+    __syncwarp();
+  };
+
+  int made = -1;  // the strip in shared memory
+  for (int r = 0; r < R; ++r) {
+    const unsigned nz = __ballot_sync(pa::kFullMask, live != 0);
+    if (nz == 0) break;
+    const int w = __ffs(static_cast<int>(nz)) - 1;  // every word before is dead
+    const unsigned lw = __shfl_sync(pa::kFullMask, live, w);
+    const int star = 32 * w + __ffs(static_cast<int>(lw)) - 1;
+    if (lane == w) live = lw & (lw - 1);
+    if (lane == 0) rb[star] = r;
+    if (star / kStrip != made) {
+      made = star / kStrip;
+      make_strip(made);
+    }
+    if (lane < L.W) live &= ~kill[(star % kStrip) * L.W + lane];
   }
+}
+
+// The same rounds for a row too large for the kernel above: only the live
+// words sit in shared memory (W words); each lane computes its
+// candidate's distance to the star in int32 from device memory and one
+// ballot a word clears the occluded ones.
+template <bool kMips>
+__global__ void __launch_bounds__(32)
+occlusion_global_kernel(const float* __restrict__ dist, const int8_t* __restrict__ vecs,
+                        float alpha, int* __restrict__ rounds, int C, int d, int R, int W) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x, b = blockIdx.x;
+  unsigned* live = reinterpret_cast<unsigned*>(smem);
+  const float* db = dist + static_cast<size_t>(b) * C;
+  int* rb = rounds + static_cast<size_t>(b) * C;
+  unsigned unused;
+  const int n_live = init_row(db, rb, nullptr, live, unused, C, R, W, lane);
+  const int8_t* vb = vecs + static_cast<size_t>(b) * C * d;
+  const int n_words = (n_live + 31) >> 5;
+  int star = -1;
+  for (int r = 0; r < R; ++r) {
+    int w = (star + 1) >> 5;  // every candidate before the star is dead
+    unsigned lw = 0;
+    for (; w < n_words; ++w) {
+      lw = live[w];
+      if (lw) break;
+    }
+    if (w >= n_words) break;
+    star = 32 * w + __ffs(static_cast<int>(lw)) - 1;
+    lw &= lw - 1;
+    if (lane == 0) {
+      live[w] = lw;
+      rb[star] = r;
+    }
+    __syncwarp();
+    const int8_t* x = vb + static_cast<size_t>(star) * d;
+    for (int ww = w; ww < n_words; ++ww) {
+      const unsigned m = ww == w ? lw : live[ww];
+      if (m == 0) continue;
+      const int c = 32 * ww + lane;
+      bool kill = false;
+      if ((m >> lane) & 1u) {
+        const int8_t* y = vb + static_cast<size_t>(c) * d;
+        unsigned acc = 0;
+        for (int k = 0; k < d; ++k) {
+          const int p = x[k], q = y[k];
+          acc += static_cast<unsigned>(kMips ? p * q : (p - q) * (p - q));
+        }
+        const float dsc = kMips ? -static_cast<float>(static_cast<int>(acc))
+                                : static_cast<float>(static_cast<int>(acc));
+        kill = alpha * dsc <= db[c];
+      }
+      const unsigned k = __ballot_sync(pa::kFullMask, kill);
+      if (k && lane == 0) live[ww] = m & ~k;
+    }
+    __syncwarp();
+  }
+}
+
+// Let a launch of occlusion_mma_kernel<kMips> on the current device take
+// `bytes` of dynamic shared memory, with shared memory preferred over L1
+// (the kernel reads each byte once). The attributes persist, so they are set
+// only when a launch needs more than any launch before it on that device.
+template <bool kMips>
+cudaError_t allow_mma_smem(int bytes) {
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> granted[kMaxDevices];  // bytes allowed so far
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::atomic<int>* g = dev < kMaxDevices ? &granted[dev] : nullptr;
+  if (g != nullptr && bytes <= g->load()) return cudaSuccess;
+  std::lock_guard<std::mutex> lock(mu);
+  if (g != nullptr && bytes <= g->load()) return cudaSuccess;
+  const auto kernel = &occlusion_mma_kernel<kMips>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && g != nullptr) g->store(bytes);
+  return err;
 }
 
 }  // namespace
@@ -100,13 +344,23 @@ extern "C" int pa_occlusion_rounds(const void* dist, const void* vecs, float alp
                                    void* rounds, int B, int C, int d, int R, int mips,
                                    void* stream) {
   if (B == 0) return 0;
-  const size_t vec_bytes = (static_cast<size_t>(C) * d + 15) / 16 * 16;
-  const size_t smem = vec_bytes + 2 * sizeof(int) * static_cast<size_t>(C);
-  auto kernel = mips ? &occlusion_kernel<true> : &occlusion_kernel<false>;
-  cudaError_t err = pa::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(dist), static_cast<const int8_t*>(vecs), alpha,
-      static_cast<int*>(rounds), C, d, R, vec_bytes);
+  const Layout L = make_layout(C, d);
+  const auto* df = static_cast<const float*>(dist);
+  const auto* vi = static_cast<const int8_t*>(vecs);
+  auto* ri = static_cast<int*>(rounds);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (L.W <= kMaxLiveWords && L.bytes <= kSmemBlock) {
+    auto kernel = mips ? &occlusion_mma_kernel<true> : &occlusion_mma_kernel<false>;
+    const cudaError_t err = mips ? allow_mma_smem<true>(L.bytes) : allow_mma_smem<false>(L.bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // the widest copy that the base address and the row length keep aligned
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(vecs);
+    int vec = 16;
+    while (vec > 1 && ((addr % vec) != 0 || d % vec != 0)) vec /= 2;
+    kernel<<<B, 32, L.bytes, st>>>(df, vi, alpha, ri, C, d, R, vec, L);
+    return static_cast<int>(cudaGetLastError());
+  }
+  auto kernel = mips ? &occlusion_global_kernel<true> : &occlusion_global_kernel<false>;
+  kernel<<<B, 32, L.W * sizeof(unsigned), st>>>(df, vi, alpha, ri, C, d, R, L.W);
   return static_cast<int>(cudaGetLastError());
 }

@@ -131,21 +131,28 @@ class Index:
     def batch_search(self, queries, k: int = 10, beam_size: int = 128,
                      cut: float = 1.35, limit: Optional[int] = None,
                      degree_limit: Optional[int] = None, expand: int = 1,
-                     rerank_factor: int = 10, random_starts: int = 0,
-                     starts=None):
+                     rerank_factor: int = 10, two_phase: bool = True,
+                     expand_group: int = 1, random_starts: int = 0,
+                     seed: int = 0, starts=None):
         """Search all query rows -> (ids (B, k), dists (B, k), result): a
         FusedResult on the q8 tier, the BeamResult of the lock-step search
         on the 1-bit and JL tiers.
 
         ``starts``: optional per-query start ids, (B,) or (B, S); they take
         precedence over the entry tier and ``start_point``. The rerank pool
-        is min(k * rerank_factor, beam)."""
+        is min(k * rerank_factor, beam).
+
+        The JAX package's ``two_phase`` (resume at most B // 4 unconverged
+        queries in a second phase) and ``expand_group`` (group expansions
+        into one TPU step) schedule work on the TPU: both are accepted and
+        every query runs its untruncated search. ``seed`` draws the
+        ``random_starts``, which are not ported yet."""
         if random_starts > 0:
-            _not_ported("random_starts", "queue 1, item 11")
+            _not_ported("random_starts", "queue 1, item 8")
         if (self.bit_points is None and self.jl_tier is None
                 and self.qpoints is None):
             _not_ported("search without a quantized tier (the f32 tier)",
-                        "queue 1, item 17")
+                        "queue 1, item 4")
         qp = QueryParams(k=k, beamSize=beam_size, cut=cut, limit=limit,
                          degree_limit=degree_limit).resolved(
             self.graph.max_degree, self.points.n)
@@ -194,9 +201,9 @@ class Index:
         rerank."""
         if expand != 1:
             _not_ported("multi-expansion search (expand > 1) on the q8 tier",
-                        "queue 2")
+                        "queue 1, item 2")
         if qp.degree_limit < self.graph.max_degree:
-            _not_ported("degree_limit < R on the fused path", "queue 2")
+            _not_ported("degree_limit < R on the fused path", "queue 1, item 2")
         tier = self.qpoints
         q_t = quantize.translate_query(qf, tier).float()
         fid, _, nv, cmps = beam_search_fused(

@@ -7,11 +7,15 @@ kills every candidate c with ``alpha * d(star, c) <= d(p, c)``. The output
 is the round in which each candidate became the star, ``R + C`` if never;
 the caller recovers the (B, R) selection with one stable sort.
 
-The CUDA kernel is ``csrc/occlude.cu``. ``occlusion_rounds_plain`` follows
-the JAX package's ``_occlusion_loop_xla`` (build/prune.py:111): one C x C
-pairwise matrix as a float32 matmul, then R rounds of masks. On int8
-candidates every distance is an exact integer in both, so the rounds are
-equal.
+The CUDA kernel is ``csrc/occlude.cu``: one warp a row; the occlusion
+tests of 16 candidates against the later ones come from int8 tensor-core
+products when the star first reaches them, kept as bits; a round is bit
+arithmetic on the row's live words.
+``occlusion_rounds_plain`` follows the JAX package's
+``_occlusion_loop_xla`` (build/prune.py:111): one C x C pairwise matrix as
+a float32 matmul, then R rounds of masks. On int8 candidates every
+distance is an exact integer in both (below 2^24 for d <= 258, where the
+f32 sums are exact), so the rounds are equal.
 """
 
 from __future__ import annotations
@@ -62,8 +66,10 @@ def occlusion_rounds(cand_dists: torch.Tensor, cand_vecs: torch.Tensor, alpha,
                      *, R: int, metric: Metric) -> torch.Tensor:
     """-> (B, C) int32: selection round per candidate, R + C if unselected.
     CPU tensors run :func:`occlusion_rounds_plain`; CUDA tensors launch the
-    kernel, which takes f32 distances and int8 vectors of any C and d whose
-    C * d bytes fit one block's shared memory."""
+    kernel, which takes f32 distances and int8 vectors (any alignment) of
+    any C and d with C * d + 8 C <= 227 KB. A row whose workspace does not
+    fit one CTA's shared memory, or with more than 1024 candidates, runs
+    the kernel's global-memory variant."""
     if not _lib.route(cand_dists, cand_vecs):
         return occlusion_rounds_plain(cand_dists, cand_vecs, alpha, R=R,
                                       metric=metric)

@@ -70,9 +70,11 @@ class FlatIndex:
         return self.points.device
 
     def batch_search(self, queries, k: int = 10, select: str = "sort",
-                     chunk: int = 32768):
+                     chunk: int = 32768, **_ignored):
         """-> (ids (B, k), dists (B, k)); q8-tier distances are in the
-        tier's domain."""
+        tier's domain. Other keywords (``Index.batch_search``'s
+        ``beam_size``, ``cut``, ...) are ignored, as the JAX package's
+        FlatIndex ignores them, so a harness can search either index."""
         q = torch.as_tensor(queries).to(self.device, torch.float32)
         ps = self.qpoints or self.points
         if self.qpoints is not None:

@@ -1,70 +1,167 @@
-"""Time kernel 4 (``flat_topk``) of a checkout of the PyTorch port on one card.
+"""Time a kernel of a checkout of the PyTorch port on one card.
 
 Usage, on a machine with an NVIDIA GPU and nvcc:
 
-    python3 scripts/time_flat_topk.py [--root DIR] [--reps N] [--tag NAME]
+    python3 scripts/time_flat_topk.py [--kernel flat_topk|occlusion] [--root DIR]
+                                      [--reps N] [--tag NAME]
+                                      [--build N ...] [--build-reps K]
 
 Imports ``parlayann_tpu_torch`` from DIR (default: this repository), builds
-its kernels, and times ``flat_topk`` at chip_smoke.py's phase-2 shape: the
-synthetic clustered 100K x 128 set (seed 7) and its 10K queries, k=10, L2,
-on f32 points and on the q8 tier (int8 points, translated queries). Times
-are device times from CUDA events over back-to-back launches after a
-warm-up. Prints one JSON line with the card's name and power limit. To
-compare versions on one card, run it on each checkout in turns (A, B, B, A)
-in one call on one machine.
+its kernels, and times one of them with chip_smoke.py's timer (this
+repository's, whatever DIR holds): device times from CUDA events over
+back-to-back launches after a warm-up. Prints one JSON line with the card's
+name and power limit. To compare versions on one card, run it on each
+checkout in turns (A, B, B, A) in one call on one machine.
+
+- ``--kernel flat_topk`` (kernel 4, the default): chip_smoke.py's phase-2
+  shape, the synthetic clustered 100K x 128 set (seed 7) and its 10K
+  queries, k=10, L2, on f32 points and on the q8 tier (int8 points,
+  translated queries).
+- ``--kernel occlusion`` (kernel 2): chip_smoke.py's four prune shapes,
+  B=2048 rows of d=128 at (C, R) = (96, 32), (64, 32), (40, 32) and
+  (192, 64), alpha 1.2, under L2 and under MIPS, each on rows of its own
+  metric that chip_smoke.py makes from seed 7, so every checkout is timed
+  on the same inputs. Each shape's rounds are also checked against the
+  checkout's plain version.
+
+``--build N`` (100000 or 1000000, repeatable) also builds chip_smoke.py's
+q8 Vamana index over its synthetic clustered N x 128 set (R=32, L=64,
+alpha=1.2, two passes; batch_cap_frac 0.16 at 100K, 0.04 at 1M),
+``--build-reps`` times on the host clock (fenced), then once more under
+torch.profiler. It reports each timed build's seconds, the average
+degree, the digests of the graphs (equal digests: equal graphs), and
+kernel 2's summed device ms and launches and the idle share of the
+profiled build.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import importlib.util
 import json
 import sys
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
+SEED = 7
+OCCLUDE_B, OCCLUDE_D, ALPHA = 2048, 128, 1.2
+BUILDS = {100_000: (1000, 0.16), 1_000_000: (10_000, 0.04)}  # n -> clusters, batch_cap_frac
+
+
+def time_flat(chip, reps, dev):
+    import torch
+    from parlayann_tpu_torch.types import Metric
+    from parlayann_tpu_torch.data.pointset import PointSet
+    from parlayann_tpu_torch.ops import quantize
+    from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk
+    from parlayann_tpu_torch.utils import synthetic
+
+    X, Q = synthetic.clustered(100_000, 128, n_queries=10_000, n_clusters=1000,
+                               cluster_std=0.35, seed=SEED)
+    ps = PointSet.from_numpy(X, device=dev)
+    q = torch.from_numpy(Q).to(dev)
+    tier = quantize.quantize_pointset(ps, bits=8)
+    q8 = quantize.translate_query(q, tier).float()
+    kw = dict(k=10, metric=Metric.L2, n_valid=len(X))
+    return {f"{name}_ms": chip.time_ms(lambda: flat_topk(qq, xx, **kw), reps)
+            for name, qq, xx in (("f32", q, ps.data), ("int8", q8, tier.data))}
+
+
+def time_occlusion(chip, reps, dev):
+    import torch
+    from parlayann_tpu_torch.types import Metric
+    from parlayann_tpu_torch.ops.kernels.occlude import (
+        occlusion_rounds, occlusion_rounds_plain)
+
+    gen = torch.Generator().manual_seed(SEED)
+    out = {}
+    for C, R in chip.OCCLUDE_SHAPES:
+        for metric in (Metric.L2, Metric.MIPS):
+            dist, vecs = chip._prune_rows(gen, dev, OCCLUDE_B, C, OCCLUDE_D,
+                                          mips=metric is Metric.MIPS)
+            kw = dict(R=R, metric=metric)
+            key = f"C{C}_R{R}_{metric.name}"
+            out[f"{key}_equal"] = bool(torch.equal(
+                occlusion_rounds(dist, vecs, ALPHA, **kw),
+                occlusion_rounds_plain(dist, vecs, ALPHA, **kw)))
+            out[f"{key}_ms"] = chip.time_ms(
+                lambda: occlusion_rounds(dist, vecs, ALPHA, **kw), reps)
+    return out
+
+
+def build_run(chip, n, reps, dev):
+    """Time the q8 build of n points ``reps`` times, then profile it once."""
+    import torch
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
+    from parlayann_tpu_torch.utils import synthetic
+
+    n_clusters, frac = BUILDS[n]
+    X, _ = synthetic.clustered(n, 128, n_clusters=n_clusters, cluster_std=0.35, seed=SEED)
+    kw = dict(R=32, L=64, alpha=1.2, batch_cap_frac=frac, device=dev)
+    seconds, digests = [], set()
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph, _, _ = pt.build_vamana_index(X, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        digests.add(hashlib.sha256(graph.neighbors.cpu().numpy().tobytes()
+                                   + graph.degrees.cpu().numpy().tobytes()).hexdigest()[:16])
+    before = occlusion_rounds.launches
+    prof = chip.profile_window(lambda: pt.build_vamana_index(X, **kw), f"{n} build")
+    if prof is None:
+        sys.exit("time_flat_topk: the profiled build saw no device activity")
+    occl_us = sum(us for name, us in prof["by_name"].items() if "occlusion" in name)
+    tag = f"build{n}"
+    return {f"{tag}_s": seconds, f"{tag}_avg_degree": graph.stats()[0],
+            f"{tag}_graph": sorted(digests), f"{tag}_occlusion_ms": occl_us / 1e3,
+            f"{tag}_occlusion_launches": occlusion_rounds.launches - before,
+            f"{tag}_idle_share": prof["idle"]}
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=("flat_topk", "occlusion"), default="flat_topk")
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose parlayann_tpu_torch is timed")
-    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--reps", type=int, default=None,
+                    help="timed launches (default 20 for flat_topk, 50 for occlusion)")
     ap.add_argument("--tag", default="", help="a name for the checkout in the output")
+    ap.add_argument("--build", type=int, action="append", default=[], choices=sorted(BUILDS),
+                    help="also time and profile the q8 build of this many points")
+    ap.add_argument("--build-reps", type=int, default=1, help="timed builds of each size")
     args = ap.parse_args()
     root = str(Path(args.root).resolve())
-    sys.path[:0] = [root, str(REPO)]  # the timed package first; chip_smoke's timer
+    sys.path[:0] = [root]  # the timed package
+    # this repository's timer and profiler, whatever the checkout holds
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    chip = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip)
 
     import torch
-    from chip_smoke import card_line, time_ms
 
     if not torch.cuda.is_available():
         sys.exit("time_flat_topk: no CUDA device")
     import parlayann_tpu_torch
-    from parlayann_tpu_torch.types import Metric
-    from parlayann_tpu_torch.data.pointset import PointSet
-    from parlayann_tpu_torch.ops import quantize
     from parlayann_tpu_torch.ops.kernels import _lib
-    from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk
-    from parlayann_tpu_torch.utils import synthetic
 
     if not parlayann_tpu_torch.__file__.startswith(root):
         sys.exit(f"time_flat_topk: imported {parlayann_tpu_torch.__file__}, not {root}")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     _lib.library()
-    build_s = time.perf_counter() - t0
-    X, Q = synthetic.clustered(100_000, 128, n_queries=10_000, n_clusters=1000,
-                               cluster_std=0.35, seed=7)
-    ps = PointSet.from_numpy(X, device=dev)
-    q = torch.from_numpy(Q).to(dev)
-    tier = quantize.quantize_pointset(ps, bits=8)
-    q8 = quantize.translate_query(q, tier).float()
-    kw = dict(k=10, metric=Metric.L2, n_valid=len(X))
-    out = {"tag": args.tag, "root": root, "build_s": build_s}
-    for name, qq, xx in (("f32", q, ps.data), ("int8", q8, tier.data)):
-        out[f"{name}_ms"] = time_ms(lambda: flat_topk(qq, xx, **kw), args.reps)
-    out["card"] = card_line()
+    out = {"tag": args.tag, "root": root, "kernel": args.kernel,
+           "lib_build_s": time.perf_counter() - t0}
+    if args.kernel == "flat_topk":
+        out.update(time_flat(chip, args.reps or 20, dev))
+    else:
+        out.update(time_occlusion(chip, args.reps or 50, dev))
+    for n in args.build:
+        out.update(build_run(chip, n, args.build_reps, dev))
+    out["card"] = chip.card_line()
     print(json.dumps(out), flush=True)
 
 

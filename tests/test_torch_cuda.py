@@ -68,20 +68,102 @@ def test_torch_cuda_expand_distances_bit_equal(gen, cuda, d):
         assert torch.equal(got, expand_distances_plain(inl, ids, q, metric=metric))
 
 
-@pytest.mark.parametrize("C,R", [(96, 32), (40, 32), (192, 64)])
-def test_torch_cuda_occlusion_rounds_equal(gen, cuda, C, R):
-    B, d = 64, 128
-    p = gen.integers(-128, 128, (B, 1, d))
-    vecs = gen.integers(-128, 128, (B, C, d))
-    dist = ((vecs - p) ** 2).sum(-1).astype(np.float32)
-    dist[:, C - 5:] = np.float32(3.0e38)
+INF32 = np.float32(3.0e38)
+
+
+def _occl_rows(gen, B, C, d, metric, lim=128):
+    """Rows as robustPrune sees them: the metric's distances to a point p,
+    ascending, with an INF tail of up to C // 3 slots; int8 vectors in
+    [-lim, lim)."""
+    p = gen.integers(-lim, lim, (B, 1, d))
+    vecs = gen.integers(-lim, lim, (B, C, d))
+    dist = ((vecs - p) ** 2).sum(-1) if metric is Metric.L2 else -(vecs * p).sum(-1)
+    tail = np.arange(C)[None, :] >= C - gen.integers(0, C // 3 + 1, (B, 1))
+    dist = np.where(tail, INF32, dist.astype(np.float32))
     order = np.argsort(dist, axis=1, kind="stable")
-    dist = t(np.take_along_axis(dist, order, 1), cuda)
-    vecs = t(np.take_along_axis(vecs, order[:, :, None], 1).astype(np.int8), cuda)
+    return (np.take_along_axis(dist, order, 1),
+            np.take_along_axis(vecs, order[:, :, None], 1).astype(np.int8))
+
+
+def _check_occl(dist, vecs, alpha, R, metric, dev):
+    """The kernel's rounds equal the plain version's; one launch per call
+    with rows."""
+    dist, vecs = t(dist, dev), t(vecs, dev)
+    before = occlusion_rounds.launches
+    got = occlusion_rounds(dist, vecs, alpha, R=R, metric=metric)
+    assert occlusion_rounds.launches == before + (dist.shape[0] > 0)
+    assert torch.equal(got, occlusion_rounds_plain(dist, vecs, alpha, R=R, metric=metric))
+    return got
+
+
+@pytest.mark.parametrize("d", [20, 100, 128])
+@pytest.mark.parametrize("C,R", [(37, 16), (40, 32), (64, 32), (96, 32), (100, 40),
+                                 (192, 64)])
+def test_torch_cuda_occlusion_rounds_equal(gen, cuda, C, R, d):
+    """The build's C (40, 64, 96, 192) and widths off the 16-candidate strip
+    and 32-candidate word; d = 128 takes 16-byte copies, 100 and 20 4-byte
+    ones. Each batch has a row with no live candidate and one with fewer
+    than R; alpha = 1 on small integers makes d(star, c) = d(p, c) ties."""
     for metric in (Metric.L2, Metric.MIPS):
-        got = occlusion_rounds(dist, vecs, 1.2, R=R, metric=metric)
-        assert torch.equal(got, occlusion_rounds_plain(dist, vecs, 1.2, R=R,
-                                                       metric=metric))
+        dist, vecs = _occl_rows(gen, 64, C, d, metric)
+        dist[3] = INF32
+        dist[5, 3:] = INF32
+        _check_occl(dist, vecs, 1.2, R, metric, cuda)
+        dist, vecs = _occl_rows(gen, 64, C, d, metric, lim=3)
+        _check_occl(dist, vecs, 1.0, R, metric, cuda)
+
+
+def test_torch_cuda_occlusion_rounds_skipped_strips(gen, cuda):
+    """Candidates 16..47 copy candidate 0, so the first star kills them: no
+    star falls in strips 1 and 2, whose distances are never computed, and
+    the L2 rounds go on to stars past them."""
+    B, C, d, R = 8, 96, 128, 32
+    vecs = gen.integers(-128, 128, (B, C, d))
+    vecs[:, 16:48] = vecs[:, :1]
+    dist = np.sort(gen.random((B, C)) * 1e6 + 1.0, axis=1).astype(np.float32)
+    for metric in (Metric.L2, Metric.MIPS):
+        got = _check_occl(dist, vecs.astype(np.int8), 1.2, R, metric, cuda)
+        assert bool((got[:, 16:48] >= R).all())
+        if metric is Metric.L2:
+            assert bool((got[:, 48:] < R).any(dim=1).all())
+
+
+@pytest.mark.parametrize("B", [0, 1])
+def test_torch_cuda_occlusion_rounds_tiny_batches(gen, cuda, B):
+    for metric in (Metric.L2, Metric.MIPS):
+        dist, vecs = _occl_rows(gen, B, 96, 128, metric)
+        assert _check_occl(dist, vecs, 1.2, 32, metric, cuda).shape == (B, 96)
+
+
+@pytest.mark.parametrize("C,d", [(640, 128), (1100, 16), (1500, 144), (6000, 30)])
+def test_torch_cuda_occlusion_rounds_large_rows(gen, cuda, C, d):
+    """Rows past the tensor-core kernel's reach run the global-memory
+    variant: (1100, 16) has more than 1024 candidates, and (1500, 144) and
+    (6000, 30), with C * d + 8 C near the 227 KB the wrapper allows, do not
+    fit one CTA's shared memory; (640, 128) still does."""
+    assert C * d + 8 * C <= 227 * 1024
+    for metric in (Metric.L2, Metric.MIPS):
+        dist, vecs = _occl_rows(gen, 3, C, d, metric)
+        _check_occl(dist, vecs, 1.2, 64, metric, cuda)
+
+
+def test_torch_cuda_occlusion_rounds_misaligned_vectors(gen, cuda):
+    """cand_vecs views 1, 4 and 8 bytes past a 16-byte boundary take the
+    plain-load, 4-byte and 8-byte copy paths; the wrapper still refuses a
+    row past 227 KB."""
+    dist, vecs = _occl_rows(gen, 32, 96, 128, Metric.L2)
+    dist, vecs = t(dist, cuda), t(vecs, cuda)
+    want = occlusion_rounds_plain(dist, vecs, 1.2, R=32, metric=Metric.L2)
+    for off in (1, 4, 8):
+        flat = torch.empty(vecs.numel() + 16, dtype=torch.int8, device=cuda)
+        view = flat[off:off + vecs.numel()].view(vecs.shape)
+        view.copy_(vecs)
+        assert view.data_ptr() % 16 == off
+        assert torch.equal(occlusion_rounds(dist, view, 1.2, R=32, metric=Metric.L2), want)
+    with pytest.raises(ValueError, match="shared memory"):
+        occlusion_rounds(torch.zeros((1, 2000), device=cuda),
+                         torch.zeros((1, 2000, 120), dtype=torch.int8, device=cuda),
+                         1.2, R=32, metric=Metric.L2)
 
 
 @pytest.mark.parametrize("L", [10, 64, 200])

@@ -183,6 +183,23 @@ def test_torch_flat_index_matches_jax(data, quantized):
     assert torch.equal(ids2, ids) and torch.equal(dists2, dists)
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["f32", "q8"])
+def test_torch_flat_index_ignores_index_keywords(data, quantized):
+    """FlatIndex.batch_search ignores the keywords of Index.batch_search,
+    as the JAX package's does: both packages return the same top-k with
+    them, and the port the same lists as without them."""
+    X, Q = data
+    kw = dict(beam_size=64, cut=1.35, limit=100, rerank_factor=4, two_phase=False)
+    want_i, want_d = JFlatIndex(JPointSet.from_numpy(X), quantize=quantized
+                                ).batch_search(Q, k=K, **kw)
+    fi = FlatIndex(PointSet.from_numpy(X, device="cpu"), quantize=quantized)
+    ids, dists = fi.batch_search(Q, k=K, **kw)
+    assert_same_topk(ids, dists, np.asarray(want_i), np.asarray(want_d), Q, X,
+                     exact=quantized)
+    plain_i, plain_d = fi.batch_search(Q, k=K)
+    assert torch.equal(ids, plain_i) and torch.equal(dists, plain_d)
+
+
 def test_torch_exact_knn_ties_in_id_order(rng):
     """Every point appears three times, so each distance ties three ways
     and the k-th place falls inside a tie; a chunk of 7 puts ties across

@@ -25,7 +25,7 @@ from parlayann_tpu_torch.types import Metric
 from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.ops import quantize
 from parlayann_tpu_torch.ops.kernels.expand import build_inline, expand_distances
-from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
+from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds, pairwise
 from parlayann_tpu_torch.ops.kernels.fusedbeam import (
     beam_search_fused, bitonic_sort_rows)
 from parlayann_tpu_torch.build import prune
@@ -116,6 +116,57 @@ def test_torch_occlusion_rounds_matches_jax(rng, C, R):
     for want_ids, want_d in ((j_ids, j_d), (x_ids, x_d)):
         np.testing.assert_array_equal(s_ids.numpy(), np.asarray(want_ids))
         np.testing.assert_array_equal(s_d.numpy(), np.asarray(want_d))
+
+
+@pytest.mark.parametrize("alpha", [1.2, 1.0], ids=["alpha1.2", "alpha1_ties"])
+@pytest.mark.parametrize("metric,jmetric", METRICS)
+def test_torch_occlusion_rounds_metrics_and_ties_match_jax(rng, metric, jmetric, alpha):
+    """Both metrics, and alpha = 1 on small integer vectors, where many
+    d(star, c) equal d(p, c) exactly and the test's <= decides: the port's
+    rounds equal the JAX kernel's (interpret mode)."""
+    B, C, d, R = 12, 40, 16, 12
+    lim = 3 if alpha == 1.0 else 128
+    p = rng.integers(-lim, lim, (B, 1, d))
+    vecs = rng.integers(-lim, lim, (B, C, d))
+    dist = ((vecs - p) ** 2).sum(-1) if metric is Metric.L2 else -(vecs * p).sum(-1)
+    dist = np.where(np.arange(C)[None, :] >= C - rng.integers(0, C // 3, (B, 1)),
+                    np.float32(3.0e38), dist.astype(np.float32))
+    order = np.argsort(dist, axis=1, kind="stable")
+    dist = np.take_along_axis(dist, order, 1)
+    vecs = np.take_along_axis(vecs, order[:, :, None], 1).astype(np.int8)
+    if alpha == 1.0:
+        pair = pairwise(t(vecs), metric).numpy()
+        ties = np.triu(pair == dist[:, None, :], 1) & (dist[:, None, :] < BIG)
+        assert ties.sum() >= B, ties.sum()
+    want = np.asarray(joccl_rounds(jnp.asarray(dist), jnp.asarray(vecs), alpha,
+                                   R=R, metric=jmetric))
+    got = occlusion_rounds(t(dist), t(vecs), alpha, R=R, metric=metric)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("d", [128, 258])
+def test_torch_occlusion_strip_arithmetic_is_exact(rng, d):
+    """The CUDA kernel's strip entry, n_i + n_j - 2 dot in int32 (tensor-core
+    dot products, then the epilogue), equals sum((a - b)^2) and the plain
+    version's pairwise() exactly on extreme int8 rows: all -128 against all
+    127 is the largest distance, 65025 d, below 2^24 at d = 258, so its f32
+    rounding is exact. MIPS's -dot equals pairwise() too."""
+    rows = np.stack([np.full(d, -128), np.full(d, 127), np.full(d, -128),
+                     np.zeros(d), rng.integers(-128, 128, d)]).astype(np.int8)
+    v = rows.astype(np.int32)
+    dot = v @ v.T
+    n = (v * v).sum(1, dtype=np.int32)
+    strip = n[:, None] + n[None, :] - np.int32(2) * dot
+    assert strip.dtype == np.int32
+    direct = ((v[:, None, :] - v[None, :, :]) ** 2).sum(-1)
+    np.testing.assert_array_equal(strip, direct)
+    assert strip.max() == 65025 * d < 2 ** 24
+    f32 = strip.astype(np.float32)
+    np.testing.assert_array_equal(f32.astype(np.int64), strip)
+    cand = torch.from_numpy(rows)[None]
+    np.testing.assert_array_equal(pairwise(cand, Metric.L2)[0].numpy(), f32)
+    np.testing.assert_array_equal(pairwise(cand, Metric.MIPS)[0].numpy(),
+                                  (-dot).astype(np.float32))
 
 
 def test_torch_robust_prune_matches_jax(rng):

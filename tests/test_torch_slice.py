@@ -111,6 +111,26 @@ def test_torch_slice_search_matches_jax(built, entry_min_n):
                                       np.asarray(j_idx.entry_ids))
 
 
+@pytest.mark.parametrize("kw", [
+    dict(two_phase=False, expand_group=4, seed=3),
+    dict(two_phase=True, expand_group=2, seed=0),
+], ids=["one_phase", "two_phase"])
+def test_torch_slice_reference_keywords_match_jax(built, kw):
+    """Index.batch_search takes the JAX package's two_phase, expand_group
+    and seed keywords: on the same graph and q8 tier both packages return
+    the same ids with them, and the port the same ids as without them."""
+    b = built
+    Q, jg = b["Q"], b["jg"]
+    graph = interop.graph_from_state(np.asarray(jg.neighbors), np.asarray(jg.degrees),
+                                     jg.n, jg.max_degree, device="cpu")
+    jidx = jpt.Index(points=b["jps"], graph=jg).enable_quantized(bits=8)
+    tidx = pt.Index(points=b["tps"], graph=graph).enable_quantized(bits=8)
+    want = np.asarray(jidx.batch_search(Q, k=K, beam_size=BEAM, **kw)[0])
+    ids = tidx.batch_search(Q, k=K, beam_size=BEAM, **kw)[0]
+    np.testing.assert_array_equal(ids.numpy(), want)
+    assert torch.equal(ids, tidx.batch_search(Q, k=K, beam_size=BEAM)[0])
+
+
 def test_torch_slice_unported_configurations_raise(built):
     idx = pt.Index(points=built["tps"], graph=built["tg"])
     Q = built["Q"][:4]
