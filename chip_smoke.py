@@ -16,10 +16,14 @@ Phases:
      synthetic clustered 100K x 128 set (R=32, L=64, alpha=1.2, two passes,
      batch_cap_frac=0.16), then q8 ``Index.batch_search`` of 10K queries at
      beams 10/16/32/64 against exact ground truth. Every kernel's launch
-     count is zeroed before and read after this phase. The same build
-     then runs once more under torch.profiler, which prints kernel 2's
-     summed device time and launches and the build's idle share. Kernel 3
-     is then checked against its plain version on the built graph.
+     count is zeroed before and read after these searches; one more
+     search at beams 10 and 64 runs under torch.profiler (device split and
+     idle share). The same build then runs once more under
+     torch.profiler, which prints kernel 2's summed device time and
+     launches and the build's idle share. Kernel 3 is then checked
+     against its plain version on the built graph, all four outputs
+     equal, at B = 1024 and 10,000 queries x L = 10 and 64, and timed at
+     each.
   4. the ClusterIndex slice on the same set: ``build_cluster_index`` (m=64,
      Rc=16, slack 1.5) with the f32 and the int8 ext layout, each searched
      by 10K queries at n_probe 3/4/6/8/12/16 with cut=0 and at the adaptive
@@ -46,10 +50,14 @@ the bytes it must move over 3.35 TB/s and its operations over 67 T/s (the
 H100's published device-memory rate and f32 rate outside the tensor cores;
 the XOR and popcount of kernel 6 are counted at that rate too), from this
 run's inputs, with data-dependent walks counted from their returned visit
-and distance counts. Kernel 4 runs on the tensor cores in 3xTF32, so its
-operations are 3 TF32 passes (2 for int8 points) of 2 B N d over 495 T/s,
-the H100 SXM dense TF32 rate; kernel 2's are its stars' 2 C d int8
-products over 1,979 T/s, the dense int8 rate, and its bytes each row's
+and distance counts, each input row counted once (kernel 3: the distinct
+tier rows scored and adjacency rows visited, from the plain walk's
+expanded ids; kernel 5: at most the whole ext array). Kernel 4 runs on
+the tensor cores in 3xTF32, so its operations are 3 TF32 passes (2 for
+int8 points) of 2 B N d over 495 T/s, the H100 SXM dense TF32 rate;
+kernel 2's are its stars' 2 C d int8 products and kernel 3's its 2 d int8
+products and sums a distance (integer-valued queries on the int8 tier),
+both over 1,979 T/s, the dense int8 rate; kernel 2's bytes are each row's
 distances and rounds (8 B C) and its live candidates' vectors.
 ``library_ms`` is one PyTorch call
 computing the same function where there is one (only for kernel 4: the cuBLAS product of the
@@ -160,14 +168,14 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def bound(nbytes, ops, rate=F32_OPS, ops_name="operations"):
+def bound(nbytes, ops, rate=F32_OPS):
     """-> dict(bound_ms, bound_by): the least time the card could take, the
     larger of the bytes over the memory rate and the operations over
-    ``rate`` (the f32 rate unless a kernel runs on the tensor cores)."""
+    ``rate``, the card's peak for the operations' type (f32 unless given)."""
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / rate * 1e3
     if t_bytes >= t_ops:
         return dict(bound_ms=t_bytes, bound_by="bytes")
-    return dict(bound_ms=t_ops, bound_by=ops_name)
+    return dict(bound_ms=t_ops, bound_by="operations")
 
 
 def unique_rows(ids, n_pad):
@@ -184,7 +192,7 @@ def phase_environment():
     seconds, report = _lib.build_report()
     log(f"kernels built and loaded in {seconds:.2f} s")
     for line in report.splitlines():
-        if "Used" in line or "Compiling entry" in line:
+        if "Used" in line or "Compiling entry" in line or line.startswith("nvcc "):
             log("  ptxas:", line.strip())
 
 
@@ -272,8 +280,7 @@ def kernel_occlude(gen, dev):
                            .view(B, -1, 16).amax(2).sum(1).float().mean())
             # a star in a later strip runs that strip's epilogue
             check(strips > 1.0, f"{what}: the stars stay in one strip a row")
-            b = bound(B * C * 8 + n_live * d, 2 * stars * C * d, INT8_OPS,
-                      "int8 tensor-core operations")
+            b = bound(B * C * 8 + n_live * d, 2 * stars * C * d, INT8_OPS)
             times[(C, R, metric)] = dict(ms=ms, plain_ms=plain_ms, **b)
             log(f"{what}: rounds equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms; bound "
                 f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {stars} stars, "
@@ -310,6 +317,7 @@ def bitonic_check(gen, dev):
     log(f"bitonic_sort_rows {rows} x {W} (with its two input copies): {ms:.4f} ms; "
         f"plain lexsort {plain_ms:.4f} ms; torch.sort of the keys {lib_ms:.4f} ms; "
         f"bound {b['bound_ms']:.4f} ms (bytes)")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
 
 
 def make_data():
@@ -401,7 +409,7 @@ def kernel_flat(X, Q, gen, dev):
     for name, passes, size in (("f32", 3, 4), ("int8", 2, 1)):
         # inputs read once (points, queries, bias), the (B, k) lists written
         b = bound(n * 128 * size + B * 128 * 4 + n * 4 + B * K * 8,
-                  passes * 2 * B * n * 128, TF32_OPS, "tensor-core operations (3xTF32)")
+                  passes * 2 * B * n * 128, TF32_OPS)
         S, per = splits(B, n, K, name == "int8", dev)
         ms, plain_ms = out[name]
         log(f"kernel 4 flat_topk {name} L2: {ms:.4f} ms vs plain {plain_ms:.4f} ms; "
@@ -456,6 +464,10 @@ def slice_run(X, Q, dev):
             f"QPS {len(Q) / dt:.1f}  ({dt * 1e3:.3f} ms / {len(Q)} queries; "
             f"visited {nv:.2f} cmps {cm:.1f})")
     log("launches during the slice:", launches)
+    qd = torch.as_tensor(Q).to(dev)
+    for beam in (BEAMS[0], BEAMS[-1]):
+        profile_window(lambda: idx.batch_search(qd, k=K, beam_size=beam),
+                       f"q8 search of {len(Q)} queries at beam {beam}")
     check(recall[64] >= RECALL_BAR,
           f"recall@{K} at beam 64 is {recall[64]:.4f} < {RECALL_BAR}")
     for name, n in launches.items():
@@ -481,46 +493,77 @@ def profiled_build(X, dev):
         f"launches ({occl_ms / n:.4f} ms each); idle share {prof['idle']:.3f}")
 
 
-def kernel_fusedbeam(idx, Q, dev):
+FUSED_SHAPES = ((1024, 10), (1024, 64), (10_000, 10), (10_000, 64))  # (B, L) of kernel 3
+
+
+def fused_args(idx, Q, L, dev):
+    """Kernel 3's inputs as the q8 search makes them for queries Q at beam
+    L -> (args, kwargs): the translated (integer-valued) queries, the int8
+    tier, the graph and the entry tier's top-1 starts."""
     from parlayann_tpu_torch.index import _entry_top1
     from parlayann_tpu_torch.ops import quantize
+
+    q = torch.as_tensor(Q).to(dev)
+    tier, g = idx.qpoints, idx.graph
+    if idx.entry_ids is None:
+        idx.build_entry_cache()  # the search's own entry tier (kept if built)
+    starts = _entry_top1(q, idx.entry_vecs, idx.entry_ids, metric=tier.metric)
+    q_t = quantize.translate_query(q, tier).float()
+    return ((q_t, tier.data, g.neighbors, g.degrees, starts),
+            dict(metric=tier.metric, n_valid=tier.n, k=K, L=L, limit=tier.n))
+
+
+def fused_rows(args, n_valid, expanded):
+    """-> (distinct tier rows a walk scored, distinct vertices it visited),
+    from the expanded ids that the plain walk reports step by step: the
+    valid starts and the valid neighbours below each visited vertex's
+    degree."""
+    _, _, nbrs, degs, starts = args
+    e = torch.cat(expanded) if expanded else starts.new_empty(0)
+    vis = torch.unique(e[e >= 0]).long()
+    slot = torch.arange(nbrs.shape[1], device=nbrs.device)[None, :]
+    nb = torch.where(slot < degs[vis][:, None], nbrs[vis], -1)
+    ids = torch.cat([nb.reshape(-1), starts.reshape(-1)])
+    ids = torch.unique(ids[(ids >= 0) & (ids < n_valid)])
+    return int(ids.numel()), int(vis.numel())
+
+
+def kernel_fusedbeam(idx, Q, dev):
     from parlayann_tpu_torch.ops.kernels.fusedbeam import (
         beam_search_fused, beam_search_fused_plain)
 
-    L = 64
-    q = torch.as_tensor(Q[:1024]).to(dev)
-    tier, g = idx.qpoints, idx.graph
-    idx.build_entry_cache()  # the search's own entry tier (kept if built)
-    starts = _entry_top1(q, idx.entry_vecs, idx.entry_ids, metric=tier.metric)
-    q_t = quantize.translate_query(q, tier).float()
-    args = (q_t, tier.data, g.neighbors, g.degrees, starts)
-    kw = dict(metric=tier.metric, n_valid=tier.n, k=K, L=L, limit=tier.n)
-    ids, dist, nv, cm = beam_search_fused(*args, **kw)
-    rids, rdist, rnv, rcm = beam_search_fused_plain(*args, **kw)
-    check(torch.equal(nv, rnv) and torch.equal(cm, rcm),
-          "beam_search_fused: num_visited / dist_cmps differ")
-    ok, rok = dist < 1e37, rdist < 1e37
-    check(torch.equal(ok, rok), "beam_search_fused: valid slots differ")
-    torch.testing.assert_close(torch.where(ok, dist, 0), torch.where(rok, rdist, 0),
-                               rtol=1e-5, atol=0)
-    a = sorted(zip(dist[ok].tolist(), ids[ok].tolist(),
-                   ok.nonzero()[:, 0].tolist()), key=lambda t: (t[2], t[0], t[1]))
-    b = sorted(zip(rdist[rok].tolist(), rids[rok].tolist(),
-                   rok.nonzero()[:, 0].tolist()), key=lambda t: (t[2], t[0], t[1]))
-    check(a == b, "beam_search_fused: (dist, id) sets differ")
-    err = float((torch.where(ok, dist, 0) - torch.where(rok, rdist, 0)).abs().max())
-    ms = time_ms(lambda: beam_search_fused(*args, **kw), 10)
-    plain_ms = time_ms(lambda: beam_search_fused_plain(*args, **kw), 2)
-    # per expansion one adjacency row and degree, per distance one int8 row
-    B, d, R = q.shape[0], q.shape[1], g.neighbors.shape[1]
-    n_cmp, n_vis = int(cm.sum()), int(nv.sum())
-    b = bound(n_cmp * d + n_vis * (R + 1) * 4 + B * d * 4 + starts.numel() * 4
-              + B * L * 8 + B * 8, 3 * n_cmp * d)
-    log(f"kernel 3 beam_search_fused B={B} L={L} on the built graph: valid "
-        f"(dist, id) sets, nv, cmps equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms; "
-        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {n_vis} visits, "
-        f"{n_cmp} distances)")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+    out = {}
+    for B, L in FUSED_SHAPES:
+        args, kw = fused_args(idx, Q[:B], L, dev)
+        expanded = []
+        got = beam_search_fused(*args, **kw)
+        want = beam_search_fused_plain(*args, **kw, expanded=expanded)
+        for name, g, w in zip(("ids", "dists", "num_visited", "dist_cmps"), got, want):
+            check(torch.equal(g, w), f"beam_search_fused B={B} L={L}: {name} differ")
+        nv, cm = got[2], got[3]
+        ms = time_ms(lambda: beam_search_fused(*args, **kw), 10)
+        plain_ms = (time_ms(lambda: beam_search_fused_plain(*args, **kw), 2)
+                    if (B, L) == (1024, 64) else None)
+        n_cmp, n_vis = int(cm.sum()), int(nv.sum())
+        n_rows, n_adj = fused_rows(args, kw["n_valid"], expanded)
+        # each input byte once: the distinct tier rows scored, the distinct
+        # visited vertices' adjacency rows and degrees, the queries and
+        # starts; the outputs. The queries are integer-valued and the tier
+        # int8, so each distance is d int8 products and d additions.
+        d, R = args[0].shape[1], args[2].shape[1]
+        b = bound(n_rows * d + n_adj * (R + 1) * 4 + B * d * 4 + args[4].numel() * 4
+                  + B * L * 8 + B * 8, 2 * n_cmp * d, INT8_OPS)
+        out[(B, L)] = dict(ms=ms, plain_ms=plain_ms, **b)
+        step = f"; {ms / int(nv.max()) * 1e3:.3f} us a step of the longest walk" if B == 1024 else ""
+        log(f"kernel 3 beam_search_fused B={B} L={L} on the built graph: ids, dists, nv, "
+            f"cmps equal; {ms:.4f} ms" + (f" vs plain {plain_ms:.4f} ms" if plain_ms else "")
+            + f"; bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {n_vis} visits of {n_adj} "
+            f"vertices, {n_cmp} distances to {n_rows} rows); visits mean "
+            f"{float(nv.float().mean()):.2f} max {int(nv.max())}{step}")
+    main = out[(1024, 64)]
+    return dict(max_abs_err=0.0, library_ms=None, **main,
+                shapes={f"B{B}_L{L}": dict(ms=v["ms"], bound_ms=v["bound_ms"])
+                        for (B, L), v in out.items()})
 
 
 def _no_duplicates(ids):
@@ -615,8 +658,10 @@ def kernel_cluster(indexes, Q, dev):
         n_vis = int(cluster_walk(*args, **kw)[2].sum())
         B, d = q.shape
         row_bytes = ci.ext.shape[1] * d * ci.ext.element_size()
-        b = bound(n_vis * row_bytes + B * d * 4 + sd.numel() * 8
-                  + B * POOL_DEPTH * ci.m * 8 + B * 4, 3 * n_vis * (ci.m + ci.Rc) * d)
+        # each ext row read once: at most the whole ext array
+        b = bound(min(n_vis * row_bytes, ci.ext.numel() * ci.ext.element_size())
+                  + B * d * 4 + sd.numel() * 8 + B * POOL_DEPTH * ci.m * 8 + B * 4,
+                  3 * n_vis * (ci.m + ci.Rc) * d)
         out[layout] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
         log(f"kernel 5 cluster_walk {layout} ext B=1024 m={ci.m} Rc={ci.Rc} on the built "
             f"index: nv, cmps and valid (dist, id) pool sets equal at n_probe 16 and "
@@ -793,7 +838,7 @@ def main():
     log("== phase 2: kernels against their plain versions")
     k1 = kernel_expand(gen, dev)
     k2 = kernel_occlude(gen, dev)
-    bitonic_check(gen, dev)
+    kb = bitonic_check(gen, dev)
     k4 = kernel_flat(X, Q, gen, dev)
     log("== phase 3: the slice (q8 Vamana build + q8 fused search)")
     idx, launches, gt = slice_run(X, Q, dev)
@@ -840,6 +885,11 @@ def main():
              source="parlayann_tpu_torch/csrc/expandbits.cu",
              replaces="parlayann_tpu/ops/pallas/expand.py:301",
              launches=launches["expand_bits_flat"], **k6[4]),
+        # device code inside cluster_walk's launches; timed on its test launch
+        dict(name="bitonic_sort (device code of cluster_walk)", route="cuda",
+             source="parlayann_tpu_torch/csrc/bitonic.cuh",
+             replaces="parlayann_tpu/ops/pallas/bitonic.py:51",
+             launches=launches["cluster_walk"], **kb),
     ]
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,45 +1,92 @@
-// Kernel 3: the fused beam search.
+// Kernel 3: the fused beam search, one warp a query.
 //
 // Replaces parlayann_tpu/ops/pallas/fusedbeam.py:627 fused_step (kernel
 // body _step_kernel :235 / _step_body :361) together with its driver
 // beam_search_fused (:700), at E = 1 with loop dedup. Semantics follow
 // search.beam.beam_search_batch at E = 1: seed the beam with the start
-// vertices; then, per step, expand the nearest unexpanded beam entry, score
-// its neighbours against the query, drop those at or beyond the beam's L-th
-// distance and those already in the beam, merge the rest into the beam
-// (distance, then packed id*2+unexpanded), and stop when no unexpanded
-// entry lies within cut * d_k (L2 with 0 < k < L) or after `limit`
-// expansions.
+// vertices (a start listed twice counts once); then, per step, expand the
+// nearest unexpanded beam entry, score its neighbours against the query,
+// drop those at or beyond the beam's L-th distance and those already in
+// the beam, merge the rest into the beam (distance, then packed
+// id*2+unexpanded), and stop when no unexpanded entry lies within
+// cut * d_k (L2 with 0 < k < L) or after `limit` expansions.
 //
-// What bounds it on the H100: latency. A query's steps are a dependent
-// chain: read the expanded row (R ids), gather R vectors of d bytes at
-// random, then sort and merge a few hundred lanes. Each step moves a few KB
-// and a query takes tens of steps, so the time goes to memory latency and
-// block barriers, not bandwidth or flops. The TPU ran all queries in
-// lock-step, one kernel launch per step, and needed a straggler ladder for
-// the queries that converge last. Here a query's trajectory never depends
-// on another's, so each CTA runs one query's whole loop in one launch, and
-// many CTAs per SM hide each other's latency. There is no ladder, no VMEM
-// state bound and no d >= R8 limit, and nothing is left unconverged.
+// What bounds it on the H100: the dependent chain of steps. A query's step
+// reads the expanded vertex's degree and adjacency row, then its
+// neighbours' int8 rows, then sorts and merges a few dozen (distance, id)
+// pairs before the next vertex is known; at B = 1024, L = 64 that is about
+// 64 steps a query. Counted once per input byte, the walk there moves
+// about 16.7 MB (73,699 distinct tier rows, the adjacency rows of 47,092
+// distinct vertices, queries, starts and outputs: 5.0 us at 3.35 TB/s) and
+// does 5.1e8 int8 operations (0.3 us at the 1,979 T/s int8 rate), so the
+// card could finish in about 0.005 ms if the chains were not in the way.
+// A step's memory round trips are L2 hits (the 12.8 MB int8 tier of 100K x
+// 128 sits in the 50 MB L2); what a design can shorten is the work between
+// them and how many chains each SM runs.
 //
-// Design: one CTA of four warps per query. Shared memory holds the query
-// (d f32), the beam (Wb = pow2(max(L, 8)) dists + packs), the step's
-// candidates (Rp = pow2(R) lanes) and a 2*Wb merge buffer. A warp scores
-// one neighbour at a time (pa::warp_dist) and checks it against every beam
-// id with a warp vote. The candidates are sorted by the block-level
-// bitonic network (bitonic.cuh); the c = min(Wb, Rp) smallest, reversed,
-// follow the ascending beam and a pad of (INF, SENT) maxima, which makes
-// one bitonic sequence that a single merge puts in order. Seed distances
-// come from the same pa::warp_dist as step distances, so every copy of a
-// vertex's distance is bit-identical (the hashless-dedup invariant). On
-// int8 tiers with integer-valued queries all distances are exact integers
-// and the kernel equals the plain PyTorch version bit for bit.
+// Design:
+//  1. One warp walks one query; a CTA holds kWarps independent warps and
+//     the walk loop has no __syncthreads, only shuffles, ballots and
+//     __syncwarp. The grid is persistent: sized to fill every SM at the
+//     occupancy the registers allow, each warp takes its next query from a
+//     global counter (atomicAdd), so a long walk never holds a finished
+//     warp's slot and the tail of a large batch stays balanced.
+//  2. The beam lives in registers: W = max(pow2(L), 32) (distance, pack)
+//     pairs, P = W / 32 a lane, element i = 32 r + lane in register r,
+//     sorted ascending; lanes >= L hold the (INF, 2 n_valid + 1) sentinel.
+//     A copy in the warp's shared memory (rewritten after each merge)
+//     serves the beam's L-th distance, d_k and the duplicate test.
+//  3. Scoring: lane j ends with neighbour j's distance (CP = max(pow2(R),
+//     32) / 32 a lane). Each group of 8 lanes reads 8 rows at a time, one
+//     16-byte read-only load a lane a row (8-, 4- or 1-byte loads where
+//     the tier's alignment or d allow no wider), so a warp-wide load
+//     touches 4 rows' 128-byte lines; all loads of a pass are issued
+//     before the first is consumed, and a butterfly of 7 shuffles gives
+//     every lane its own row's sum. A query that is integer-valued in
+//     [-128, 127] (the q8 tier's translated queries) is scored with dp4a
+//     in exact int32 (L2 as sum v^2 - 2 sum v q + sum q^2); any other in
+//     f32. Seed and step distances come from the same function
+//     (score_rows), so every copy of a vertex's distance is bit-identical:
+//     the hashless-dedup invariant. On int8 tiers with integer-valued
+//     queries every distance is an exact integer below 2^24 and the kernel
+//     equals the plain PyTorch version bit for bit.
+//  4. A kept neighbour (valid, below the L-th distance) that is already in
+//     the beam has the same distance as its beam copy, so a binary search
+//     of the shared copy for (distance, 2 id) finds it: the plain version's
+//     "already in the beam" rule. A step that keeps nothing ends there.
+//     Otherwise the CP registers of candidates are sorted descending by a
+//     shuffle bitonic network, min(beam[i], candidates[i]) (a half
+//     cleaner, no shuffle in register-major order) leaves a bitonic
+//     sequence holding the W smallest of both, and a shuffle bitonic merge
+//     sorts it. Picking the next vertex is one ballot a register, __ffs and
+//     a bit flip in the owning lane.
+//  5. Beams wider than 64 lanes (L > 64, up to 4096) or rows of more than
+//     64 neighbours run walk_smem: the same walk with the beam and the
+//     candidates in the warp's shared memory and the same networks run by
+//     the warp over it (a CTA of one warp). Registers serve beams up to 64
+//     over graphs of degree up to 64 (the main path's beams 10-64 over
+//     R = 32, and bench.py's R = 64 graph at the same beams) in four
+//     instantiations, which keep the build short.
+// Measured on an H100 (PERF.md): one lane reading a whole row touched 32
+// lines a load instruction, and point 3's groups took 12-14% off at
+// L = 64; scoring every query in f32 alone was 1.5-1.7x slower than dp4a
+// at L = 64; merging by rank on steps that keep few candidates, and
+// capping the 128 registers a thread for occupancy (spills), were both
+// slower.
+
+#include <map>
+#include <mutex>
+#include <tuple>
 
 #include "bitonic.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;    // queries in flight a CTA of walk_regs
+constexpr int kMaxRegP = 2;  // beam registers a lane: W <= 64
+constexpr int kMaxRegC = 2;  // candidate registers a lane: pow2(R) <= 64
+constexpr int kSmemC = 4;    // candidates a lane scores at once in walk_smem
+constexpr float kMagic = 8388736.0f;  // 2^23 + 128
 
 struct Params {
   const float* queries;  // (B, d) f32, in the tier's domain
@@ -48,172 +95,636 @@ struct Params {
   const int* degs;       // (n_pad,) int32
   const int* starts;     // (B, S) or (S,) int32
   int starts_stride;     // S, or 0 when every query shares one start row
-  int d, R, S, n_valid, k, L, Wb, Rp, limit, use_cut;
+  int B, d, R, S, n_valid, k, L, limit, use_cut, mips;
+  int W;      // beam lanes: max(pow2(max(L, 8)), 32)
+  int Nc;     // candidate lanes: max(pow2(R), 32)
+  int vec;    // widest load the tier's base address and d keep aligned: 16, 8, 4, 1
+  int nch;    // 16-byte chunks a row: ceil(d / 16)
+  int slice;  // shared-memory bytes a warp
   float cut;
+  int* counter;     // (1,) int32, zero at launch: the next query to take
   int* out_ids;     // (B, L)
   float* out_dist;  // (B, L)
   int* out_nv;      // (B,)
   int* out_cmps;    // (B,)
 };
 
-// Pick the nearest workable beam entry (unexpanded, finite, lane < L, and
-// within the cut threshold when the cut rule applies), mark it expanded,
-// and return its id; -1 when there is none or the visit budget is spent.
-__device__ int select_next(const Params& p, float* bd, int* bp, int nv, int* s_first) {
-  if (threadIdx.x == 0) *s_first = p.Wb;
-  __syncthreads();
-  float thr = pa::kInf;
-  if (p.use_cut) thr = fminf(p.cut * bd[p.k], pa::kInf);
-  for (int i = threadIdx.x; i < p.L; i += blockDim.x) {
-    if ((bp[i] & 1) && bd[i] < pa::kInf && bd[i] < thr) atomicMin(s_first, i);
+// The warp's query: f32 values and, when every value is an integer in
+// [-128, 127], the same values as int8; both zero-padded to 16 nch.
+struct Query {
+  const float* qf;
+  const int8_t* qi;
+  int qq;  // sum q^2 of the int8 values
+  bool int_q;
+};
+
+__device__ __forceinline__ Query stage_query(const Params& p, int b, float* qf, int8_t* qi,
+                                             int lane) {
+  const float* qg = p.queries + static_cast<size_t>(b) * p.d;
+  bool ok = true;
+  int qq = 0;
+  for (int t = lane; t < 16 * p.nch; t += 32) {
+    const float x = t < p.d ? qg[t] : 0.f;
+    const bool in = x == rintf(x) && x >= -128.f && x <= 127.f;
+    const int xi = in ? static_cast<int>(x) : 0;
+    qf[t] = x;
+    qi[t] = static_cast<int8_t>(xi);
+    ok &= in;
+    qq += xi * xi;
   }
-  __syncthreads();
-  const int first = *s_first;
-  int e = -1;
-  if (first < p.Wb && nv < p.limit) e = bp[first] >> 1;
-  __syncthreads();
-  if (e >= 0 && threadIdx.x == 0) bp[first] -= 1;
-  __syncthreads();
-  return e;
+  Query q;
+  q.qf = qf;
+  q.qi = qi;
+  q.int_q = __all_sync(pa::kFullMask, ok);
+  q.qq = pa::warp_sum(qq);
+  __syncwarp();
+  return q;
 }
 
-template <bool kMips>
-__global__ void __launch_bounds__(kThreads) fused_beam_kernel(Params p) {
-  extern __shared__ __align__(16) float smem[];
-  float* q = smem;                              // d
-  float* bd = q + p.d;                          // Wb
-  int* bp = reinterpret_cast<int*>(bd + p.Wb);  // Wb
-  float* cd = reinterpret_cast<float*>(bp + p.Wb);  // Rp
-  int* cp = reinterpret_cast<int*>(cd + p.Rp);      // Rp
-  float* md = reinterpret_cast<float*>(cp + p.Rp);  // 2 * Wb
-  int* mp = reinterpret_cast<int*>(md + 2 * p.Wb);  // 2 * Wb
-  __shared__ int s_first, s_count;
-
-  const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int sent = 2 * p.n_valid + 1;  // pack of every INF entry
-  const float* qg = p.queries + static_cast<size_t>(b) * p.d;
-
-  for (int t = threadIdx.x; t < p.d; t += blockDim.x) q[t] = qg[t];
-  for (int i = threadIdx.x; i < p.Wb; i += blockDim.x) {
-    bd[i] = pa::kInf;
-    bp[i] = sent;
+// 16 bytes of a tier row starting at byte 16 c, zeros past d.
+__device__ __forceinline__ int4 load_chunk(const int8_t* row, int c, int d, int vec) {
+  const int base = 16 * c;
+  if (vec == 16) return __ldg(reinterpret_cast<const int4*>(row) + c);
+  if (vec == 8) {
+    const int2* r = reinterpret_cast<const int2*>(row + base);
+    const int2 a = __ldg(r);  // d % 8 == 0, so a chunk that starts below d has 8 bytes
+    const int2 b = base + 8 < d ? __ldg(r + 1) : make_int2(0, 0);
+    return make_int4(a.x, a.y, b.x, b.y);
   }
-  if (threadIdx.x == 0) s_count = 0;
-  __syncthreads();
+  if (vec == 4) {
+    const int* r = reinterpret_cast<const int*>(row + base);
+    return make_int4(__ldg(r), base + 4 < d ? __ldg(r + 1) : 0,
+                     base + 8 < d ? __ldg(r + 2) : 0, base + 12 < d ? __ldg(r + 3) : 0);
+  }
+  unsigned w[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    unsigned x = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int t = base + 4 * k + j;
+      if (t < d) x |= static_cast<unsigned>(static_cast<uint8_t>(__ldg(row + t))) << (8 * j);
+    }
+    w[k] = x;
+  }
+  return make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]), static_cast<int>(w[2]),
+                   static_cast<int>(w[3]));
+}
 
-  // ---- seed the beam with the valid start vertices ----
-  const int* st = p.starts + static_cast<size_t>(b) * p.starts_stride;
-  for (int j = warp; j < p.S; j += n_warps) {
-    const int s = st[j];
-    if (s < 0 || s >= p.n_valid) continue;  // warp-uniform
-    const float dist = pa::warp_dist<kMips>(q, p.tier + static_cast<size_t>(s) * p.d, p.d, lane);
-    if (lane == 0) {
-      bd[j] = dist;
-      bp[j] = 2 * s + 1;
-      atomicAdd(&s_count, 1);
+// Four int8 values of word w against four f32 query values, in order. A
+// byte b + 128 placed under the exponent of 2^23 is the float 2^23 + b +
+// 128, so one subtraction recovers b exactly.
+__device__ __forceinline__ void acc_word(float& acc, int w, float4 q, bool mips) {
+  const unsigned x = static_cast<unsigned>(w) ^ 0x80808080u;
+  const float v[4] = {__int_as_float(__byte_perm(x, 0x4B000000u, 0x7440)) - kMagic,
+                      __int_as_float(__byte_perm(x, 0x4B000000u, 0x7441)) - kMagic,
+                      __int_as_float(__byte_perm(x, 0x4B000000u, 0x7442)) - kMagic,
+                      __int_as_float(__byte_perm(x, 0x4B000000u, 0x7443)) - kMagic};
+  const float qs[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // MIPS: acc += v q; L2: acc += (v - q)^2
+    const float t = mips ? v[i] : v[i] - qs[i];
+    acc = fmaf(t, mips ? qs[i] : t, acc);
+  }
+}
+
+// The 8 lanes of a group reduce 8 partial sums each so that sub-lane s
+// ends with the total of value s: three butterfly stages, each lane keeping
+// the half its bit selects and sending the other (4 + 2 + 1 shuffles). The
+// tree is the same for every value, so a value's total does not depend on
+// which lane ends with it.
+template <typename T>
+__device__ __forceinline__ T reduce_scatter8(const T (&a)[8], int s) {
+  T h[4], r[2];
+  bool up = (s & 4) != 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    h[i] = (up ? a[4 + i] : a[i]) + __shfl_xor_sync(pa::kFullMask, up ? a[i] : a[4 + i], 4);
+  up = (s & 2) != 0;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    r[i] = (up ? h[2 + i] : h[i]) + __shfl_xor_sync(pa::kFullMask, up ? h[i] : h[2 + i], 2);
+  up = (s & 1) != 0;
+  return (up ? r[1] : r[0]) + __shfl_xor_sync(pa::kFullMask, up ? r[0] : r[1], 1);
+}
+
+// The distance from the warp's query to 32 tier rows, lane l giving the id
+// of row l (id < 0: none) and receiving its distance (unspecified for no
+// row). Each group of 8 lanes reads 8 rows at a time, a 16-byte chunk a
+// lane (chunks s, s + 8, ... of every row to sub-lane s), so a load
+// instruction touches 4 rows' 128-byte lines, not 32; all 8 loads of a pass
+// go out before any is used. Each lane sums its chunks in order, and
+// reduce_scatter8 adds the 8 lanes' sums in a fixed tree. Integer-valued
+// queries in int8 range sum in exact int32 with dp4a (L2 as sum v^2 -
+// 2 sum v q, then + sum q^2); any other query in f32.
+__device__ __forceinline__ float score32(const Params& p, const Query& q, int mine, int lane) {
+  const int s = lane & 7, g = lane & ~7;
+  const bool mips = p.mips;
+  int id[8], ia[8];
+  float fa[8];
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    id[v] = __shfl_sync(pa::kFullMask, mine, g + v);
+    ia[v] = 0;
+    fa[v] = 0.f;
+  }
+  for (int k = s; k < p.nch; k += 8) {
+    int4 x[8];
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      x[v] = make_int4(0, 0, 0, 0);
+      if (id[v] >= 0) x[v] = load_chunk(p.tier + static_cast<size_t>(id[v]) * p.d, k, p.d, p.vec);
+    }
+    if (q.int_q) {
+      const int4 w = *reinterpret_cast<const int4*>(q.qi + 16 * k);
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const int4 y = x[v];
+        const int vq = __dp4a(y.w, w.w, __dp4a(y.z, w.z, __dp4a(y.y, w.y, __dp4a(y.x, w.x, 0))));
+        const int vv = __dp4a(y.w, y.w, __dp4a(y.z, y.z, __dp4a(y.y, y.y, __dp4a(y.x, y.x, 0))));
+        ia[v] += mips ? vq : vv - 2 * vq;
+      }
+    } else {
+      const float4* qv = reinterpret_cast<const float4*>(q.qf + 16 * k);
+      const float4 q0 = qv[0], q1 = qv[1], q2 = qv[2], q3 = qv[3];
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        acc_word(fa[v], x[v].x, q0, mips);
+        acc_word(fa[v], x[v].y, q1, mips);
+        acc_word(fa[v], x[v].z, q2, mips);
+        acc_word(fa[v], x[v].w, q3, mips);
+      }
     }
   }
-  __syncthreads();
-  pa::bitonic_sort(bd, bp, p.Wb);
-  // a start listed twice sorts adjacent to its copy: keep the first
-  for (int i = threadIdx.x; i < p.Wb; i += blockDim.x)
-    mp[i] = i > 0 && bd[i] < pa::kInf && bp[i] == bp[i - 1];
-  __syncthreads();
-  for (int i = threadIdx.x; i < p.Wb; i += blockDim.x) {
-    if (mp[i]) {
-      bd[i] = pa::kInf;
-      bp[i] = sent;
-    }
+  if (q.int_q) {
+    const int t = reduce_scatter8(ia, s);
+    return mips ? -__int2float_rn(t) : __int2float_rn(t + q.qq);
   }
-  __syncthreads();
-  pa::bitonic_sort(bd, bp, p.Wb);
-  for (int i = threadIdx.x; i < p.Wb; i += blockDim.x) {
-    if (i >= p.L) {
-      bd[i] = pa::kInf;
-      bp[i] = sent;
-    }
-  }
-  int nv = 0;
-  int cmps = s_count;
-  __syncthreads();
+  const float t = reduce_scatter8(fa, s);
+  return mips ? -t : t;
+}
 
-  const int c_take = min(p.Wb, p.Rp);
-  int e = select_next(p, bd, bp, nv, &s_first);
-  while (e >= 0) {
-    // ---- score the expanded vertex's neighbours ----
-    const int deg = p.degs[e];
-    const int* row = p.nbrs + static_cast<size_t>(e) * p.R;
-    for (int i = threadIdx.x; i < p.Rp; i += blockDim.x) {
-      cd[i] = pa::kInf;
-      cp[i] = sent;
-    }
-    if (threadIdx.x == 0) s_count = 0;
-    __syncthreads();
-    const float worst = bd[p.L - 1];
-    for (int j = warp; j < p.R && j < deg; j += n_warps) {
-      const int c = row[j];
-      if (c < 0 || c >= p.n_valid) continue;  // warp-uniform
-      const float dist = pa::warp_dist<kMips>(q, p.tier + static_cast<size_t>(c) * p.d, p.d, lane);
-      bool dup = false;
-      for (int l = lane; l < p.Wb; l += 32) dup |= (bp[l] >> 1) == c;
-      dup = __any_sync(pa::kFullMask, dup);
-      if (lane == 0) {
-        atomicAdd(&s_count, 1);
-        if (dist < worst && !dup) {
-          cd[j] = dist;
-          cp[j] = 2 * c + 1;
+// The distances from the warp's query to 32 N tier rows: lane l gives
+// ids[c] of row 32 c + l (id < 0: none, INF) and receives its distance in
+// out[c]. Every distance of the kernel comes from here, so equal (query,
+// row) pairs give equal bits.
+template <int N>
+__device__ __forceinline__ void score_rows(const Params& p, const Query& q,
+                                           const int (&ids)[N], float (&out)[N], int lane) {
+#pragma unroll
+  for (int c = 0; c < N; ++c) {
+    const float dist = score32(p, q, ids[c], lane);
+    out[c] = ids[c] >= 0 ? dist : pa::kInf;
+  }
+}
+
+// Is (dist, id) in the sorted beam copy (md, mp) of W lanes? Its beam copy
+// has the same distance and pack 2 id or 2 id + 1, so it is the first entry
+// not below (dist, 2 id).
+__device__ __forceinline__ bool in_beam(const float* md, const int* mp, int W, float dist,
+                                        int id) {
+  const int key = 2 * id;
+  int pos = 0;
+  for (int step = W >> 1; step > 0; step >>= 1) {
+    if (pa::key_less(md[pos + step - 1], mp[pos + step - 1], dist, key)) pos += step;
+  }
+  return md[pos] == dist && (mp[pos] >> 1) == id;
+}
+
+// ---- bitonic networks over a warp's registers: element i = 32 r + lane ----
+
+__device__ __forceinline__ void cmpx_regs(float& da, int& pa_, float& db, int& pb, bool up) {
+  const bool swap = up ? pa::key_less(db, pb, da, pa_) : pa::key_less(da, pa_, db, pb);
+  const float td = da;
+  const int tp = pa_;
+  da = swap ? db : da;
+  pa_ = swap ? pb : pa_;
+  db = swap ? td : db;
+  pb = swap ? tp : pb;
+}
+
+// One stage of stride j < 32: exchange with lane ^ j.
+__device__ __forceinline__ void cmpx_lanes(float& d, int& p, int j, bool up, int lane) {
+  const float od = __shfl_xor_sync(pa::kFullMask, d, j);
+  const int op = __shfl_xor_sync(pa::kFullMask, p, j);
+  const bool lower = (lane & j) == 0;
+  const bool take = lower == up ? pa::key_less(od, op, d, p) : pa::key_less(d, p, od, op);
+  d = take ? od : d;
+  p = take ? op : p;
+}
+
+// Sort 32 C (key, pack) pairs descending.
+template <int C>
+__device__ __forceinline__ void warp_sort_desc(float (&d)[C], int (&p)[C], int lane) {
+  static_assert(C == 1 || C == 2, "one or two registers a lane");
+  constexpr int kLog = C == 1 ? 5 : 6;  // log2(32 C)
+#pragma unroll
+  for (int lk = 1; lk <= kLog; ++lk) {
+    const int k = 1 << lk;
+#pragma unroll
+    for (int lj = lk - 1; lj >= 0; --lj) {
+      const int j = 1 << lj;
+#pragma unroll
+      for (int r = 0; r < C; ++r) {
+        if (j >= 32) {
+          const int r2 = r | (j >> 5);
+          if (r2 != r) cmpx_regs(d[r], p[r], d[r2], p[r2], (r & (k >> 5)) != 0);
+        } else {
+          const int bit = k < 32 ? (lane & k) : (r & (k >> 5));
+          cmpx_lanes(d[r], p[r], j, bit != 0, lane);
         }
       }
     }
-    __syncthreads();
-    nv += 1;
-    cmps += s_count;
+  }
+}
 
-    // ---- merge: [beam asc | (INF, sent) pad | c_take smallest cand desc] ----
-    pa::bitonic_sort(cd, cp, p.Rp);
-    for (int i = threadIdx.x; i < 2 * p.Wb; i += blockDim.x) {
-      if (i < p.Wb) {
-        md[i] = bd[i];
-        mp[i] = bp[i];
-      } else if (i < 2 * p.Wb - c_take) {
-        md[i] = pa::kInf;
-        mp[i] = sent;
+// Sort ascending 32 C pairs that form a bitonic sequence.
+template <int C>
+__device__ __forceinline__ void warp_merge(float (&d)[C], int (&p)[C], int lane) {
+  static_assert(C == 1 || C == 2, "one or two registers a lane");
+  constexpr int kLog = C == 1 ? 5 : 6;  // log2(32 C)
+#pragma unroll
+  for (int lj = kLog - 1; lj >= 0; --lj) {
+    const int j = 1 << lj;
+#pragma unroll
+    for (int r = 0; r < C; ++r) {
+      if (j >= 32) {
+        const int r2 = r | (j >> 5);
+        if (r2 != r) cmpx_regs(d[r], p[r], d[r2], p[r2], true);
       } else {
-        const int r = 2 * p.Wb - 1 - i;
-        md[i] = cd[r];
-        mp[i] = cp[r];
+        cmpx_lanes(d[r], p[r], j, true, lane);
       }
     }
-    __syncthreads();
-    pa::bitonic_merge(md, mp, 2 * p.Wb);
-    for (int i = threadIdx.x; i < p.Wb; i += blockDim.x) {
-      const bool in_beam = i < p.L;
-      bd[i] = in_beam ? md[i] : pa::kInf;
-      bp[i] = in_beam ? mp[i] : sent;
-    }
-    __syncthreads();
-    e = select_next(p, bd, bp, nv, &s_first);
   }
+}
 
-  int* oi = p.out_ids + static_cast<size_t>(b) * p.L;
-  float* od = p.out_dist + static_cast<size_t>(b) * p.L;
-  for (int i = threadIdx.x; i < p.L; i += blockDim.x) {
-    const bool ok = bd[i] < pa::kInf;
-    oi[i] = ok ? bp[i] >> 1 : -1;
-    od[i] = bd[i];
+// ---- the same networks run by one warp over shared memory ----
+
+__device__ __forceinline__ void cmpx_smem(float* d, int* p, int lo, int hi, bool up) {
+  const float a = d[lo], b = d[hi];
+  const int pa_ = p[lo], pb = p[hi];
+  if (up ? pa::key_less(b, pb, a, pa_) : pa::key_less(a, pa_, b, pb)) {
+    d[lo] = b;
+    d[hi] = a;
+    p[lo] = pb;
+    p[hi] = pa_;
   }
-  if (threadIdx.x == 0) {
-    p.out_nv[b] = nv;
-    p.out_cmps[b] = cmps;
+}
+
+__device__ void smem_sort(float* d, int* p, int n, bool desc, int lane) {
+  for (int k = 2; k <= n; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      const int lj = __ffs(j) - 1;
+      for (int i = lane; i < (n >> 1); i += 32) {
+        const int lo = ((i >> lj) << (lj + 1)) | (i & (j - 1));
+        cmpx_smem(d, p, lo, lo + j, ((lo & k) == 0) != desc);
+      }
+      __syncwarp();
+    }
   }
+}
+
+__device__ void smem_merge(float* d, int* p, int n, int lane) {
+  for (int j = n >> 1; j > 0; j >>= 1) {
+    const int lj = __ffs(j) - 1;
+    for (int i = lane; i < (n >> 1); i += 32) {
+      const int lo = ((i >> lj) << (lj + 1)) | (i & (j - 1));
+      cmpx_smem(d, p, lo, lo + j, true);
+    }
+    __syncwarp();
+  }
+}
+
+// The next query for this warp, or >= B when the queue is empty.
+__device__ __forceinline__ int next_query(const Params& p, int lane) {
+  int b = 0;
+  if (lane == 0) b = atomicAdd(p.counter, 1);
+  return __shfl_sync(pa::kFullMask, b, 0);
+}
+
+// Seed a beam of W lanes in shared memory (sd, sp) for the warp's query:
+// the valid starts, scored 32 at a time by score_rows, sorted, a start
+// listed twice dropped (its copy sorts next to it), lanes >= L cleared.
+// Returns the starts scored.
+__device__ int seed_beam(const Params& p, const Query& q, int b, float* sd, int* sp, int lane) {
+  const int W = p.W, sent = 2 * p.n_valid + 1;
+  for (int i = lane; i < W; i += 32) {
+    sd[i] = pa::kInf;
+    sp[i] = sent;
+  }
+  __syncwarp();
+  const int* st = p.starts + static_cast<size_t>(b) * p.starts_stride;
+  int scored = 0;
+  for (int base = 0; base < p.S; base += 32) {
+    const int j = base + lane;
+    const int s = j < p.S ? st[j] : -1;
+    const int sid[1] = {s >= 0 && s < p.n_valid ? s : -1};
+    float dist[1];
+    score_rows<1>(p, q, sid, dist, lane);
+    if (sid[0] >= 0) {
+      sd[j] = dist[0];
+      sp[j] = 2 * sid[0] + 1;
+    }
+    scored += __popc(__ballot_sync(pa::kFullMask, sid[0] >= 0));
+  }
+  __syncwarp();
+  smem_sort(sd, sp, W, false, lane);
+  // blocks go from the end, so each lane compares with a predecessor not
+  // yet cleared
+  bool any_dup = false;
+  for (int base = W - 32; base >= 0; base -= 32) {
+    const int i = base + lane;
+    const bool dup = i > 0 && sd[i] < pa::kInf && sp[i] == sp[i - 1];
+    __syncwarp();
+    if (dup) {
+      sd[i] = pa::kInf;
+      sp[i] = sent;
+    }
+    any_dup |= dup;
+    __syncwarp();
+  }
+  if (__any_sync(pa::kFullMask, any_dup)) smem_sort(sd, sp, W, false, lane);
+  for (int i = p.L + lane; i < W; i += 32) {
+    sd[i] = pa::kInf;
+    sp[i] = sent;
+  }
+  __syncwarp();
+  return scored;
+}
+
+// ---- the walk with its beam in registers (W <= 64, pow2(R) <= 64) ----
+
+template <int P, int CP>
+__global__ void __launch_bounds__(32 * kWarps) walk_regs(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  unsigned char* slice = smem + (threadIdx.x >> 5) * p.slice;
+  float* qf = reinterpret_cast<float*>(slice);
+  int8_t* qi = reinterpret_cast<int8_t*>(qf + 16 * p.nch);
+  float* md = reinterpret_cast<float*>(qi + 16 * p.nch);  // the beam's copy
+  int* mp = reinterpret_cast<int*>(md + p.W);
+  const int sent = 2 * p.n_valid + 1;  // pack of every INF entry
+
+  float bd[P];
+  int bp[P];
+  // rewrite the shared copy of the beam
+  auto publish = [&]() {
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      md[32 * r + lane] = bd[r];
+      mp[32 * r + lane] = bp[r];
+    }
+    __syncwarp();
+  };
+  // the nearest workable lane's id, its bit cleared; -1 if none or the
+  // visit budget is spent
+  auto select = [&](int nv) {
+    int e = -1;
+    if (nv >= p.limit) return e;
+    const float thr = p.use_cut ? fminf(p.cut * md[p.k], pa::kInf) : pa::kInf;
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      const bool ok = (bp[r] & 1) && bd[r] < pa::kInf && bd[r] < thr && 32 * r + lane < p.L;
+      const unsigned m = __ballot_sync(pa::kFullMask, ok);
+      if (m != 0 && e < 0) {
+        const int src = __ffs(static_cast<int>(m)) - 1;
+        e = __shfl_sync(pa::kFullMask, bp[r], src) >> 1;
+        if (lane == src) bp[r] -= 1;
+      }
+    }
+    return e;
+  };
+
+  for (int b = next_query(p, lane); b < p.B; b = next_query(p, lane)) {
+    __syncwarp();
+    const Query q = stage_query(p, b, qf, qi, lane);
+
+    // ---- seed, in the beam's shared copy ----
+    int cmps = seed_beam(p, q, b, md, mp, lane);
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      bd[r] = md[32 * r + lane];
+      bp[r] = mp[32 * r + lane];
+    }
+
+    // ---- the walk ----
+    int nv = 0;
+    for (int e = select(0); e >= 0; e = select(nv)) {
+      const int deg = __ldg(p.degs + e);
+      const int* row = p.nbrs + static_cast<size_t>(e) * p.R;
+      int cid[CP];
+#pragma unroll
+      for (int c = 0; c < CP; ++c) {
+        const int j = 32 * c + lane;
+        cid[c] = j < p.R ? __ldg(row + j) : -1;
+      }
+#pragma unroll
+      for (int c = 0; c < CP; ++c) {
+        const int j = 32 * c + lane;
+        if (!(j < deg && cid[c] >= 0 && cid[c] < p.n_valid)) cid[c] = -1;
+        cmps += __popc(__ballot_sync(pa::kFullMask, cid[c] >= 0));
+      }
+      float cd[CP];
+      score_rows<CP>(p, q, cid, cd, lane);
+      nv += 1;
+      const float worst = md[p.L - 1];
+      bool any = false;
+      int cpk[CP];
+#pragma unroll
+      for (int c = 0; c < CP; ++c) {
+        bool keep = cid[c] >= 0 && cd[c] < worst;
+        if (keep) keep = !in_beam(md, mp, p.W, cd[c], cid[c]);
+        any |= keep;
+        cpk[c] = keep ? 2 * cid[c] + 1 : sent;
+        cd[c] = keep ? cd[c] : pa::kInf;
+      }
+      if (!__any_sync(pa::kFullMask, any)) continue;
+      // ---- merge the kept candidates into the beam ----
+      warp_sort_desc<CP>(cd, cpk, lane);
+#pragma unroll
+      for (int r = 0; r < P; ++r) {
+        const int c = r - P + CP;  // the candidate element W - 1 - i, reversed
+        if (c >= 0 && c < CP) {
+          const int cc = c >= 0 && c < CP ? c : 0;
+          if (pa::key_less(cd[cc], cpk[cc], bd[r], bp[r])) {
+            bd[r] = cd[cc];
+            bp[r] = cpk[cc];
+          }
+        }
+      }
+      warp_merge<P>(bd, bp, lane);
+#pragma unroll
+      for (int r = 0; r < P; ++r) {
+        if (32 * r + lane >= p.L) {
+          bd[r] = pa::kInf;
+          bp[r] = sent;
+        }
+      }
+      publish();
+    }
+
+    int* oi = p.out_ids + static_cast<size_t>(b) * p.L;
+    float* od = p.out_dist + static_cast<size_t>(b) * p.L;
+#pragma unroll
+    for (int r = 0; r < P; ++r) {
+      const int i = 32 * r + lane;
+      if (i < p.L) {
+        oi[i] = bd[r] < pa::kInf ? bp[r] >> 1 : -1;
+        od[i] = bd[r];
+      }
+    }
+    if (lane == 0) {
+      p.out_nv[b] = nv;
+      p.out_cmps[b] = cmps;
+    }
+  }
+}
+
+// ---- the walk with its beam in shared memory (W > 64 or pow2(R) > 64) ----
+
+__global__ void __launch_bounds__(32) walk_smem(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x;
+  float* qf = reinterpret_cast<float*>(smem);
+  int8_t* qi = reinterpret_cast<int8_t*>(qf + 16 * p.nch);
+  float* sd = reinterpret_cast<float*>(qi + 16 * p.nch);  // the beam
+  int* sp = reinterpret_cast<int*>(sd + p.W);
+  float* cd = reinterpret_cast<float*>(sp + p.W);  // a step's candidates
+  int* cp = reinterpret_cast<int*>(cd + p.Nc);
+  const int sent = 2 * p.n_valid + 1;
+  const int W = p.W;
+
+  auto select = [&](int nv) {
+    if (nv >= p.limit) return -1;
+    const float thr = p.use_cut ? fminf(p.cut * sd[p.k], pa::kInf) : pa::kInf;
+    for (int base = 0; base < p.L; base += 32) {
+      const int i = base + lane;
+      const bool ok = i < p.L && (sp[i] & 1) && sd[i] < pa::kInf && sd[i] < thr;
+      const unsigned m = __ballot_sync(pa::kFullMask, ok);
+      if (m != 0) {
+        const int first = base + __ffs(static_cast<int>(m)) - 1;
+        const int e = sp[first] >> 1;
+        __syncwarp();
+        if (lane == 0) sp[first] -= 1;
+        __syncwarp();
+        return e;
+      }
+    }
+    return -1;
+  };
+
+  for (int b = next_query(p, lane); b < p.B; b = next_query(p, lane)) {
+    __syncwarp();
+    const Query q = stage_query(p, b, qf, qi, lane);
+
+    int cmps = seed_beam(p, q, b, sd, sp, lane);
+
+    // ---- the walk ----
+    int nv = 0;
+    for (int e = select(0); e >= 0; e = select(nv)) {
+      const int deg = __ldg(p.degs + e);
+      const int* row = p.nbrs + static_cast<size_t>(e) * p.R;
+      const float worst = sd[p.L - 1];
+      bool any = false;
+      for (int base = 0; base < p.Nc; base += 32 * kSmemC) {
+        int cid[kSmemC];
+#pragma unroll
+        for (int c = 0; c < kSmemC; ++c) {
+          const int j = base + 32 * c + lane;
+          cid[c] = j < p.R ? __ldg(row + j) : -1;
+        }
+#pragma unroll
+        for (int c = 0; c < kSmemC; ++c) {
+          const int j = base + 32 * c + lane;
+          if (!(j < deg && cid[c] >= 0 && cid[c] < p.n_valid)) cid[c] = -1;
+          cmps += __popc(__ballot_sync(pa::kFullMask, cid[c] >= 0));
+        }
+        float dist[kSmemC];
+        score_rows<kSmemC>(p, q, cid, dist, lane);
+#pragma unroll
+        for (int c = 0; c < kSmemC; ++c) {
+          const int j = base + 32 * c + lane;
+          bool keep = cid[c] >= 0 && dist[c] < worst;
+          if (keep) keep = !in_beam(sd, sp, W, dist[c], cid[c]);
+          any |= keep;
+          if (j < p.Nc) {
+            cd[j] = keep ? dist[c] : pa::kInf;
+            cp[j] = keep ? 2 * cid[c] + 1 : sent;
+          }
+        }
+      }
+      nv += 1;
+      if (!__any_sync(pa::kFullMask, any)) continue;
+      __syncwarp();
+      smem_sort(cd, cp, p.Nc, true, lane);
+      // half cleaner: beam i against the candidate W - 1 - i of the
+      // ascending order, element i - (W - Nc) of the descending one
+      for (int i = lane; i < W; i += 32) {
+        const int j = i - W + p.Nc;
+        if (j >= 0 && j < p.Nc && pa::key_less(cd[j], cp[j], sd[i], sp[i])) {
+          sd[i] = cd[j];
+          sp[i] = cp[j];
+        }
+      }
+      __syncwarp();
+      smem_merge(sd, sp, W, lane);
+      for (int i = p.L + lane; i < W; i += 32) {
+        sd[i] = pa::kInf;
+        sp[i] = sent;
+      }
+      __syncwarp();
+    }
+
+    int* oi = p.out_ids + static_cast<size_t>(b) * p.L;
+    float* od = p.out_dist + static_cast<size_t>(b) * p.L;
+    for (int i = lane; i < p.L; i += 32) {
+      oi[i] = sd[i] < pa::kInf ? sp[i] >> 1 : -1;
+      od[i] = sd[i];
+    }
+    if (lane == 0) {
+      p.out_nv[b] = nv;
+      p.out_cmps[b] = cmps;
+    }
+  }
+}
+
+using WalkFn = void (*)(Params);
+
+WalkFn pick(int P, int CP) {
+  if (P == 1) return CP == 1 ? &walk_regs<1, 1> : &walk_regs<1, 2>;
+  return CP == 1 ? &walk_regs<2, 1> : &walk_regs<2, 2>;
+}
+
+// The CTAs of `kernel` (at its block size and `smem` bytes) that every SM
+// together holds at once. The SM count and the occupancy are asked of the
+// runtime once per device, kernel and size, not at every launch.
+cudaError_t resident_ctas(WalkFn kernel, int threads, size_t smem, long long* out) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, uintptr_t, size_t>, long long> known;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(dev, reinterpret_cast<uintptr_t>(kernel), smem);
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = known.find(key);
+  if (it == known.end()) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    it = known.emplace(key, static_cast<long long>(sms) * per_sm).first;
+  }
+  *out = it->second;
+  return cudaSuccess;
 }
 
 // A test launch of the block-level bitonic sort: one CTA sorts one row of
 // W (a power of two) (key, payload) pairs ascending.
-__global__ void __launch_bounds__(kThreads)
-bitonic_rows_kernel(float* keys, int* vals, int W) {
+__global__ void __launch_bounds__(128) bitonic_rows_kernel(float* keys, int* vals, int W) {
   extern __shared__ __align__(16) float row_key[];
   int* row_val = reinterpret_cast<int*>(row_key + W);
   float* kg = keys + static_cast<size_t>(blockIdx.x) * W;
@@ -236,8 +747,8 @@ extern "C" int pa_fused_beam(const void* queries, const void* tier, const void* 
                              const void* degs, const void* starts, int starts_stride,
                              int B, int d, int R, int S, int n_valid, int k, int L, int Wb,
                              int Rp, float cut, int limit, int use_cut, int mips,
-                             void* out_ids, void* out_dist, void* out_nv, void* out_cmps,
-                             void* stream) {
+                             void* counter, void* out_ids, void* out_dist, void* out_nv,
+                             void* out_cmps, void* stream) {
   if (B == 0) return 0;
   Params p;
   p.queries = static_cast<const float*>(queries);
@@ -246,26 +757,56 @@ extern "C" int pa_fused_beam(const void* queries, const void* tier, const void* 
   p.degs = static_cast<const int*>(degs);
   p.starts = static_cast<const int*>(starts);
   p.starts_stride = starts_stride;
+  p.B = B;
   p.d = d;
   p.R = R;
   p.S = S;
   p.n_valid = n_valid;
   p.k = k;
   p.L = L;
-  p.Wb = Wb;
-  p.Rp = Rp;
   p.limit = limit;
   p.use_cut = use_cut;
+  p.mips = mips;
+  p.W = Wb > 32 ? Wb : 32;
+  p.Nc = Rp > 32 ? Rp : 32;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(tier);
+  p.vec = 16;
+  while (p.vec > 1 && ((addr % p.vec) != 0 || d % p.vec != 0)) p.vec /= 2;
+  p.nch = (d + 15) / 16;
   p.cut = cut;
+  p.counter = static_cast<int*>(counter);
   p.out_ids = static_cast<int*>(out_ids);
   p.out_dist = static_cast<float*>(out_dist);
   p.out_nv = static_cast<int*>(out_nv);
   p.out_cmps = static_cast<int*>(out_cmps);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(d) + 2 * Wb + 2 * Rp + 4 * Wb);
-  auto kernel = mips ? &fused_beam_kernel<true> : &fused_beam_kernel<false>;
+
+  // per warp: the query as f32 and int8 (80 bytes a chunk), then the beam
+  // (8 bytes a lane) and, in walk_smem, the candidates
+  const int P = p.W / 32, CP = p.Nc / 32;
+  const size_t qbytes = 80 * static_cast<size_t>(p.nch);
+  WalkFn kernel;
+  int threads;
+  size_t smem;
+  if (P <= kMaxRegP && CP <= kMaxRegC) {
+    kernel = pick(P, CP);
+    threads = 32 * kWarps;
+    p.slice = static_cast<int>(qbytes + 8 * static_cast<size_t>(p.W));
+    smem = static_cast<size_t>(kWarps) * p.slice;
+  } else {
+    kernel = &walk_smem;
+    threads = 32;
+    p.slice = static_cast<int>(qbytes + 8 * static_cast<size_t>(p.W + p.Nc));
+    smem = p.slice;
+  }
   cudaError_t err = pa::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  long long resident = 0;
+  err = resident_ctas(kernel, threads, smem, &resident);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // a persistent grid: every SM full, or one warp a query if fewer
+  const long long ctas = (static_cast<long long>(B) + threads / 32 - 1) / (threads / 32);
+  const int grid = static_cast<int>(ctas < resident ? ctas : resident);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -274,7 +815,7 @@ extern "C" int pa_bitonic_rows(void* keys, void* vals, int rows, int W, void* st
   const size_t smem = (sizeof(float) + sizeof(int)) * static_cast<size_t>(W);
   cudaError_t err = pa::allow_smem(bitonic_rows_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  bitonic_rows_kernel<<<rows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  bitonic_rows_kernel<<<rows, 128, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float*>(keys), static_cast<int*>(vals), W);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,12 @@
 """Build the CUDA sources with nvcc and load them through ctypes.
 
-All of ``parlayann_tpu_torch/csrc/*.cu`` compile in one nvcc call into one
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds). The library lands in ``parlayann_tpu_torch/_build/`` under
-a name keyed by a hash of the sources and flags, so a changed source
-rebuilds and an unchanged one is reused. Nothing is built or loaded until a
-wrapper first launches a kernel on a CUDA tensor.
+Each of ``parlayann_tpu_torch/csrc/*.cu`` compiles in its own nvcc process,
+all started together, and one more nvcc call links the objects into one
+shared library with a plain C interface (no PyTorch headers). The library
+lands in ``parlayann_tpu_torch/_build/`` under a name keyed by a hash of
+the sources and flags, so a changed source rebuilds and an unchanged one
+is reused. Nothing is built or loaded until a wrapper first launches a
+kernel on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -24,10 +25,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 # the loaded library, the compiler's report and the build seconds: one per
@@ -54,14 +53,30 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    log = []
+    try:
+        for src, proc in zip(sources, procs):
+            text = proc.communicate()[0]
+            log.append(f"nvcc {src.name}: done by {time.perf_counter() - t0:.2f} s\n{text}")
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{text}")
+        link = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    finally:
+        for proc in procs:
+            proc.kill()
+            proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)
-    _loaded["log"] = proc.stderr
+    _loaded["log"] = "".join(log)
     return out
 
 

@@ -1,11 +1,15 @@
-"""Kernel 3: the fused beam search, with the bitonic networks as device code.
+"""Kernel 3: the fused beam search, and a test launch of the block-level
+bitonic networks (``csrc/bitonic.cuh``, device code of kernel 5).
 
 Counterpart of parlayann_tpu/ops/pallas/fusedbeam.py (``fused_step`` :627
 and its driver ``beam_search_fused`` :700) at E = 1 with loop dedup, and of
 ops/pallas/bitonic.py. The CUDA kernel (``csrc/fusedbeam.cu``) runs each
-query's whole search in one CTA, so the TPU's per-step launches, straggler
-ladder and inline-ext id byte planes have no counterpart: ids come from
-``graph.neighbors`` and vectors straight from the int8 tier.
+query's whole search in one warp, its beam in registers (L <= 64 and R <=
+64) or in the warp's shared memory (up to ``MAX_WB`` lanes), on a
+persistent grid whose warps take queries from a counter. So the TPU's
+per-step launches, straggler ladder and inline-ext id byte planes have no
+counterpart: ids come from ``graph.neighbors`` and vectors straight from
+the int8 tier.
 
 Beam entries are (dist, pack) pairs, pack = id * 2 + unexpanded bit, kept
 sorted lexicographically; every INF entry carries the one pack
@@ -26,7 +30,8 @@ from parlayann_tpu_torch.ops.kernels import _lib
 from parlayann_tpu_torch.ops.topk import lexsort
 from parlayann_tpu_torch.utils.arrays import pow2
 
-# the kernel's shared-memory beam: Wb = pow2(L) lanes, 24 bytes a lane
+# the widest beam the kernel takes: Wb = pow2(L) lanes, 8 bytes a lane of
+# the warp's shared memory past 256 lanes
 MAX_WB = 4096
 
 
@@ -54,8 +59,10 @@ def _select_next(bd, bp, nv, *, k, L, cut, limit, use_cut):
 
 def beam_search_fused_plain(queries, tier_data, nbrs, degs, starts, *,
                             metric: Metric, n_valid: int, k: int, L: int,
-                            cut: float = 1.35, limit: int = 2**30):
-    """The kernel's function in PyTorch, all queries in lock-step."""
+                            cut: float = 1.35, limit: int = 2**30, expanded=None):
+    """The kernel's function in PyTorch, all queries in lock-step. A list
+    given as ``expanded`` receives each step's expanded ids (B,), -1 for a
+    query that has stopped."""
     B = queries.shape[0]
     dev = queries.device
     R = nbrs.shape[1]
@@ -92,6 +99,8 @@ def beam_search_fused_plain(queries, tier_data, nbrs, degs, starts, *,
     e, bp = _select_next(bd, bp, nv, **sel)
     slot = torch.arange(R, device=dev)[None, :]
     while bool((e >= 0).any()):
+        if expanded is not None:
+            expanded.append(e)
         active = e >= 0
         ec = e.clamp(min=0).long()
         cid = torch.where(slot < degs[ec][:, None], nbrs[ec], -1)
@@ -164,13 +173,15 @@ def beam_search_fused(queries, tier_data, nbrs, degs, starts, *,
     fn = _lib.function(
         "pa_fused_beam",
         [_lib.VP] * 5 + [_lib.INT] * 10 + [_lib.FLOAT] + [_lib.INT] * 3
-        + [_lib.VP] * 5)
+        + [_lib.VP] * 6)
     use_cut = k > 0 and metric.is_metric and k < L
+    # the persistent grid's query queue: the next query to take
+    counter = torch.zeros(1, dtype=torch.int32, device=queries.device)
     rc = fn(queries.data_ptr(), tier_data.data_ptr(), nbrs.data_ptr(),
             degs.data_ptr(), starts.data_ptr(), stride, B, d, R, S, n_valid,
             k, L, Wb, pow2(R), cut, min(limit, n_valid), int(use_cut),
-            int(metric is Metric.MIPS), ids.data_ptr(), dists.data_ptr(),
-            nv.data_ptr(), cmps.data_ptr(), _lib.stream())
+            int(metric is Metric.MIPS), counter.data_ptr(), ids.data_ptr(),
+            dists.data_ptr(), nv.data_ptr(), cmps.data_ptr(), _lib.stream())
     beam_search_fused.launches += 1
     _lib.check(rc, "beam_search_fused")
     return ids, dists, nv, cmps
@@ -181,7 +192,7 @@ beam_search_fused.launches = 0
 
 def bitonic_sort_rows(keys: torch.Tensor, vals: torch.Tensor):
     """Ascending (key, val) lexicographic sort of each row of W (a power of
-    two) lanes: a test launch of kernel 3's block-level bitonic network.
+    two) lanes: a test launch of the block-level bitonic network.
     CPU tensors run the plain stable lexsort."""
     if not _lib.route(keys, vals):
         return lexsort((keys, vals))

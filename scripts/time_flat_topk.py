@@ -2,7 +2,7 @@
 
 Usage, on a machine with an NVIDIA GPU and nvcc:
 
-    python3 scripts/time_flat_topk.py [--kernel flat_topk|occlusion] [--root DIR]
+    python3 scripts/time_flat_topk.py [--kernel flat_topk|occlusion|fusedbeam] [--root DIR]
                                       [--reps N] [--tag NAME]
                                       [--build N ...] [--build-reps K]
 
@@ -23,6 +23,18 @@ checkout in turns (A, B, B, A) in one call on one machine.
   metric that chip_smoke.py makes from seed 7, so every checkout is timed
   on the same inputs. Each shape's rounds are also checked against the
   checkout's plain version.
+- ``--kernel fusedbeam`` (kernel 3): builds chip_smoke.py's q8 Vamana index
+  of its synthetic clustered 100K x 128 set once (with the checkout's own
+  build; the graph's digest is printed, so two checkouts can be seen to
+  search the same graph), then times the q8 walk at chip_smoke.py's four
+  shapes, B = 1024 and 10,000 queries x L = 10 and 64, and at B = 10,000,
+  L = 128 (a beam wider than the register walk's 64), on the search's own
+  inputs (translated queries, entry-tier starts). Each shape's four
+  outputs are also checked equal to the checkout's plain version, and the
+  mean and largest visits are printed. Then the checkout's q8
+  ``Index.batch_search_timed`` of the 10K queries at chip_smoke.py's beams
+  (10/16/32/64, three fenced rounds after a warm-up): recall@10 against
+  exact ground truth, QPS, mean visits and distance counts.
 
 ``--build N`` (100000 or 1000000, repeatable) also builds chip_smoke.py's
 q8 Vamana index over its synthetic clustered N x 128 set (R=32, L=64,
@@ -91,6 +103,41 @@ def time_occlusion(chip, reps, dev):
     return out
 
 
+def time_fused(chip, reps, dev):
+    import torch
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.ops.kernels.fusedbeam import (
+        beam_search_fused, beam_search_fused_plain)
+    from parlayann_tpu_torch.search import exact
+    from parlayann_tpu_torch.harness.recall import compute_recall
+    from parlayann_tpu_torch.utils import synthetic
+
+    X, Q = synthetic.clustered(100_000, 128, n_queries=10_000, n_clusters=1000,
+                               cluster_std=0.35, seed=SEED)
+    graph, points, _ = pt.build_vamana_index(X, R=32, L=64, alpha=1.2,
+                                             batch_cap_frac=0.16, device=dev)
+    idx = pt.Index(points=points, graph=graph).enable_quantized(bits=8)
+    out = {"graph": hashlib.sha256(graph.neighbors.cpu().numpy().tobytes()
+                                   + graph.degrees.cpu().numpy().tobytes()).hexdigest()[:16]}
+    for B, L in chip.FUSED_SHAPES + ((10_000, 128),):
+        args, kw = chip.fused_args(idx, Q[:B], L, dev)
+        got = beam_search_fused(*args, **kw)
+        want = beam_search_fused_plain(*args, **kw)
+        key = f"B{B}_L{L}"
+        out[f"{key}_equal"] = all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+        out[f"{key}_visits_mean"] = float(got[2].float().mean())
+        out[f"{key}_visits_max"] = int(got[2].max())
+        out[f"{key}_ms"] = chip.time_ms(lambda: beam_search_fused(*args, **kw), reps)
+    gt_ids, gt_d = exact.compute_groundtruth(points, Q, 2 * chip.K)
+    for beam in chip.BEAMS:
+        ids, _, res, dt = idx.batch_search_timed(Q, k=chip.K, beam_size=beam, rounds=3)
+        out[f"search{beam}"] = dict(
+            recall=compute_recall(ids.cpu().numpy(), gt_ids, gt_d, chip.K), qps=len(Q) / dt,
+            visits=float(res.num_visited.float().mean()),
+            cmps=float(res.dist_cmps.float().mean()))
+    return out
+
+
 def build_run(chip, n, reps, dev):
     """Time the q8 build of n points ``reps`` times, then profile it once."""
     import torch
@@ -124,11 +171,13 @@ def build_run(chip, n, reps, dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("flat_topk", "occlusion"), default="flat_topk")
+    ap.add_argument("--kernel", choices=("flat_topk", "occlusion", "fusedbeam"),
+                    default="flat_topk")
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose parlayann_tpu_torch is timed")
     ap.add_argument("--reps", type=int, default=None,
-                    help="timed launches (default 20 for flat_topk, 50 for occlusion)")
+                    help="timed launches (default 20 for flat_topk and fusedbeam, "
+                         "50 for occlusion)")
     ap.add_argument("--tag", default="", help="a name for the checkout in the output")
     ap.add_argument("--build", type=int, action="append", default=[], choices=sorted(BUILDS),
                     help="also time and profile the q8 build of this many points")
@@ -157,6 +206,8 @@ def main():
            "lib_build_s": time.perf_counter() - t0}
     if args.kernel == "flat_topk":
         out.update(time_flat(chip, args.reps or 20, dev))
+    elif args.kernel == "fusedbeam":
+        out.update(time_fused(chip, args.reps or 20, dev))
     else:
         out.update(time_occlusion(chip, args.reps or 50, dev))
     for n in args.build:

@@ -166,22 +166,132 @@ def test_torch_cuda_occlusion_rounds_misaligned_vectors(gen, cuda):
                          1.2, R=32, metric=Metric.L2)
 
 
-@pytest.mark.parametrize("L", [10, 64, 200])
-def test_torch_cuda_beam_search_fused_equal(gen, cuda, L):
-    n, d, R, B = 2000, 128, 32, 256
-    X = gen.standard_normal((n, d)).astype(np.float32)
-    tier = quantize.quantize_pointset(PointSet.from_numpy(X, device=cuda), bits=8)
-    nbrs = np.stack([gen.choice(n, R, replace=False) for _ in range(n)])
-    degs = gen.integers(8, R + 1, n)
-    Q = t(gen.standard_normal((B, d)).astype(np.float32), cuda)
-    q_t = quantize.translate_query(Q, tier).float()
-    starts = t(gen.integers(0, n, (B, 2)).astype(np.int32), cuda)
-    args = (q_t, tier.data, t(nbrs.astype(np.int32), cuda),
-            t(degs.astype(np.int32), cuda), starts)
-    kw = dict(metric=Metric.L2, n_valid=n, k=10, L=L)
-    for g, w in zip(beam_search_fused(*args, **kw),
-                    beam_search_fused_plain(*args, **kw)):
-        assert torch.equal(g, w)
+def _walk_case(gen, dev, *, n=2000, d=128, R=32, B=128, S=3, lim=128, qkind="int"):
+    """Kernel 3's inputs: an int8 tier of n valid rows and 8 pad rows
+    (values in [-lim, lim)); duplicate-free neighbour rows with -1 and
+    >= n_valid ids, short and empty rows; queries integer-valued ("int",
+    the q8 path), integer + 0.5 ("half") or with one integer outside int8
+    ("wide"), both of which take the f32 arithmetic and stay exact; (B, S)
+    starts with a repeated start, an invalid one, a start >= n_valid and,
+    in row 2, no valid start at all."""
+    n_pad = n + 8
+    tier = gen.integers(-lim, lim, (n_pad, d)).astype(np.int8)
+    nbrs = np.stack([gen.choice(n, R, replace=False) for _ in range(n_pad)])
+    nbrs[gen.random(nbrs.shape) < 0.05] = -1
+    far = gen.random(nbrs.shape) < 0.03
+    nbrs[far] = gen.integers(n, n_pad + 4, int(far.sum()))
+    degs = gen.integers(R // 2, R + 1, n_pad)
+    degs[gen.random(n_pad) < 0.02] = 0
+    Q = gen.integers(-lim, lim, (B, d)).astype(np.float32)
+    if qkind == "half":
+        Q += 0.5
+    elif qkind == "wide":
+        Q[:, 0] = 200.0
+    starts = gen.integers(0, n, (B, S))
+    if B >= 4:
+        starts[:, -1] = starts[:, 0]
+        starts[1, 0] = -1
+        starts[2, :] = -1
+        starts[3, 1] = n + 3
+    return (t(Q, dev), t(tier, dev), t(nbrs.astype(np.int32), dev),
+            t(degs.astype(np.int32), dev), t(starts.astype(np.int32), dev))
+
+
+def _check_walk(args, **kw):
+    """All four outputs of kernel 3 equal its plain version's; one launch
+    a call with queries."""
+    before = beam_search_fused.launches
+    got = beam_search_fused(*args, **kw)
+    assert beam_search_fused.launches == before + (args[0].shape[0] > 0)
+    want = beam_search_fused_plain(*args, **kw)
+    for name, g, w in zip(("ids", "dists", "num_visited", "dist_cmps"), got, want):
+        assert torch.equal(g, w), name
+    return got
+
+
+@pytest.mark.parametrize("L", [8, 10, 64, 200, 1000])
+@pytest.mark.parametrize("R", [16, 32, 64, 100])
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.MIPS])
+def test_torch_cuda_beam_search_fused_equal(gen, cuda, metric, R, L):
+    """The register beam (L <= 64 and R <= 64: 1 or 2 beam registers and 1
+    or 2 candidate registers a lane) and the shared-memory beam (L = 200
+    and 1000, or R = 100)."""
+    args = _walk_case(gen, cuda, R=R)
+    ids, _, nv, _ = _check_walk(args, metric=metric, n_valid=2000, k=10, L=L)
+    assert bool((nv[2] == 0) & (ids[2] == -1).all())  # no valid start
+    assert int(nv.max()) > 1
+
+
+@pytest.mark.parametrize("d,off", [(128, 0), (96, 0), (20, 0), (128, 1), (128, 4),
+                                   (128, 8)])
+def test_torch_cuda_beam_search_fused_row_widths(gen, cuda, d, off):
+    """d = 128 and 96 take 16-byte loads, d = 20 4-byte ones; tier views 1,
+    4 and 8 bytes past a 16-byte boundary take byte, 4- and 8-byte loads."""
+    q, tier, nbrs, degs, starts = _walk_case(gen, cuda, d=d)
+    if off:
+        flat = torch.empty(tier.numel() + 16, dtype=torch.int8, device=cuda)
+        view = flat[off:off + tier.numel()].view(tier.shape)
+        view.copy_(tier)
+        assert view.data_ptr() % 16 == off
+        tier = view
+    for metric in (Metric.L2, Metric.MIPS):
+        for L in (10, 64):
+            _check_walk((q, tier, nbrs, degs, starts), metric=metric, n_valid=2000,
+                        k=10, L=L)
+
+
+@pytest.mark.parametrize("limit,k,cut", [(1, 10, 1.35), (5, 10, 1.35), (2**30, 0, 1.35),
+                                         (2**30, 64, 1.35), (2**30, 10, 1.0)])
+def test_torch_cuda_beam_search_fused_stop_rules(gen, cuda, limit, k, cut):
+    """A visit budget of 1 and 5; k = 0 and k >= L (no cut); cut = 1."""
+    args = _walk_case(gen, cuda)
+    for metric in (Metric.L2, Metric.MIPS):
+        for L in (10, 64, 300):
+            _, _, nv, _ = _check_walk(args, metric=metric, n_valid=2000, k=k, L=L,
+                                      cut=cut, limit=limit)
+            assert int(nv.max()) <= limit
+
+
+@pytest.mark.parametrize("qkind", ["int", "half", "wide"])
+@pytest.mark.parametrize("L", [10, 64, 1000])
+def test_torch_cuda_beam_search_fused_ties(gen, cuda, L, qkind):
+    """Integer data in [-3, 3): many equal distances, so the pack order
+    decides; half-integer and out-of-range queries take the f32 path."""
+    args = _walk_case(gen, cuda, lim=3, qkind=qkind)
+    for metric in (Metric.L2, Metric.MIPS):
+        _check_walk(args, metric=metric, n_valid=2000, k=10, L=L)
+
+
+def test_torch_cuda_beam_search_fused_shared_starts(gen, cuda):
+    """1-D starts shared by every query, with a repeat, -1 and >= n_valid."""
+    q, tier, nbrs, degs, _ = _walk_case(gen, cuda)
+    starts = torch.tensor([5, 17, 5, -1, 2003, 17, 9], dtype=torch.int32, device=cuda)
+    for metric in (Metric.L2, Metric.MIPS):
+        for L in (10, 64, 1000):
+            _, _, _, cm = _check_walk((q, tier, nbrs, degs, starts), metric=metric,
+                                      n_valid=2000, k=10, L=L)
+            assert bool((cm >= 5).all())  # the repeated starts count as scored
+
+
+@pytest.mark.parametrize("B", [0, 1, 10000])
+def test_torch_cuda_beam_search_fused_batches(gen, cuda, B):
+    """B = 10000 is many more queries than resident warps: the queue."""
+    args = _walk_case(gen, cuda, n=3000, B=B)
+    for L in (10, 64):
+        ids, _, _, _ = _check_walk(args, metric=Metric.L2, n_valid=3000, k=10, L=L)
+        assert ids.shape == (B, L)
+
+
+def test_torch_cuda_beam_search_fused_widest_beam_and_rows(gen, cuda):
+    """L = 4096 lanes (the limit; 4097 raises) and R = 300 neighbours, both
+    on the shared-memory beam."""
+    args = _walk_case(gen, cuda, n=5000, B=16)
+    _check_walk(args, metric=Metric.L2, n_valid=5000, k=10, L=4096)
+    with pytest.raises(ValueError, match="exceeds"):
+        beam_search_fused(*args, metric=Metric.L2, n_valid=5000, k=10, L=4097)
+    args = _walk_case(gen, cuda, R=300, B=64)
+    for metric in (Metric.L2, Metric.MIPS):
+        _check_walk(args, metric=metric, n_valid=2000, k=10, L=64)
 
 
 @pytest.mark.parametrize("W", [2, 256, 2048])

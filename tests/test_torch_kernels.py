@@ -241,13 +241,14 @@ def _same_valid_sets(ids_a, d_a, ids_b, d_b):
         assert sa == sb, b
 
 
+@pytest.mark.parametrize("R", [16, 32])
 @pytest.mark.parametrize("metric,jmetric", METRICS)
-def test_torch_beam_search_fused_matches_jax(rng, metric, jmetric):
+def test_torch_beam_search_fused_matches_jax(rng, metric, jmetric, R):
     """The bar of tests/test_fusedbeam.py:68-121: against the JAX fused
     kernel, valid (dist, id) sets equal, dists rtol 1e-5, nv and cmps
     equal; against the JAX beam_search_batch (the same tie order), equal."""
     L, k = 12, 10
-    jps, tps, nbrs, degs, q_t = _fused_case(rng, metric=metric.value)
+    jps, tps, nbrs, degs, q_t = _fused_case(rng, R=R, metric=metric.value)
     n = tps.n
     starts = np.zeros(1, np.int32)
     fid, fdist, fnv, fcmps, n_left = jbeam_fused(
@@ -266,6 +267,31 @@ def test_torch_beam_search_fused_matches_jax(rng, metric, jmetric):
                       n_valid=n, k=k, L=L, use_inline=False)
     np.testing.assert_array_equal(ids.numpy(), np.asarray(ref.beam_ids))
     np.testing.assert_array_equal(dists.numpy(), np.asarray(ref.beam_dists))
+
+
+@pytest.mark.parametrize("limit,starts", [(3, [0]), (2**30, [7, 3, 7, -1, 402])],
+                         ids=["limit3", "shared_starts"])
+@pytest.mark.parametrize("metric,jmetric", METRICS)
+def test_torch_beam_search_fused_limit_and_starts_match_jax(rng, metric, jmetric,
+                                                            limit, starts):
+    """A visit budget of 3, and 1-D starts shared by every query with a
+    repeat, -1 and an id >= n_valid: ids, dists, nv and cmps equal the JAX
+    beam_search_batch (use_inline=False)."""
+    L, k = 16, 10
+    jps, tps, nbrs, degs, q_t = _fused_case(rng, B=16, metric=metric.value)
+    n = tps.n
+    st = np.asarray(starts, np.int32)
+    kw = dict(n_valid=n, k=k, L=L, limit=limit)
+    ids, dists, nv, cmps = beam_search_fused(
+        t(q_t), tps.data, t(nbrs), t(degs), t(st), metric=metric, **kw)
+    ref = jbeam_batch(jnp.asarray(q_t), jps.data, jnp.asarray(nbrs),
+                      jnp.asarray(degs), jnp.asarray(st), metric=jmetric,
+                      use_inline=False, **kw)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(ref.beam_ids))
+    np.testing.assert_array_equal(dists.numpy(), np.asarray(ref.beam_dists))
+    np.testing.assert_array_equal(nv.numpy(), np.asarray(ref.num_visited))
+    np.testing.assert_array_equal(cmps.numpy(), np.asarray(ref.dist_cmps))
+    assert int(nv.max()) <= limit
 
 
 def test_torch_beam_search_fused_multi_start(rng):
