@@ -27,8 +27,11 @@ Phases:
   4. the ClusterIndex slice on the same set: ``build_cluster_index`` (m=64,
      Rc=16, slack 1.5) with the f32 and the int8 ext layout, each searched
      by 10K queries at n_probe 3/4/6/8/12/16 with cut=0 and at the adaptive
-     (12, 2, 1.35) setting; then kernel 5 against its plain version on each
-     built index.
+     (12, 2, 1.35) setting; one more f32 search at n_probe 8 and at the
+     adaptive row each runs under torch.profiler (device split, idle share,
+     kernel 5's share). Kernel 5 is then checked against its plain version
+     on each built index at B = 1024 and 10,000 queries (n_probe 16 and the
+     adaptive row) and timed at both.
   5. the FlatIndex slice on the same set: f32 and q8 tiers through kernel 4.
   6. the capacity tiers at the size of scripts/bench_1m_tiers.py: synthetic
      clustered 1M x 128 (10K clusters, 10K queries), a q8 Vamana build (R=32,
@@ -52,7 +55,9 @@ the XOR and popcount of kernel 6 are counted at that rate too), from this
 run's inputs, with data-dependent walks counted from their returned visit
 and distance counts, each input row counted once (kernel 3: the distinct
 tier rows scored and adjacency rows visited, from the plain walk's
-expanded ids; kernel 5: at most the whole ext array). Kernel 4 runs on
+expanded ids; kernel 5: the distinct expanded ext rows, their id planes
+and valid vectors, and f32 rows' operations at the f32 rate, int8 rows'
+at the int8 rate). Kernel 4 runs on
 the tensor cores in 3xTF32, so its operations are 3 TF32 passes (2 for
 int8 points) of 2 B N d over 495 T/s, the H100 SXM dense TF32 rate;
 kernel 2's are its stars' 2 C d int8 products and kernel 3's its 2 d int8
@@ -127,25 +132,32 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def profile_window(fn, what):
+def profile_window(fn, what, attempts=3):
     """Run ``fn`` once under torch.profiler and print the device's busy
     time, its idle share of the fenced wall time, and the kernels that
     took the most device time -> dict(idle=share, by_name={kernel: device
-    us}), None if the profiler saw no device activity. Only device
+    us}, busy_ms, wall_ms), None if the profiler saw no device activity. Only device
     activity is traced: host operators would add their own cost to the
-    wall time, and their events make a build's trace slow to parse."""
+    wall time, and their events make a build's trace slow to parse.
+    The profiler now and then returns a window of a few milliseconds with
+    no device events at all although its kernels ran, so a window that
+    comes back empty is run again, up to ``attempts`` times in all."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not spans:
-        log(f"profile {what}: the profiler saw no device activity")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if spans:
+            break
+        log(f"profile {what}: the profiler saw no device activity "
+            f"(attempt {attempt} of {attempts})")
+    else:
         return None
     busy, end_at, by_name = 0.0, float("-inf"), {}
     for lo, hi in spans:
@@ -160,7 +172,8 @@ def profile_window(fn, what):
         f"{len(spans)} device activities")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {us / 1e3:9.3f} ms {us / total:6.1%}  {name[:90]}")
-    return dict(idle=1 - busy / wall_us, by_name=by_name)
+    return dict(idle=1 - busy / wall_us, by_name=by_name, busy_ms=busy / 1e3,
+                wall_ms=wall_us / 1e3)
 
 
 def check(cond, what):
@@ -610,64 +623,120 @@ def cluster_run(X, Q, gt, dev):
     r16 = recall[("f32", 16, 0.0)]
     check(r16 >= CLUSTER_BAR, f"f32 ClusterIndex recall@{K} at n_probe 16 is "
           f"{r16:.4f} < {CLUSTER_BAR}")
+    cluster_profile(indexes["f32"], Q, dev)
     return indexes, launches
 
 
-def kernel_cluster(indexes, Q, dev):
-    from parlayann_tpu_torch.ops import quantize
-    from parlayann_tpu_torch.ops.distance import INF
-    from parlayann_tpu_torch.ops.kernels.clusterbeam import (
-        POOL_DEPTH, cluster_walk, cluster_walk_plain, seed_centroids)
+CLUSTER_B = (1024, 10_000)  # queries of kernel 5's checks and times
 
-    q_full = torch.as_tensor(Q[:1024]).to(dev)
-    out = {}
+
+def cluster_args(ci, Q, dev):
+    """Kernel 5's inputs as the cluster search makes them for queries Q ->
+    (args, kwargs without the walk's settings): the queries in the ext's
+    domain (q8-translated on the int8 layout) and their exact top-2
+    centroid seeds."""
+    from parlayann_tpu_torch.ops import quantize
+    from parlayann_tpu_torch.ops.kernels.clusterbeam import seed_centroids
+
+    q = torch.as_tensor(Q).to(dev)
+    if ci.qpoints is not None:
+        q = quantize.translate_query(q, ci.qpoints).float()
+    sd, sid = seed_centroids(q, ci.centroids_q, C=ci.C, S=2, metric=ci.points.metric)
+    return ((q.contiguous(), ci.ext, sd.contiguous(), sid.contiguous()),
+            dict(metric=ci.points.metric, C=ci.C, m=ci.m, Rc=ci.Rc, n_points=ci.points.n))
+
+
+def check_walk(got, want, what):
+    """Kernel 5 against its plain version, which sums f32 distances in the
+    kernel's order: every output equal, on both layouts -> the largest
+    distance error (0)."""
+    for a, b, name in zip(got, want, ("pool dists", "pool ids", "expansions (and so cmps)")):
+        check(torch.equal(a, b), f"{what}: {name} differ")
+    return float((got[0] - want[0]).abs().max()) if got[0].numel() else 0.0
+
+
+def walk_bound(ci, args, expanded):
+    """Kernel 5's bound for one walk from the plain walk's expanded ids ->
+    (bound dict, distances, distinct rows, expansions). Bytes: each
+    distinct expanded row once (the 4-byte ids of its m members and Rc
+    adjacent centroids, and its valid member and adjacent vectors), the
+    queries and seeds, the pool and counts written.
+    Operations: per distance, d subtractions, multiplications and additions
+    at the f32 rate on f32 rows, or d int8 products and d additions at the
+    int8 rate on int8 rows (the integer-valued q8 queries)."""
+    from parlayann_tpu_torch.ops.kernels.clusterbeam import (
+        POOL_DEPTH, decode_ids, ext_layout)
+
+    ext = ci.ext
+    mid_row, _, aid_row = ext_layout(ext, ci.m, ci.Rc)
+    mid, aid = decode_ids(ext, mid_row, ci.m), decode_ids(ext, aid_row, ci.Rc)
+    n_row = (((mid >= 0) & (mid < ci.points.n)).sum(1)
+             + ((aid >= 0) & (aid < ci.C)).sum(1))
+    e = torch.cat(expanded)
+    e = e[e >= 0].long()
+    rows = torch.unique(e)
+    n_dist = int(n_row[e].sum())
+    q, _, sd, _ = args
+    B, d = q.shape
+    es = ext.element_size()
+    nbytes = (int(n_row[rows].sum()) * d * es + int(rows.numel()) * 4 * (ci.m + ci.Rc)
+              + B * d * 4 + sd.numel() * 8 + B * POOL_DEPTH * ci.m * 8 + B * 4)
+    ops, rate = (3 * n_dist * d, F32_OPS) if es == 4 else (2 * n_dist * d, INT8_OPS)
+    return bound(nbytes, ops, rate), n_dist, int(rows.numel()), int(e.numel())
+
+
+def kernel_cluster(indexes, Q, dev):
+    """Kernel 5 on the built indexes at B = 1024 and 10,000 queries, both
+    layouts: checked against its plain version at n_probe 16 and at the
+    adaptive row, timed at n_probe 16 -> the kernels entry at the main
+    path's shape (f32 rows, B = 10,000), with every shape's times."""
+    from parlayann_tpu_torch.ops.kernels.clusterbeam import cluster_walk, cluster_walk_plain
+
+    shapes, err, main = {}, 0.0, None
     for layout, ci in indexes.items():
-        q = q_full
-        if ci.qpoints is not None:
-            q = quantize.translate_query(q_full, ci.qpoints).float()
-        sd, sid = seed_centroids(q, ci.centroids_q, C=ci.C, S=2,
-                                 metric=ci.points.metric)
-        args = (q, ci.ext, sd.contiguous(), sid.contiguous())
-        err = 0.0
-        for n_probe, min_probe, cut in ((16, 0, 0.0), ADAPTIVE):
-            kw = dict(metric=ci.points.metric, C=ci.C, m=ci.m, Rc=ci.Rc,
-                      n_points=ci.points.n, n_probe=n_probe, min_probe=min_probe,
-                      cut=cut)
-            pd, pi, nv = cluster_walk(*args, **kw)
-            wd, wi, wnv = cluster_walk_plain(*args, **kw)
-            what = f"cluster_walk {layout} n_probe={n_probe} cut={cut}"
-            check(torch.equal(nv, wnv), f"{what}: nv (and so cmps) differ")
-            # the valid (dist, id) pool entries as sets: rows ordered by id
-            oi, o = torch.sort(pi, dim=1)
-            wi_s, wo = torch.sort(wi, dim=1)
-            check(torch.equal(oi, wi_s), f"{what}: pool ids differ")
-            a, b = pd.gather(1, o), wd.gather(1, wo)
-            ok = oi >= 0
-            check(bool((b[ok] < INF).all()), f"{what}: a pool id without distance")
-            # L2 sums of squares cannot cancel; a negated dot can
-            atol = 0.0 if ci.points.metric.is_metric else 1e-5 * float(b[ok].abs().max())
-            torch.testing.assert_close(a[ok], b[ok], rtol=1e-5, atol=atol)
-            if layout == "int8":
-                check(torch.equal(pd, wd) and torch.equal(pi, wi), f"{what}: not equal")
-            err = max(err, float((a[ok] - b[ok]).abs().max()))
-        kw = dict(metric=ci.points.metric, C=ci.C, m=ci.m, Rc=ci.Rc,
-                  n_points=ci.points.n, n_probe=16)
-        ms = time_ms(lambda: cluster_walk(*args, **kw), 10)
-        plain_ms = time_ms(lambda: cluster_walk_plain(*args, **kw), 2)
-        # per probe one ext row, distances to its m members and Rc centroids
-        n_vis = int(cluster_walk(*args, **kw)[2].sum())
-        B, d = q.shape
-        row_bytes = ci.ext.shape[1] * d * ci.ext.element_size()
-        # each ext row read once: at most the whole ext array
-        b = bound(min(n_vis * row_bytes, ci.ext.numel() * ci.ext.element_size())
-                  + B * d * 4 + sd.numel() * 8 + B * POOL_DEPTH * ci.m * 8 + B * 4,
-                  3 * n_vis * (ci.m + ci.Rc) * d)
-        out[layout] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
-        log(f"kernel 5 cluster_walk {layout} ext B=1024 m={ci.m} Rc={ci.Rc} on the built "
-            f"index: nv, cmps and valid (dist, id) pool sets equal at n_probe 16 and "
-            f"adaptive; max abs err {err:.3g}; n_probe=16 {ms:.4f} ms vs plain "
-            f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
-            f"{n_vis} probes)")
+        for B in CLUSTER_B:
+            args, base = cluster_args(ci, Q[:B], dev)
+            for n_probe, min_probe, cut in ((16, 0, 0.0), ADAPTIVE):
+                kw = dict(base, n_probe=n_probe, min_probe=min_probe, cut=cut)
+                expanded = []
+                got = cluster_walk(*args, **kw)
+                want = cluster_walk_plain(*args, **kw, expanded=expanded)
+                err = max(err, check_walk(got, want, f"cluster_walk {layout} B={B} "
+                                                     f"n_probe={n_probe} cut={cut}"))
+                if n_probe == 16:
+                    b, n_dist, n_rows, n_vis = walk_bound(ci, args, expanded)
+            kw = dict(base, n_probe=16)
+            ms = time_ms(lambda: cluster_walk(*args, **kw), 10)
+            plain_ms = time_ms(lambda: cluster_walk_plain(*args, **kw), 2)
+            shapes[f"{layout}_B{B}"] = dict(ms=ms, plain_ms=plain_ms, **b)
+            log(f"kernel 5 cluster_walk {layout} ext B={B} m={ci.m} Rc={ci.Rc} on the built "
+                f"index: pool dists, pool ids and nv equal at n_probe 16 and adaptive; "
+                f"n_probe=16 "
+                f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_by']}; {n_vis} probes of {n_rows} rows, {n_dist} distances)")
+            if (layout, B) == ("f32", CLUSTER_B[-1]):
+                main = dict(ms=ms, plain_ms=plain_ms, **b)
+    return dict(max_abs_err=err, library_ms=None, **main,
+                shapes={k: dict(ms=v["ms"], bound_ms=v["bound_ms"]) for k, v in shapes.items()})
+
+
+def cluster_profile(ci, Q, dev):
+    """The cluster search of Q at n_probe 8 and at the adaptive row, once
+    each under torch.profiler -> {setting: dict(wall_ms, busy_ms, idle,
+    walk_ms, walk_share)}: kernel 5's device time and its share of the
+    busy time."""
+    qd = torch.as_tensor(Q).to(dev)
+    out = {}
+    for n_probe, min_probe, cut in ((8, 0, 0.0), ADAPTIVE):
+        what = f"{ci.ext_dtype} cluster search of {len(Q)} queries, n_probe={n_probe} cut={cut}"
+        prof = profile_window(lambda: ci.search(qd, k=K, n_probe=n_probe,
+                                                min_probe=min_probe, cut=cut), what)
+        check(prof is not None, f"{what}: the profiler saw no device activity")
+        walk_ms = sum(us for name, us in prof["by_name"].items() if "cluster_walk" in name) / 1e3
+        out[f"p{n_probe}" + ("_adaptive" if cut else "")] = dict(
+            wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"], idle=prof["idle"],
+            walk_ms=walk_ms, walk_share=walk_ms / prof["busy_ms"])
+        log(f"    cluster_walk {walk_ms:.4f} ms, {walk_ms / prof['busy_ms']:.1%} of busy")
     return out
 
 
@@ -879,17 +948,17 @@ def main():
         dict(name="cluster_walk", route="cuda",
              source="parlayann_tpu_torch/csrc/clusterbeam.cu",
              replaces="parlayann_tpu/ops/pallas/clusterbeam.py:351",
-             launches=launches["cluster_walk"], **k5["f32"]),
+             launches=launches["cluster_walk"], **k5),
         # also the bits=1 mode of expand_distances (expand.py:129)
         dict(name="expand_bits_flat", route="cuda",
              source="parlayann_tpu_torch/csrc/expandbits.cu",
              replaces="parlayann_tpu/ops/pallas/expand.py:301",
              launches=launches["expand_bits_flat"], **k6[4]),
-        # device code inside cluster_walk's launches; timed on its test launch
-        dict(name="bitonic_sort (device code of cluster_walk)", route="cuda",
-             source="parlayann_tpu_torch/csrc/bitonic.cuh",
-             replaces="parlayann_tpu/ops/pallas/bitonic.py:51",
-             launches=launches["cluster_walk"], **kb),
+        # device code that no walk runs any more (kernels 3 and 5 run the
+        # warp networks of warp.cuh): timed on its test launch, off the path
+        dict(name="bitonic_sort (test launch bitonic_sort_rows; on no path)",
+             route="cuda", source="parlayann_tpu_torch/csrc/bitonic.cuh",
+             replaces="parlayann_tpu/ops/pallas/bitonic.py:51", launches=0, **kb),
     ]
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,10 +13,11 @@ search walks clusters, not points (kernel 5).
 
 The partition is always L2 (clustering by inner product is degenerate);
 MIPS indexes score by the true metric at query time. Not ported yet
-(ROADMAP queue 1, item 13), each raising ``NotImplementedError``: the
-hierarchical build past n * C > 4e10 (approx_assign, the meta quantizer,
-teleport and polish), the meta-routed query seed past 32768 centroids, and
-``save``/``load`` (item 18). The JAX package's environment knobs are not
+(ROADMAP queue 1, "The rest of ClusterIndex"), each raising
+``NotImplementedError``: the hierarchical build past n * C > 4e10
+(approx_assign, the meta quantizer, teleport and polish) and the
+meta-routed query seed past 32768 centroids; ``save``/``load`` are
+queue 1, "File I/O". The JAX package's environment knobs are not
 read; the port ships their defaults. The JAX respill pads its free
 centroids with 1e15 rows to fix compile shapes, a sentinel that would win
 under MIPS; the port has no compile shapes and no padding.
@@ -42,7 +43,7 @@ from parlayann_tpu_torch.utils.timing import timed_rounds
 # past this many point-centroid pairs the JAX package switches to its
 # hierarchical (meta-routed) passes
 EXACT_LIMIT = 4e10
-ITEM = "queue 1, item 13"
+ITEM = 'queue 1, "The rest of ClusterIndex"'
 
 
 def _kmeans_chunk_for(C: int) -> int:
@@ -392,11 +393,11 @@ class ClusterIndex:
                             ext_dtype="int8")
 
     def save(self, path: str) -> None:
-        _not_ported("ClusterIndex.save", "queue 1, item 18")
+        _not_ported("ClusterIndex.save", 'queue 1, "File I/O"')
 
     @staticmethod
     def load(path: str, points: PointSet) -> "ClusterIndex":
-        _not_ported("ClusterIndex.load", "queue 1, item 18")
+        _not_ported("ClusterIndex.load", 'queue 1, "File I/O"')
 
     def search(self, queries, k: int = 10, *, n_probe: int = 8,
                min_probe: int = 3, cut: float = 1.35, starts: int = 2,

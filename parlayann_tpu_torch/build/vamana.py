@@ -152,7 +152,8 @@ def build_vamana_graph(points: PointSet, bp: BuildParams,
     """Build a Vamana graph over ``points`` (on ``points.device``)."""
     if bp.single_batch:
         raise NotImplementedError(
-            "single_batch builds are not ported; see ROADMAP queue 1, item 21")
+            "single_batch builds are not ported; see ROADMAP queue 1, "
+            '"The rest of the Vamana builder"')
     n = points.n
     R, L = bp.R, bp.L
     dev = points.device
@@ -232,7 +233,7 @@ def build_vamana_index(
     if build_ps.data.dtype != torch.int8:
         raise NotImplementedError(
             "only builds on the int8 tier are ported (the f32 tier is "
-            "ROADMAP queue 1, item 17)")
+            'ROADMAP queue 1, "The f32 tier")')
     bp = BuildParams(R=R, L=L, alpha=alpha, num_passes=2 if two_pass else 1,
                      seed=seed, batch_cap_frac=batch_cap_frac)
     graph, stats = build_vamana_graph(build_ps, bp, verbose=verbose)

@@ -1,6 +1,7 @@
 // Block-level bitonic networks over shared memory: the port of
-// parlayann_tpu/ops/pallas/bitonic.py (bitonic_sort :51, bitonic_merge :82),
-// which kernel 3 (fusedbeam.cu) runs as device code.
+// parlayann_tpu/ops/pallas/bitonic.py (bitonic_sort :51, bitonic_merge :82).
+// Its one launch is the bitonic_sort_rows test launch (fusedbeam.cu); the
+// walks of kernels 3 and 5 run the warp networks of warp.cuh instead.
 //
 // Keys are (dist, pack) pairs compared lexicographically. Callers keep every
 // entry with dist = INF at one canonical pack, so the order is total up to
@@ -17,10 +18,6 @@
 #include "common.cuh"
 
 namespace pa {
-
-__device__ __forceinline__ bool key_less(float da, int pa_, float db, int pb) {
-  return da < db || (da == db && pa_ < pb);
-}
 
 __device__ __forceinline__ void compare_exchange(float* key, int* val, int lo, int hi,
                                                  bool ascending) {

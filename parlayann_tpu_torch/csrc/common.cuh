@@ -13,6 +13,11 @@ namespace pa {
 constexpr float kInf = 3.0e38f;
 constexpr unsigned kFullMask = 0xffffffffu;
 
+// (distance, pack) keys in lexicographic order.
+__device__ __forceinline__ bool key_less(float da, int pa_, float db, int pb) {
+  return da < db || (da == db && pa_ < pb);
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFullMask, x, off);

@@ -67,6 +67,8 @@
 //     over graphs of degree up to 64 (the main path's beams 10-64 over
 //     R = 32, and bench.py's R = 64 graph at the same beams) in four
 //     instantiations, which keep the build short.
+// The query's staging, the scoring (pa::score32) and the networks live in
+// warp.cuh, shared with kernel 5.
 // Measured on an H100 (PERF.md): one lane reading a whole row touched 32
 // lines a load instruction, and point 3's groups took 12-14% off at
 // L = 64; scoring every query in f32 alone was 1.5-1.7x slower than dp4a
@@ -74,19 +76,20 @@
 // capping the 128 registers a thread for occupancy (spills), were both
 // slower.
 
-#include <map>
-#include <mutex>
-#include <tuple>
-
 #include "bitonic.cuh"
+#include "warp.cuh"
 
 namespace {
+
+using pa::smem_merge;
+using pa::smem_sort;
+using pa::warp_merge;
+using pa::warp_sort_desc;
 
 constexpr int kWarps = 4;    // queries in flight a CTA of walk_regs
 constexpr int kMaxRegP = 2;  // beam registers a lane: W <= 64
 constexpr int kMaxRegC = 2;  // candidate registers a lane: pow2(R) <= 64
 constexpr int kSmemC = 4;    // candidates a lane scores at once in walk_smem
-constexpr float kMagic = 8388736.0f;  // 2^23 + 128
 
 struct Params {
   const float* queries;  // (B, d) f32, in the tier's domain
@@ -109,172 +112,17 @@ struct Params {
   int* out_cmps;    // (B,)
 };
 
-// The warp's query: f32 values and, when every value is an integer in
-// [-128, 127], the same values as int8; both zero-padded to 16 nch.
-struct Query {
-  const float* qf;
-  const int8_t* qi;
-  int qq;  // sum q^2 of the int8 values
-  bool int_q;
-};
-
-__device__ __forceinline__ Query stage_query(const Params& p, int b, float* qf, int8_t* qi,
-                                             int lane) {
-  const float* qg = p.queries + static_cast<size_t>(b) * p.d;
-  bool ok = true;
-  int qq = 0;
-  for (int t = lane; t < 16 * p.nch; t += 32) {
-    const float x = t < p.d ? qg[t] : 0.f;
-    const bool in = x == rintf(x) && x >= -128.f && x <= 127.f;
-    const int xi = in ? static_cast<int>(x) : 0;
-    qf[t] = x;
-    qi[t] = static_cast<int8_t>(xi);
-    ok &= in;
-    qq += xi * xi;
-  }
-  Query q;
-  q.qf = qf;
-  q.qi = qi;
-  q.int_q = __all_sync(pa::kFullMask, ok);
-  q.qq = pa::warp_sum(qq);
-  __syncwarp();
-  return q;
-}
-
-// 16 bytes of a tier row starting at byte 16 c, zeros past d.
-__device__ __forceinline__ int4 load_chunk(const int8_t* row, int c, int d, int vec) {
-  const int base = 16 * c;
-  if (vec == 16) return __ldg(reinterpret_cast<const int4*>(row) + c);
-  if (vec == 8) {
-    const int2* r = reinterpret_cast<const int2*>(row + base);
-    const int2 a = __ldg(r);  // d % 8 == 0, so a chunk that starts below d has 8 bytes
-    const int2 b = base + 8 < d ? __ldg(r + 1) : make_int2(0, 0);
-    return make_int4(a.x, a.y, b.x, b.y);
-  }
-  if (vec == 4) {
-    const int* r = reinterpret_cast<const int*>(row + base);
-    return make_int4(__ldg(r), base + 4 < d ? __ldg(r + 1) : 0,
-                     base + 8 < d ? __ldg(r + 2) : 0, base + 12 < d ? __ldg(r + 3) : 0);
-  }
-  unsigned w[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    unsigned x = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int t = base + 4 * k + j;
-      if (t < d) x |= static_cast<unsigned>(static_cast<uint8_t>(__ldg(row + t))) << (8 * j);
-    }
-    w[k] = x;
-  }
-  return make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]), static_cast<int>(w[2]),
-                   static_cast<int>(w[3]));
-}
-
-// Four int8 values of word w against four f32 query values, in order. A
-// byte b + 128 placed under the exponent of 2^23 is the float 2^23 + b +
-// 128, so one subtraction recovers b exactly.
-__device__ __forceinline__ void acc_word(float& acc, int w, float4 q, bool mips) {
-  const unsigned x = static_cast<unsigned>(w) ^ 0x80808080u;
-  const float v[4] = {__int_as_float(__byte_perm(x, 0x4B000000u, 0x7440)) - kMagic,
-                      __int_as_float(__byte_perm(x, 0x4B000000u, 0x7441)) - kMagic,
-                      __int_as_float(__byte_perm(x, 0x4B000000u, 0x7442)) - kMagic,
-                      __int_as_float(__byte_perm(x, 0x4B000000u, 0x7443)) - kMagic};
-  const float qs[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    // MIPS: acc += v q; L2: acc += (v - q)^2
-    const float t = mips ? v[i] : v[i] - qs[i];
-    acc = fmaf(t, mips ? qs[i] : t, acc);
-  }
-}
-
-// The 8 lanes of a group reduce 8 partial sums each so that sub-lane s
-// ends with the total of value s: three butterfly stages, each lane keeping
-// the half its bit selects and sending the other (4 + 2 + 1 shuffles). The
-// tree is the same for every value, so a value's total does not depend on
-// which lane ends with it.
-template <typename T>
-__device__ __forceinline__ T reduce_scatter8(const T (&a)[8], int s) {
-  T h[4], r[2];
-  bool up = (s & 4) != 0;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    h[i] = (up ? a[4 + i] : a[i]) + __shfl_xor_sync(pa::kFullMask, up ? a[i] : a[4 + i], 4);
-  up = (s & 2) != 0;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-    r[i] = (up ? h[2 + i] : h[i]) + __shfl_xor_sync(pa::kFullMask, up ? h[i] : h[2 + i], 2);
-  up = (s & 1) != 0;
-  return (up ? r[1] : r[0]) + __shfl_xor_sync(pa::kFullMask, up ? r[0] : r[1], 1);
-}
-
-// The distance from the warp's query to 32 tier rows, lane l giving the id
-// of row l (id < 0: none) and receiving its distance (unspecified for no
-// row). Each group of 8 lanes reads 8 rows at a time, a 16-byte chunk a
-// lane (chunks s, s + 8, ... of every row to sub-lane s), so a load
-// instruction touches 4 rows' 128-byte lines, not 32; all 8 loads of a pass
-// go out before any is used. Each lane sums its chunks in order, and
-// reduce_scatter8 adds the 8 lanes' sums in a fixed tree. Integer-valued
-// queries in int8 range sum in exact int32 with dp4a (L2 as sum v^2 -
-// 2 sum v q, then + sum q^2); any other query in f32.
-__device__ __forceinline__ float score32(const Params& p, const Query& q, int mine, int lane) {
-  const int s = lane & 7, g = lane & ~7;
-  const bool mips = p.mips;
-  int id[8], ia[8];
-  float fa[8];
-#pragma unroll
-  for (int v = 0; v < 8; ++v) {
-    id[v] = __shfl_sync(pa::kFullMask, mine, g + v);
-    ia[v] = 0;
-    fa[v] = 0.f;
-  }
-  for (int k = s; k < p.nch; k += 8) {
-    int4 x[8];
-#pragma unroll
-    for (int v = 0; v < 8; ++v) {
-      x[v] = make_int4(0, 0, 0, 0);
-      if (id[v] >= 0) x[v] = load_chunk(p.tier + static_cast<size_t>(id[v]) * p.d, k, p.d, p.vec);
-    }
-    if (q.int_q) {
-      const int4 w = *reinterpret_cast<const int4*>(q.qi + 16 * k);
-#pragma unroll
-      for (int v = 0; v < 8; ++v) {
-        const int4 y = x[v];
-        const int vq = __dp4a(y.w, w.w, __dp4a(y.z, w.z, __dp4a(y.y, w.y, __dp4a(y.x, w.x, 0))));
-        const int vv = __dp4a(y.w, y.w, __dp4a(y.z, y.z, __dp4a(y.y, y.y, __dp4a(y.x, y.x, 0))));
-        ia[v] += mips ? vq : vv - 2 * vq;
-      }
-    } else {
-      const float4* qv = reinterpret_cast<const float4*>(q.qf + 16 * k);
-      const float4 q0 = qv[0], q1 = qv[1], q2 = qv[2], q3 = qv[3];
-#pragma unroll
-      for (int v = 0; v < 8; ++v) {
-        acc_word(fa[v], x[v].x, q0, mips);
-        acc_word(fa[v], x[v].y, q1, mips);
-        acc_word(fa[v], x[v].z, q2, mips);
-        acc_word(fa[v], x[v].w, q3, mips);
-      }
-    }
-  }
-  if (q.int_q) {
-    const int t = reduce_scatter8(ia, s);
-    return mips ? -__int2float_rn(t) : __int2float_rn(t + q.qq);
-  }
-  const float t = reduce_scatter8(fa, s);
-  return mips ? -t : t;
-}
-
 // The distances from the warp's query to 32 N tier rows: lane l gives
 // ids[c] of row 32 c + l (id < 0: none, INF) and receives its distance in
 // out[c]. Every distance of the kernel comes from here, so equal (query,
 // row) pairs give equal bits.
 template <int N>
-__device__ __forceinline__ void score_rows(const Params& p, const Query& q,
+__device__ __forceinline__ void score_rows(const Params& p, const pa::Query& q,
                                            const int (&ids)[N], float (&out)[N], int lane) {
+  const char* tier = reinterpret_cast<const char*>(p.tier);
 #pragma unroll
   for (int c = 0; c < N; ++c) {
-    const float dist = score32(p, q, ids[c], lane);
+    const float dist = pa::score32<int8_t>(q, tier, p.d, p.nch, p.vec, p.mips, ids[c], lane);
     out[c] = ids[c] >= 0 ? dist : pa::kInf;
   }
 }
@@ -292,122 +140,12 @@ __device__ __forceinline__ bool in_beam(const float* md, const int* mp, int W, f
   return md[pos] == dist && (mp[pos] >> 1) == id;
 }
 
-// ---- bitonic networks over a warp's registers: element i = 32 r + lane ----
-
-__device__ __forceinline__ void cmpx_regs(float& da, int& pa_, float& db, int& pb, bool up) {
-  const bool swap = up ? pa::key_less(db, pb, da, pa_) : pa::key_less(da, pa_, db, pb);
-  const float td = da;
-  const int tp = pa_;
-  da = swap ? db : da;
-  pa_ = swap ? pb : pa_;
-  db = swap ? td : db;
-  pb = swap ? tp : pb;
-}
-
-// One stage of stride j < 32: exchange with lane ^ j.
-__device__ __forceinline__ void cmpx_lanes(float& d, int& p, int j, bool up, int lane) {
-  const float od = __shfl_xor_sync(pa::kFullMask, d, j);
-  const int op = __shfl_xor_sync(pa::kFullMask, p, j);
-  const bool lower = (lane & j) == 0;
-  const bool take = lower == up ? pa::key_less(od, op, d, p) : pa::key_less(d, p, od, op);
-  d = take ? od : d;
-  p = take ? op : p;
-}
-
-// Sort 32 C (key, pack) pairs descending.
-template <int C>
-__device__ __forceinline__ void warp_sort_desc(float (&d)[C], int (&p)[C], int lane) {
-  static_assert(C == 1 || C == 2, "one or two registers a lane");
-  constexpr int kLog = C == 1 ? 5 : 6;  // log2(32 C)
-#pragma unroll
-  for (int lk = 1; lk <= kLog; ++lk) {
-    const int k = 1 << lk;
-#pragma unroll
-    for (int lj = lk - 1; lj >= 0; --lj) {
-      const int j = 1 << lj;
-#pragma unroll
-      for (int r = 0; r < C; ++r) {
-        if (j >= 32) {
-          const int r2 = r | (j >> 5);
-          if (r2 != r) cmpx_regs(d[r], p[r], d[r2], p[r2], (r & (k >> 5)) != 0);
-        } else {
-          const int bit = k < 32 ? (lane & k) : (r & (k >> 5));
-          cmpx_lanes(d[r], p[r], j, bit != 0, lane);
-        }
-      }
-    }
-  }
-}
-
-// Sort ascending 32 C pairs that form a bitonic sequence.
-template <int C>
-__device__ __forceinline__ void warp_merge(float (&d)[C], int (&p)[C], int lane) {
-  static_assert(C == 1 || C == 2, "one or two registers a lane");
-  constexpr int kLog = C == 1 ? 5 : 6;  // log2(32 C)
-#pragma unroll
-  for (int lj = kLog - 1; lj >= 0; --lj) {
-    const int j = 1 << lj;
-#pragma unroll
-    for (int r = 0; r < C; ++r) {
-      if (j >= 32) {
-        const int r2 = r | (j >> 5);
-        if (r2 != r) cmpx_regs(d[r], p[r], d[r2], p[r2], true);
-      } else {
-        cmpx_lanes(d[r], p[r], j, true, lane);
-      }
-    }
-  }
-}
-
-// ---- the same networks run by one warp over shared memory ----
-
-__device__ __forceinline__ void cmpx_smem(float* d, int* p, int lo, int hi, bool up) {
-  const float a = d[lo], b = d[hi];
-  const int pa_ = p[lo], pb = p[hi];
-  if (up ? pa::key_less(b, pb, a, pa_) : pa::key_less(a, pa_, b, pb)) {
-    d[lo] = b;
-    d[hi] = a;
-    p[lo] = pb;
-    p[hi] = pa_;
-  }
-}
-
-__device__ void smem_sort(float* d, int* p, int n, bool desc, int lane) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      const int lj = __ffs(j) - 1;
-      for (int i = lane; i < (n >> 1); i += 32) {
-        const int lo = ((i >> lj) << (lj + 1)) | (i & (j - 1));
-        cmpx_smem(d, p, lo, lo + j, ((lo & k) == 0) != desc);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-__device__ void smem_merge(float* d, int* p, int n, int lane) {
-  for (int j = n >> 1; j > 0; j >>= 1) {
-    const int lj = __ffs(j) - 1;
-    for (int i = lane; i < (n >> 1); i += 32) {
-      const int lo = ((i >> lj) << (lj + 1)) | (i & (j - 1));
-      cmpx_smem(d, p, lo, lo + j, true);
-    }
-    __syncwarp();
-  }
-}
-
-// The next query for this warp, or >= B when the queue is empty.
-__device__ __forceinline__ int next_query(const Params& p, int lane) {
-  int b = 0;
-  if (lane == 0) b = atomicAdd(p.counter, 1);
-  return __shfl_sync(pa::kFullMask, b, 0);
-}
-
 // Seed a beam of W lanes in shared memory (sd, sp) for the warp's query:
 // the valid starts, scored 32 at a time by score_rows, sorted, a start
 // listed twice dropped (its copy sorts next to it), lanes >= L cleared.
 // Returns the starts scored.
-__device__ int seed_beam(const Params& p, const Query& q, int b, float* sd, int* sp, int lane) {
+__device__ int seed_beam(const Params& p, const pa::Query& q, int b, float* sd, int* sp,
+                          int lane) {
   const int W = p.W, sent = 2 * p.n_valid + 1;
   for (int i = lane; i < W; i += 32) {
     sd[i] = pa::kInf;
@@ -497,9 +235,10 @@ __global__ void __launch_bounds__(32 * kWarps) walk_regs(Params p) {
     return e;
   };
 
-  for (int b = next_query(p, lane); b < p.B; b = next_query(p, lane)) {
+  for (int b = pa::next_in_queue(p.counter, lane); b < p.B; b = pa::next_in_queue(p.counter, lane)) {
     __syncwarp();
-    const Query q = stage_query(p, b, qf, qi, lane);
+    const pa::Query q = pa::stage_query<int8_t>(
+        p.queries + static_cast<size_t>(b) * p.d, p.d, p.nch, qf, qi, lane);
 
     // ---- seed, in the beam's shared copy ----
     int cmps = seed_beam(p, q, b, md, mp, lane);
@@ -615,9 +354,10 @@ __global__ void __launch_bounds__(32) walk_smem(Params p) {
     return -1;
   };
 
-  for (int b = next_query(p, lane); b < p.B; b = next_query(p, lane)) {
+  for (int b = pa::next_in_queue(p.counter, lane); b < p.B; b = pa::next_in_queue(p.counter, lane)) {
     __syncwarp();
-    const Query q = stage_query(p, b, qf, qi, lane);
+    const pa::Query q = pa::stage_query<int8_t>(
+        p.queries + static_cast<size_t>(b) * p.d, p.d, p.nch, qf, qi, lane);
 
     int cmps = seed_beam(p, q, b, sd, sp, lane);
 
@@ -697,31 +437,6 @@ WalkFn pick(int P, int CP) {
   return CP == 1 ? &walk_regs<2, 1> : &walk_regs<2, 2>;
 }
 
-// The CTAs of `kernel` (at its block size and `smem` bytes) that every SM
-// together holds at once. The SM count and the occupancy are asked of the
-// runtime once per device, kernel and size, not at every launch.
-cudaError_t resident_ctas(WalkFn kernel, int threads, size_t smem, long long* out) {
-  static std::mutex mu;
-  static std::map<std::tuple<int, uintptr_t, size_t>, long long> known;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const auto key = std::make_tuple(dev, reinterpret_cast<uintptr_t>(kernel), smem);
-  std::lock_guard<std::mutex> lock(mu);
-  auto it = known.find(key);
-  if (it == known.end()) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    it = known.emplace(key, static_cast<long long>(sms) * per_sm).first;
-  }
-  *out = it->second;
-  return cudaSuccess;
-}
-
 // A test launch of the block-level bitonic sort: one CTA sorts one row of
 // W (a power of two) (key, payload) pairs ascending.
 __global__ void __launch_bounds__(128) bitonic_rows_kernel(float* keys, int* vals, int W) {
@@ -769,9 +484,7 @@ extern "C" int pa_fused_beam(const void* queries, const void* tier, const void* 
   p.mips = mips;
   p.W = Wb > 32 ? Wb : 32;
   p.Nc = Rp > 32 ? Rp : 32;
-  const uintptr_t addr = reinterpret_cast<uintptr_t>(tier);
-  p.vec = 16;
-  while (p.vec > 1 && ((addr % p.vec) != 0 || d % p.vec != 0)) p.vec /= 2;
+  p.vec = pa::widest_load(tier, d);
   p.nch = (d + 15) / 16;
   p.cut = cut;
   p.counter = static_cast<int*>(counter);
@@ -801,7 +514,7 @@ extern "C" int pa_fused_beam(const void* queries, const void* tier, const void* 
   cudaError_t err = pa::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   long long resident = 0;
-  err = resident_ctas(kernel, threads, smem, &resident);
+  err = pa::resident_ctas(reinterpret_cast<const void*>(kernel), threads, smem, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   // a persistent grid: every SM full, or one warp a query if fewer
   const long long ctas = (static_cast<long long>(B) + threads / 32 - 1) / (threads / 32);

@@ -148,11 +148,11 @@ class Index:
         every query runs its untruncated search. ``seed`` draws the
         ``random_starts``, which are not ported yet."""
         if random_starts > 0:
-            _not_ported("random_starts", "queue 1, item 8")
+            _not_ported("random_starts", 'queue 1, "The remaining tiers"')
         if (self.bit_points is None and self.jl_tier is None
                 and self.qpoints is None):
             _not_ported("search without a quantized tier (the f32 tier)",
-                        "queue 1, item 4")
+                        'queue 1, "The f32 tier"')
         qp = QueryParams(k=k, beamSize=beam_size, cut=cut, limit=limit,
                          degree_limit=degree_limit).resolved(
             self.graph.max_degree, self.points.n)
@@ -201,9 +201,10 @@ class Index:
         rerank."""
         if expand != 1:
             _not_ported("multi-expansion search (expand > 1) on the q8 tier",
-                        "queue 1, item 2")
+                        'queue 1, "The q8 search\'s lock-step path"')
         if qp.degree_limit < self.graph.max_degree:
-            _not_ported("degree_limit < R on the fused path", "queue 1, item 2")
+            _not_ported("degree_limit < R on the fused path",
+                        'queue 1, "The q8 search\'s lock-step path"')
         tier = self.qpoints
         q_t = quantize.translate_query(qf, tier).float()
         fid, _, nv, cmps = beam_search_fused(

@@ -47,3 +47,28 @@ def gathered(queries: torch.Tensor, cand_vecs: torch.Tensor,
         return -(c * q[:, None, :]).sum(-1)
     diff = c - q[:, None, :]
     return (diff * diff).sum(-1)
+
+
+def gathered_lane_order(queries: torch.Tensor, cand_vecs: torch.Tensor,
+                        metric: Metric, chunk: int) -> torch.Tensor:
+    """:func:`gathered` with its float32 sums in the warp-scoring kernels'
+    order (``csrc/warp.cuh``), so the two agree bit for bit: the values
+    split into chunks of ``chunk`` (16 bytes of the rows' storage type: 4
+    float32 or 16 int8 values), chunk k to sub-lane k % 8; each sub-lane
+    adds its chunks' terms in order from 0, each term one rounded product
+    and each addition rounded; then the 8 partial sums p0..p7 make
+    ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7))."""
+    q = _to_f32(queries)[:, None, :]
+    c = _to_f32(cand_vecs)
+    t = c * q if metric is Metric.MIPS else (c - q) * (c - q)
+    B, K, d = t.shape
+    span = 8 * chunk
+    t = torch.nn.functional.pad(t, (0, -d % span))
+    # (B, K, pass, sub-lane, value) -> (B, K, sub-lane, pass and value)
+    t = t.view(B, K, -1, 8, chunk).transpose(2, 3).reshape(B, K, 8, -1)
+    acc = torch.zeros(t.shape[:3], dtype=torch.float32, device=t.device)
+    for i in range(t.shape[3]):
+        acc = acc + t[..., i]
+    p = acc.unbind(-1)
+    total = ((p[0] + p[4]) + (p[2] + p[6])) + ((p[1] + p[5]) + (p[3] + p[7]))
+    return -total if metric is Metric.MIPS else total

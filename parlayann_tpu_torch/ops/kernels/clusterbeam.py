@@ -3,8 +3,8 @@
 Counterpart of parlayann_tpu/ops/pallas/clusterbeam.py (``cluster_step``
 :351, one lock-step expansion per launch, driven by ``cluster_search_fused``
 :419). The CUDA kernel (``csrc/clusterbeam.cu``) runs each query's whole
-walk in one CTA and one launch; :func:`cluster_walk_plain` is the same
-function in PyTorch, all queries in lock-step. :func:`cluster_search_fused`
+walk in one warp, all queries in one launch; :func:`cluster_walk_plain` is
+the same function in PyTorch, all queries in lock-step. :func:`cluster_search_fused`
 is the whole search: the exact top-S centroid seed, the walk, the pool
 sort and the rerank.
 
@@ -23,8 +23,10 @@ its distance is below ``cut`` times the beam's best, unless fewer than
 Empty lanes hold (INF, (C + lane) * 2 + 1).
 
 The beam is ordered by (distance, pack), which makes every merge unique:
-the kernel and the plain version agree exactly when their distances agree
-(always on the int8 layout, whose query is integer-valued). The JAX
+the kernel and the plain version agree exactly when their distances agree.
+They always do: the plain version sums in the kernel's order
+(:func:`~parlayann_tpu_torch.ops.distance.gathered_lane_order`), so even a
+seed and a walked centroid at a near-tie are ordered alike by both. The JAX
 bitonic networks compare the distance alone.
 
 Ext layouts (byte-compatible with the JAX package's ``build_cluster_ext``
@@ -53,7 +55,8 @@ from parlayann_tpu_torch.utils.arrays import pow2
 # past this many centroid rows the JAX package seeds through a meta router
 # (ClusterIndex.seed_meta), which is not ported
 ARGMIN_SEED_CUTOFF = 32768
-# the kernel's shared-memory beam and merge buffer
+# the widest cluster beam the kernel takes (past 32 lanes it runs the
+# beam in shared memory)
 MAX_WC = 1024
 # M: the depth of each member slot's sorted pool list (the JAX default)
 POOL_DEPTH = 4
@@ -124,8 +127,11 @@ def _initial_beam(seed_d, seed_i, *, C, Lc, Wc):
 
 def cluster_walk_plain(queries, ext, seed_d, seed_i, *, metric: Metric, C: int,
                        m: int, Rc: int, n_points: int, n_probe: int,
-                       min_probe: int = 0, cut: float = 0.0):
-    """The kernel's function in PyTorch, all queries in lock-step."""
+                       min_probe: int = 0, cut: float = 0.0,
+                       expanded: list | None = None):
+    """The kernel's function in PyTorch, all queries in lock-step. A list
+    given as ``expanded`` receives each step's (B,) expanded cluster ids
+    (-1 for a query whose walk has ended)."""
     mid_row, avec_row, aid_row = ext_layout(ext, m, Rc)
     B = queries.shape[0]
     dev = queries.device
@@ -139,13 +145,17 @@ def cluster_walk_plain(queries, ext, seed_d, seed_i, *, metric: Metric, C: int,
     pd = torch.full((B, M * m), INF, dtype=torch.float32, device=dev)
     pi = torch.full((B, M * m), -1, dtype=torch.int32, device=dev)
     nv = torch.zeros(B, dtype=torch.int32, device=dev)
+    chunk = 16 // ext.element_size()  # values a 16-byte load of a row
     while bool((e >= 0).any()):
         act = e >= 0
+        if expanded is not None:
+            expanded.append(e)
         rows = ext[e.clamp(min=0).long()]
         mid = decode_ids(rows, mid_row, m)
         aid = decode_ids(rows, aid_row, Rc)
-        md = distance.gathered(queries, rows[:, :m], metric)
-        ad = distance.gathered(queries, rows[:, avec_row:avec_row + Rc], metric)
+        md = distance.gathered_lane_order(queries, rows[:, :m], metric, chunk)
+        ad = distance.gathered_lane_order(queries, rows[:, avec_row:avec_row + Rc],
+                                          metric, chunk)
 
         # members -> pool: per-slot bubble insert through M depths
         cv = torch.where((mid >= 0) & (mid < n_points) & act[:, None], md, INF)
@@ -221,14 +231,16 @@ def cluster_walk(queries, ext, seed_d, seed_i, *, metric: Metric, C: int,
     nv = torch.empty(B, dtype=torch.int32, device=queries.device)
     if B == 0:
         return pd, pi, nv
-    fn = _lib.function("pa_cluster_walk", [_lib.VP] * 4 + [_lib.INT] * 13
-                       + [_lib.FLOAT] + [_lib.INT] * 3 + [_lib.VP] * 4)
+    fn = _lib.function("pa_cluster_walk", [_lib.VP] * 4 + [_lib.INT] * 12
+                       + [_lib.FLOAT] + [_lib.INT] * 3 + [_lib.VP] * 5)
+    # the persistent grid's query queue: the next query to take
+    counter = torch.zeros(1, dtype=torch.int32, device=queries.device)
     rc = fn(queries.data_ptr(), ext.data_ptr(), seed_d.data_ptr(),
-            seed_i.data_ptr(), B, d, S, C, m, Rc, pow2(Rc), Wc, Lc, M,
-            n_points, n_probe, min_probe, float(cut),
+            seed_i.data_ptr(), B, d, S, C, m, Rc, Wc, Lc,
+            M, n_points, n_probe, min_probe, float(cut),
             int(cut > 0.0 and metric.is_metric), int(metric is Metric.MIPS),
-            int(ext.dtype == torch.float32), pd.data_ptr(), pi.data_ptr(),
-            nv.data_ptr(), _lib.stream())
+            int(ext.dtype == torch.float32), counter.data_ptr(), pd.data_ptr(),
+            pi.data_ptr(), nv.data_ptr(), _lib.stream())
     cluster_walk.launches += 1
     _lib.check(rc, "cluster_walk")
     return pd, pi, nv
@@ -253,7 +265,8 @@ def seed_centroids(q: torch.Tensor, centroids_q: torch.Tensor, *, C: int,
         raise NotImplementedError(
             "the meta-routed query seed (more than "
             f"{ARGMIN_SEED_CUTOFF} centroids) is not ported yet; use "
-            "seed_mode='stream' or see ROADMAP queue 1, item 13")
+            "seed_mode='stream' or see ROADMAP queue 1, "
+            '"The rest of ClusterIndex"')
     if seed_mode not in ("argmin", "stream"):
         raise ValueError(f"unknown seed_mode {seed_mode!r}")
     if seed_mode == "stream" or S > 4:

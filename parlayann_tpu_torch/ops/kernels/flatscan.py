@@ -14,7 +14,8 @@ The kernel computes its distance tiles on the tensor cores in 3xTF32
 is float32-accurate: each product misses at most about 3 * 2^-22 of
 |q_i x_i|. ``precision`` is accepted for the JAX signature: "exact" and
 "fast" both compute that f32-accurate product (the TPU's "fast" is bf16
-MXU passes; a single-pass TF32 or bf16 "fast" is ROADMAP item 9).
+MXU passes; a single-pass TF32 or bf16 "fast" is ROADMAP queue 2,
+"B2. flat_topk").
 
 The grid also splits the points: S CTAs scan S contiguous id ranges of one
 block of queries, each keeping its own sorted lists, and

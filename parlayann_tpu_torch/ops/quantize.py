@@ -16,7 +16,7 @@ torch has no shifts on uint32. The JL tiers (jl_point.h) project onto
 ``jl_dims`` random sign directions, dense or with ``sparse_nnz`` nonzeros
 per direction, then take the 1-bit or the q8 tier of the projection. The
 MIPS 2-bit and 4-bit tiers and the trimmed MIPS scale are not ported yet
-(ROADMAP queue 1, item 11).
+(ROADMAP queue 1, "The remaining tiers").
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def _check_bits(bits: int):
     if bits != 8:
         raise NotImplementedError(
             f"only the 8-bit tier is ported (bits={bits}); "
-            "see ROADMAP queue 1, item 11")
+            'see ROADMAP queue 1, "The remaining tiers"')
 
 
 def _f32(v) -> torch.Tensor:
@@ -65,7 +65,7 @@ def mips_params(data: torch.Tensor, bits: int = 8, trim: float = 0.0):
     if trim > 0.0:
         raise NotImplementedError(
             "trimmed MIPS quantization is not ported; see ROADMAP queue 1, "
-            "item 11")
+            '"The remaining tiers"')
     max_abs = data.float().abs().max()
     levels = 2.0 ** (bits - 1) - 1.0
     slope = _f32(levels).to(max_abs.device) / torch.clamp(max_abs, min=1e-30)
@@ -206,7 +206,7 @@ class JLTier:
         if bits not in (1, 8):
             raise NotImplementedError(
                 f"JL tiers of {bits} bits are not ported; see ROADMAP queue 1, "
-                "item 11")
+                '"The remaining tiers"')
         if proj is None:
             proj = jl_projection_matrix(ps.d, jl_dims, seed, sparse_nnz)
         self.proj = torch.as_tensor(proj, dtype=torch.float32).to(ps.device)

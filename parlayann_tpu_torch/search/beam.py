@@ -21,7 +21,8 @@ the expansion sequence as the visited list (the candidates robustPrune
 reads). ``bits=1`` searches a packed 1-bit tier: queries and points are
 int32 words and distances are XOR + popcount hamming counts, through
 ``expand_distances(bits=1)`` (kernel 6) when an inline word array is given. The
-filter mode (``filter_data``) is not ported yet (ROADMAP queue 1, item 11).
+filter mode (``filter_data``) is not ported yet (ROADMAP queue 1,
+"The remaining tiers").
 """
 
 from __future__ import annotations

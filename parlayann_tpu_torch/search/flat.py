@@ -41,7 +41,7 @@ def flat_search_batch(queries, points_data, valid_mask=None, exclude_ids=None,
     builder's exact-candidate options. ``precision`` "fast" and "exact"
     both compute float32-accurate distances: the plain path in float32,
     kernel 4 in 3xTF32 on the tensor cores (a single-pass "fast" is
-    ROADMAP item 9)."""
+    ROADMAP queue 2, "B2. flat_topk")."""
     if select not in SELECTS:
         raise ValueError(f"select must be one of {SELECTS}, got {select!r}")
     if select == "pallas":

@@ -2,7 +2,8 @@
 
 Usage, on a machine with an NVIDIA GPU and nvcc:
 
-    python3 scripts/time_flat_topk.py [--kernel flat_topk|occlusion|fusedbeam] [--root DIR]
+    python3 scripts/time_flat_topk.py [--kernel flat_topk|occlusion|fusedbeam|cluster]
+                                      [--root DIR]
                                       [--reps N] [--tag NAME]
                                       [--build N ...] [--build-reps K]
 
@@ -35,6 +36,24 @@ checkout in turns (A, B, B, A) in one call on one machine.
   ``Index.batch_search_timed`` of the 10K queries at chip_smoke.py's beams
   (10/16/32/64, three fenced rounds after a warm-up): recall@10 against
   exact ground truth, QPS, mean visits and distance counts.
+- ``--kernel cluster`` (kernel 5): builds chip_smoke.py's 100K ClusterIndex
+  (m=64, Rc=16, slack 1.5) with the checkout's own build on the f32 and the
+  int8 ext layout (a digest of each ext is printed, so two checkouts can be
+  seen to walk the same index), then times the walk at B = 1024 and 10,000
+  queries x n_probe 8, n_probe 16 and the adaptive (12, 2, 1.35) row on the
+  search's own inputs (translated queries, top-2 centroid seeds); each
+  shape's three outputs are checked equal to the checkout's plain version
+  (a checkout whose f32 walk sums in another order than its plain version
+  reports the first output that differs).
+  Then the checkout's ``ClusterIndex.search_timed`` of the 10K queries at
+  chip_smoke.py's settings (n_probe 3/4/6/8/12/16 at cut 0 and the adaptive
+  row; three fenced rounds): recall@10 against exact ground truth, QPS,
+  mean probes and distance counts; and one
+  profiled f32 search at n_probe 8 and at the adaptive row (device busy
+  time, idle share, kernel 5's device time and share). The card's k-means
+  is not deterministic, so two checkouts are compared on one pair of
+  indexes: ``--index-cache FILE`` saves the first run's indexes there and
+  loads them in every later run.
 
 ``--build N`` (100000 or 1000000, repeatable) also builds chip_smoke.py's
 q8 Vamana index over its synthetic clustered N x 128 set (R=32, L=64,
@@ -138,6 +157,59 @@ def time_fused(chip, reps, dev):
     return out
 
 
+def time_cluster(chip, reps, dev, cache=None):
+    import torch
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.ops.kernels import clusterbeam
+    from parlayann_tpu_torch.search import exact
+    from parlayann_tpu_torch.harness.recall import compute_recall
+    from parlayann_tpu_torch.utils import synthetic
+
+    X, Q = synthetic.clustered(100_000, 128, n_queries=10_000, n_clusters=1000,
+                               cluster_std=0.35, seed=SEED)
+    # the card's k-means is not deterministic: checkouts compared in one call
+    # share the first one's indexes through the cache
+    if cache and Path(cache).exists():
+        indexes = torch.load(cache, map_location=dev, weights_only=False)
+    else:
+        indexes = {}
+        for ext_dtype in ("auto", "int8"):
+            ci = pt.build_cluster_index(X, m=64, Rc=16, slack=1.5, ext_dtype=ext_dtype,
+                                        device=dev)
+            indexes[ci.ext_dtype] = ci
+        if cache:
+            torch.save(indexes, cache)
+    settings = [(p, 0, 0.0) for p in chip.PROBES] + [chip.ADAPTIVE]
+    out, gt = {}, None
+    for lay, ci in indexes.items():
+        out[f"{lay}_ext"] = hashlib.sha256(ci.ext.cpu().numpy().tobytes()).hexdigest()[:16]
+        for B in chip.CLUSTER_B:
+            args, base = chip.cluster_args(ci, Q[:B], dev)
+            for n_probe, min_probe, cut in ((8, 0, 0.0), (16, 0, 0.0), chip.ADAPTIVE):
+                kw = dict(base, n_probe=n_probe, min_probe=min_probe, cut=cut)
+                key = f"{lay}_B{B}_p{n_probe}" + ("_adaptive" if cut else "")
+                got = clusterbeam.cluster_walk(*args, **kw)
+                want = clusterbeam.cluster_walk_plain(*args, **kw)
+                try:
+                    chip.check_walk(got, want, key)
+                    out[f"{key}_equal"] = True
+                except AssertionError as err:
+                    out[f"{key}_equal"] = str(err)[:200]
+                out[f"{key}_ms"] = chip.time_ms(
+                    lambda: clusterbeam.cluster_walk(*args, **kw), reps)
+        if gt is None:
+            gt = exact.compute_groundtruth(ci.points, Q, 2 * chip.K)
+        for n_probe, min_probe, cut in settings:
+            ids, _, (nv, cm), dt = ci.search_timed(
+                Q, k=chip.K, n_probe=n_probe, min_probe=min_probe, cut=cut, rounds=3)
+            out[f"{lay}_search_p{n_probe}" + ("_adaptive" if cut else "")] = dict(
+                recall=compute_recall(ids.cpu().numpy(), *gt, chip.K), qps=len(Q) / dt,
+                nv=float(nv.float().mean()), cmps=float(cm.float().mean()))
+        if lay == "f32":
+            out["f32_profile"] = chip.cluster_profile(ci, Q, dev)
+    return out
+
+
 def build_run(chip, n, reps, dev):
     """Time the q8 build of n points ``reps`` times, then profile it once."""
     import torch
@@ -171,17 +243,20 @@ def build_run(chip, n, reps, dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("flat_topk", "occlusion", "fusedbeam"),
+    ap.add_argument("--kernel", choices=("flat_topk", "occlusion", "fusedbeam", "cluster"),
                     default="flat_topk")
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose parlayann_tpu_torch is timed")
     ap.add_argument("--reps", type=int, default=None,
-                    help="timed launches (default 20 for flat_topk and fusedbeam, "
-                         "50 for occlusion)")
+                    help="timed launches (default 20 for flat_topk, fusedbeam and "
+                         "cluster, 50 for occlusion)")
     ap.add_argument("--tag", default="", help="a name for the checkout in the output")
     ap.add_argument("--build", type=int, action="append", default=[], choices=sorted(BUILDS),
                     help="also time and profile the q8 build of this many points")
     ap.add_argument("--build-reps", type=int, default=1, help="timed builds of each size")
+    ap.add_argument("--index-cache", default=None,
+                    help="cluster: load the two ClusterIndexes from this file, or build "
+                         "and save them there")
     args = ap.parse_args()
     root = str(Path(args.root).resolve())
     sys.path[:0] = [root]  # the timed package
@@ -208,6 +283,8 @@ def main():
         out.update(time_flat(chip, args.reps or 20, dev))
     elif args.kernel == "fusedbeam":
         out.update(time_fused(chip, args.reps or 20, dev))
+    elif args.kernel == "cluster":
+        out.update(time_cluster(chip, args.reps or 20, dev, args.index_cache))
     else:
         out.update(time_occlusion(chip, args.reps or 50, dev))
     for n in args.build:

@@ -67,7 +67,7 @@ def built():
                 cents=np.array(cents), port_view=port_view, gt=(gt_i, gt_d))
 
 
-def jax_search(ci, Q, *, n_probe, cut, min_probe=2):
+def jax_search(ci, Q, *, n_probe, cut, min_probe=2, S=2):
     qp = ci.qpoints
     ids, dists, (nv, cmps) = jsearch(
         jnp.asarray(Q), ci.centroids_q, ci.ext, ci.points.data,
@@ -75,7 +75,7 @@ def jax_search(ci, Q, *, n_probe, cut, min_probe=2):
         None if qp is None else qp.quant_offset,
         metric=ci.points.metric, C=ci.C, m=ci.m, Rc=ci.Rc,
         n_points=ci.points.n, k=K, n_probe=n_probe, min_probe=min_probe,
-        cut=cut, S=2, pool=2 * K, tier_bits=32 if qp is None else 8,
+        cut=cut, S=S, pool=2 * K, tier_bits=32 if qp is None else 8,
         rerank="tier" if ci.ext_dtype == "f32" else "full", G=4, n_buf=1)
     return [np.asarray(a) for a in (ids, dists, nv, cmps)]
 
@@ -125,6 +125,28 @@ def test_torch_cluster_search_over_jax_index(built, layout, cut):
     assert (tnv.numpy() <= 8).all() and (tnv.numpy() >= 1).all()
     for r in range(len(Q)):
         a = {int(i): float(x) for x, i in zip(td[r], ti[r]) if i >= 0}
+        b = {int(i): float(x) for x, i in zip(jd[r], ji[r]) if i >= 0}
+        assert a.keys() == b.keys(), r
+        np.testing.assert_allclose([a[i] for i in sorted(a)],
+                                   [b[i] for i in sorted(b)], rtol=1e-5)
+
+
+
+@pytest.mark.parametrize("layout", ["int8", "f32"])
+def test_torch_cluster_search_over_jax_index_wide_beam(built, layout):
+    """S = 8 seeds (the exact scan seed, not the argmin one) and n_probe =
+    30, so the cluster beam is 64 lanes wide."""
+    Q = built["Q"][:32]
+    ji, jd, jnv, jcm = jax_search(built["jax"][layout], Q, n_probe=30, cut=0.0,
+                                  min_probe=0, S=8)
+    assert clusterbeam.walk_sizes(30, 8)[1] == 64
+    ti, td, (tnv, tcm) = built["port_view"][layout].search(
+        Q, k=K, n_probe=30, min_probe=0, cut=0.0, starts=8)
+    np.testing.assert_array_equal(tnv.numpy(), jnv)
+    np.testing.assert_array_equal(tcm.numpy(), jcm)
+    assert (jnv > 8).any()
+    for r in range(len(Q)):
+        a = {int(i): float(x) for x, i in zip(td[r].numpy(), ti[r].numpy()) if i >= 0}
         b = {int(i): float(x) for x, i in zip(jd[r], ji[r]) if i >= 0}
         assert a.keys() == b.keys(), r
         np.testing.assert_allclose([a[i] for i in sorted(a)],
@@ -183,17 +205,17 @@ def test_torch_cluster_mips_smoke():
 
 def test_torch_cluster_unported_paths_raise(built, monkeypatch, tmp_path):
     ci = built["port_view"]["int8"]
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(NotImplementedError, match="File I/O"):
         ci.save(str(tmp_path / "ci.npz"))
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(NotImplementedError, match="File I/O"):
         tci.ClusterIndex.load(str(tmp_path / "ci.npz"), built["tps"])
     monkeypatch.setattr(clusterbeam, "ARGMIN_SEED_CUTOFF", 8)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="The rest of ClusterIndex"):
         ci.search(built["Q"][:4], k=K)
     ids, _, _ = ci.search(built["Q"][:4], k=K, seed_mode="stream")
     assert (ids.numpy() >= 0).all()
     monkeypatch.setattr(tci, "EXACT_LIMIT", 1e3)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="The rest of ClusterIndex"):
         tci.ClusterIndex.build(built["tps"], m=M_, Rc=RC)
 
 

@@ -447,6 +447,175 @@ def test_torch_cuda_cluster_walk_equal(cluster_data, cuda, layout, metric,
                                    [b[i] for i in sorted(b)], rtol=1e-5, atol=atol)
 
 
+
+def _cluster_case(gen, dev, layout, *, C, m, Rc, d, B, S=2, n_points=None,
+               int_q=True, ties=False, bad_seeds=False):
+    """A random ext array of C clusters in ``layout`` with its queries and
+    their S nearest centroids as seeds -> (queries, ext, seed_d, seed_i,
+    n_points). Member slots hold empty (-1) and out-of-range ids; adjacent
+    lists hold -1, ids >= C and repeats, and their vectors are the listed
+    centroids' own. ``ties`` draws members and centroids from 3 vectors;
+    with the f32 layout's non-integer queries, a seed's distance (from
+    numpy) and a walked copy of its vector's (from the walk) are near-ties
+    that any other summation order than the kernel's could flip.
+    ``bad_seeds`` gives some queries INF seeds with ids -1 and C + 7, and
+    some a finite seed of id -1."""
+    n_points = n_points or 4 * C
+    int8 = layout == "int8"
+
+    def vecs(shape):
+        if ties:
+            pool = gen.integers(-20, 21, (3, d))
+            return pool[gen.integers(0, 3, shape)]
+        return gen.integers(-100, 101, shape + (d,)) if int8 else gen.standard_normal(shape + (d,))
+
+    cents = vecs((C,)).astype(np.float32)
+    members = vecs((C, m)).astype(np.float32)
+    mid = gen.integers(0, n_points, (C, m))
+    mid[gen.random((C, m)) < 0.25] = -1
+    mid[gen.random((C, m)) < 0.03] = n_points + 3
+    aid = gen.integers(0, C, (C, Rc))
+    aid[gen.random((C, Rc)) < 0.1] = -1
+    aid[gen.random((C, Rc)) < 0.05] = C + 2
+    aid[:, -1] = aid[:, 0]  # a repeat in every list
+    avec = cents[aid.clip(0, C - 1)]
+
+    def plane(ids, width):
+        ids = np.pad(ids, ((0, 0), (0, d - width)))
+        if not int8:
+            return ids[:, None, :].astype(np.float32)
+        u = ids.astype(np.int64) & 0xFFFFFFFF
+        return np.stack([((u >> (8 * k)) & 0xFF).astype(np.uint8).view(np.int8)
+                         for k in range(4)], axis=1)
+
+    dt = np.int8 if int8 else np.float32
+    ext = np.concatenate([members.astype(dt), plane(mid, m), avec.astype(dt),
+                          plane(aid, Rc)], axis=1)
+    if int8:
+        q = gen.integers(-100, 101, (B, d)).astype(np.float32)
+        if not int_q:
+            q += 0.5
+    else:
+        q = gen.standard_normal((B, d)).astype(np.float32)
+    dist = ((cents[None, :, :] - q[:, None, :].astype(np.float64)) ** 2).sum(-1)
+    sid = np.argsort(dist, axis=1, kind="stable")[:, :S].astype(np.int32)
+    sd = np.take_along_axis(dist, sid, 1).astype(np.float32)
+    if bad_seeds and B >= 3 and S >= 2:
+        sd[0::3, -1] = INF32
+        sid[0::3, -1] = -1
+        sd[1::3, -1] = INF32
+        sid[1::3, -1] = C + 7
+        sid[2::3, 0] = -1
+    return (t(q, dev), t(ext, dev), t(sd, dev), t(sid, dev), n_points)
+
+
+def _check_cluster(got, want, what=""):
+    """Kernel 5 against its plain version: every output equal, on both
+    layouts (the plain version sums f32 distances in the kernel's order)."""
+    for a, b, name in zip(got, want, ("pool dists", "pool ids", "expansions")):
+        assert torch.equal(a, b), f"{what} {name}"
+
+
+def _cluster_walks(args, n_points, metric, **kw):
+    q, ext, sd, sid = args
+    C = ext.shape[0]
+    m, Rc = kw.pop("m"), kw.pop("Rc")
+    kw = dict(metric=metric, C=C, m=m, Rc=Rc, n_points=n_points, **kw)
+    before = cluster_walk.launches
+    got = cluster_walk(q, ext, sd, sid, **kw)
+    assert cluster_walk.launches == before + (q.is_cuda and q.shape[0] > 0)
+    return got, cluster_walk_plain(q, ext, sd, sid, **kw)
+
+
+@pytest.mark.parametrize("m,Rc,d", [(8, 8, 20), (64, 16, 128), (128, 32, 128),
+                                    (8, 32, 40), (64, 8, 100), (40, 16, 40)])
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.MIPS])
+@pytest.mark.parametrize("layout", ["int8", "f32"])
+def test_torch_cuda_cluster_walk_shapes(gen, cuda, layout, metric, m, Rc, d):
+    """m and Rc at and below the register walk's 128 and 32; d = 20, 40 and
+    100 load 4, 8 and 4 bytes (int8) or 16, 16 and 16 (f32) at a time."""
+    *args, n = _cluster_case(gen, cuda, layout, C=120, m=m, Rc=Rc, d=d, B=200)
+    got, want = _cluster_walks(args, n, metric, m=m, Rc=Rc, n_probe=12)
+    _check_cluster(got, want)
+    assert bool((got[2] == 12).any())
+
+
+@pytest.mark.parametrize("B", [0, 1, 33, 6000])
+@pytest.mark.parametrize("layout", ["int8", "f32"])
+def test_torch_cuda_cluster_walk_batch_sizes(gen, cuda, layout, B):
+    """6000 queries are more than the persistent grid's warps."""
+    *args, n = _cluster_case(gen, cuda, layout, C=300, m=64, Rc=16, d=64, B=B)
+    got, want = _cluster_walks(args, n, Metric.L2, m=64, Rc=16, n_probe=8)
+    assert got[0].shape == (B, 4 * 64) and got[2].shape == (B,)
+    _check_cluster(got, want)
+
+
+@pytest.mark.parametrize("n_probe,S,m,Rc,d", [
+    (40, 2, 8, 8, 20),      # Wc = 64
+    (8, 40, 8, 8, 20),      # S = 40 seeds: Wc = 64
+    (200, 2, 8, 8, 20),     # Wc = 256
+    (900, 2, 8, 8, 20),     # Wc = 1024
+    (12, 2, 160, 16, 160),  # m past 128
+    (12, 2, 16, 40, 48),    # Rc past 32
+])
+@pytest.mark.parametrize("layout", ["int8", "f32"])
+def test_torch_cuda_cluster_walk_smem(gen, cuda, layout, n_probe, S, m, Rc, d):
+    """Beams past 32 lanes, more than 32 adjacent centroids or more than
+    128 members run the shared-memory walk."""
+    C = 1200 if n_probe > 100 else 200
+    *args, n = _cluster_case(gen, cuda, layout, C=C, m=m, Rc=Rc, d=d, B=48, S=S)
+    for metric in (Metric.L2, Metric.MIPS):
+        got, want = _cluster_walks(args, n, metric, m=m, Rc=Rc, n_probe=n_probe)
+        _check_cluster(got, want)
+    if n_probe > 32:  # the walks outgrow a register beam
+        assert int(got[2].max()) > 32
+
+
+def test_torch_cuda_cluster_walk_rejects_wide_beam(cuda):
+    q = torch.zeros((2, 16), device=cuda)
+    ext = torch.zeros((4, 8 + 8 + 2, 16), device=cuda)
+    sd = torch.zeros((2, 1), device=cuda)
+    sid = torch.zeros((2, 1), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        cluster_walk(q, ext, sd, sid, metric=Metric.L2, C=4, m=8, Rc=8,
+                     n_points=10, n_probe=1021)
+
+
+@pytest.mark.parametrize("case", ["float_query", "ties", "bad_seeds"])
+@pytest.mark.parametrize("layout", ["int8", "f32"])
+def test_torch_cuda_cluster_walk_inputs(gen, cuda, layout, case):
+    """A non-integer query on the int8 layout (the f32 arm); members and
+    centroids drawn from three vectors (ties, broken by pack and by the
+    pool's strict <); INF seeds with ids -1 and >= C, and finite seeds of
+    id -1, which end a walk when they come first."""
+    *args, n = _cluster_case(gen, cuda, layout, C=150, m=32, Rc=16, d=48, B=120, S=3,
+                          int_q=case != "float_query", ties=case == "ties",
+                          bad_seeds=case == "bad_seeds")
+    for metric in (Metric.L2, Metric.MIPS):
+        got, want = _cluster_walks(args, n, metric, m=32, Rc=16, n_probe=10)
+        _check_cluster(got, want, f"{case} {metric}")
+    if case == "bad_seeds":
+        assert bool((got[2][2::3] == 0).all()) and bool((got[2][0::3] > 0).all())
+
+
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.MIPS])
+@pytest.mark.parametrize("layout", ["int8", "f32"])
+def test_torch_cuda_cluster_walk_cut(gen, cuda, layout, metric):
+    """cut with min_probe: L2 stops early past min_probe; MIPS ignores the
+    cut and walks n_probe."""
+    *args, n = _cluster_case(gen, cuda, layout, C=200, m=32, Rc=16, d=48, B=150)
+    for min_probe, cut in ((0, 1.2), (3, 1.05), (2, 1.35)):
+        got, want = _cluster_walks(args, n, metric, m=32, Rc=16, n_probe=14,
+                          min_probe=min_probe, cut=cut)
+        _check_cluster(got, want)
+        nv = got[2]
+        assert bool((nv >= 1).all())
+        if metric is Metric.L2:
+            assert bool((nv < 14).any())
+        else:
+            assert bool((nv == 14).any())
+
+
 def _bit_case(gen, dev, n_pad, R8, W, B):
     """Random int32 words over the full range (bit 31 set in about half)."""
     info = np.iinfo(np.int32)

@@ -89,6 +89,51 @@ def test_torch_int8_distances_accumulate_in_f32(rng):
     assert np.abs(dot).max() > 127
 
 
+def _lane_order_replay(q, v, mips, chunk):
+    """One distance summed term by term in float32 numpy scalars, in the
+    order stated at the top of csrc/warp.cuh."""
+    f = np.float32
+    d = len(q)
+    nch = -(-d // chunk)
+    part = []
+    for s in range(8):
+        acc = f(0)
+        for k in range(s, nch, 8):
+            for i in range(k * chunk, min(d, (k + 1) * chunk)):
+                t = f(v[i]) if mips else f(f(v[i]) - f(q[i]))
+                acc = f(acc + f(t * (f(q[i]) if mips else t)))
+        part.append(acc)
+    p = part
+    total = f(f(f(p[0] + p[4]) + f(p[2] + p[6])) + f(f(p[1] + p[5]) + f(p[3] + p[7])))
+    return -total if mips else total
+
+
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.MIPS])
+@pytest.mark.parametrize("d,dtype", [(128, "f32"), (20, "f32"), (100, "int8"),
+                                     (40, "int8"), (3, "f32")])
+def test_torch_gathered_lane_order_replays_kernel_sum(rng, metric, d, dtype):
+    """The cluster walk's plain distances equal a term-by-term float32
+    replay of the warp kernels' order bit for bit, and the straightforward
+    sum to rtol 1e-5 (1e-5 of the largest magnitude under MIPS)."""
+    B, K = 3, 5
+    q = rng.standard_normal((B, d)).astype(np.float32) * 7
+    if dtype == "int8":
+        v = rng.integers(-128, 128, (B, K, d)).astype(np.int8)
+        chunk = 16
+    else:
+        v = rng.standard_normal((B, K, d)).astype(np.float32)
+        chunk = 4
+    tq, tv = torch.from_numpy(q), torch.from_numpy(v)
+    got = distance.gathered_lane_order(tq, tv, metric, chunk).numpy()
+    mips = metric is Metric.MIPS
+    want = np.array([[_lane_order_replay(q[b], v[b, k], mips, chunk) for k in range(K)]
+                     for b in range(B)], dtype=np.float32)
+    np.testing.assert_array_equal(got, want)
+    plain = distance.gathered(tq, tv, metric).numpy()
+    atol = 1e-5 * np.abs(plain).max() if mips else 0.0
+    np.testing.assert_allclose(got, plain, rtol=1e-5, atol=atol)
+
+
 def test_torch_lexsort_matches_lax_sort_num_keys_2(rng):
     """lax.sort(num_keys=2) is lexicographic and stable; so is lexsort."""
     k1 = rng.integers(0, 5, (8, 64)).astype(np.int32)
