@@ -11,7 +11,10 @@ Phases:
      path's shapes, with both times (CUDA events, after a warm-up); kernel
      2 at the build's four prune shapes, (C, R) = (96, 32), (64, 32),
      (40, 32) and (192, 64) over B=2048 rows of d=128, under L2 and MIPS,
-     each on rows of its own metric's distances.
+     each on rows of its own metric's distances; then the f32 modes of
+     kernels 1 (B=10,000 over a (100000, 32, 128) f32 inline array) and 2
+     (the same four prune shapes on f32 vectors, L2 and MIPS), each equal
+     to its plain version, which sums in the kernel's order.
   3. the slice through the user entry points: a q8 Vamana build of the
      synthetic clustered 100K x 128 set (R=32, L=64, alpha=1.2, two passes,
      batch_cap_frac=0.16), then q8 ``Index.batch_search`` of 10K queries at
@@ -33,6 +36,16 @@ Phases:
      on each built index at B = 1024 and 10,000 queries (n_probe 16 and the
      adaptive row) and timed at both.
   5. the FlatIndex slice on the same set: f32 and q8 tiers through kernel 4.
+  7. the f32 tier at 100K, on the same set and ground truth: a Vamana build
+     on the f32 points (phase 3's parameters, ``quantize_build=False``;
+     kernel 1 on f32 rows in its steady batches, kernel 2 on f32 vectors),
+     the f32 ``Index.batch_search`` (no quantized tier: the lock-step
+     search over f32 inline rows, no rerank) at beams 10/16/32/64, and
+     phase 3's q8 index searched at beam 64 with ``expand=2`` and with
+     ``degree_limit=16`` (the lock-step search over int8 inline rows, then
+     the rerank). One more f32 search at beam 64 runs under torch.profiler.
+     Kernel 1's f32 and int8 modes and kernel 2's f32 mode must have
+     launched. Phase 7 runs before phase 6.
   6. the capacity tiers at the size of scripts/bench_1m_tiers.py: synthetic
      clustered 1M x 128 (10K clusters, 10K queries), a q8 Vamana build (R=32,
      L=64, alpha=1.2, two passes, batch_cap_frac=0.04), exact ground truth
@@ -43,8 +56,8 @@ Phases:
      torch.profiler, which prints the device's busy time, idle share and
      top kernels. Kernel 6 is then checked against its plain version on the
      tiers' inline words (W = 4 and W = 16).
-  Launch counts are zeroed just before phases 3, 4, 5 and 6 and read just
-  after each; every kernel of the phase's path must have launched.
+  Launch counts are zeroed just before phases 3, 4, 5, 7 and 6 and read
+  just after each; every kernel of the phase's path must have launched.
 
 Kernel times are device times from CUDA events over back-to-back launches
 (the stream sleeps while the host queues them). Each kernel's entry in the
@@ -62,7 +75,8 @@ the tensor cores in 3xTF32, so its operations are 3 TF32 passes (2 for
 int8 points) of 2 B N d over 495 T/s, the H100 SXM dense TF32 rate;
 kernel 2's are its stars' 2 C d int8 products and kernel 3's its 2 d int8
 products and sums a distance (integer-valued queries on the int8 tier),
-both over 1,979 T/s, the dense int8 rate; kernel 2's bytes are each row's
+both over 1,979 T/s, the dense int8 rate (kernel 2's f32 mode: its stars'
+2 C d f32 operations over 67 T/s); kernel 2's bytes are each row's
 distances and rounds (8 B C) and its live candidates' vectors.
 ``library_ms`` is one PyTorch call
 computing the same function where there is one (only for kernel 4: the cuBLAS product of the
@@ -246,59 +260,99 @@ def kernel_expand(gen, dev):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def _prune_rows(gen, dev, B, C, d, mips=False):
+def _prune_rows(gen, dev, B, C, d, mips=False, f32=False):
     """Candidate rows as robustPrune sees them: the metric's distances to a
     point p (squared L2, or -p.c under MIPS), ascending, with a tail of INF
-    (invalid) slots."""
+    (invalid) slots; int8 vectors (the q8 build), or normal f32 vectors
+    with their f32 distances (the f32 build)."""
     from parlayann_tpu_torch.ops.distance import INF
 
-    p = torch.randint(-128, 128, (B, 1, d), generator=gen)
-    vecs = torch.randint(-128, 128, (B, C, d), generator=gen)
+    if f32:
+        p = torch.randn((B, 1, d), generator=gen)
+        vecs = torch.randn((B, C, d), generator=gen)
+    else:
+        p = torch.randint(-128, 128, (B, 1, d), generator=gen)
+        vecs = torch.randint(-128, 128, (B, C, d), generator=gen)
     dist = (-(vecs * p).sum(-1) if mips else ((vecs - p) ** 2).sum(-1)).float()
     n_bad = torch.randint(0, C // 4, (B, 1), generator=gen)
     dist = torch.where(torch.arange(C)[None, :] >= C - n_bad, INF, dist)
     dist, order = torch.sort(dist, dim=1, stable=True)
     vecs = torch.gather(vecs, 1, order[:, :, None].expand(B, C, d))
-    return dist.to(dev), vecs.to(torch.int8).to(dev)
+    return dist.to(dev), vecs.to(torch.float32 if f32 else torch.int8).to(dev)
 
 
 OCCLUDE_SHAPES = ((96, 32), (64, 32), (40, 32), (192, 64))  # (C, R) of the build's prunes
 
 
-def kernel_occlude(gen, dev):
+def kernel_occlude(gen, dev, f32=False):
+    """Kernel 2 at the build's four prune shapes under L2 and MIPS, on int8
+    or (``f32``) f32 vectors: rounds equal to the plain version (on f32
+    vectors it forms the pair distances in the kernel's order) -> the
+    kernels entry at (96, 32), L2, with every shape's times."""
     from parlayann_tpu_torch.types import Metric
     from parlayann_tpu_torch.ops.distance import INF
     from parlayann_tpu_torch.ops.kernels.occlude import (
         occlusion_rounds, occlusion_rounds_plain)
 
     B, d, alpha = 2048, 128, 1.2
+    mode, size = (" f32", 4) if f32 else ("", 1)
     times = {}
     for C, R in OCCLUDE_SHAPES:
         for metric in (Metric.L2, Metric.MIPS):
-            dist, vecs = _prune_rows(gen, dev, B, C, d, mips=metric is Metric.MIPS)
-            what = f"kernel 2 occlusion_rounds B={B} C={C} R={R} d={d} {metric.name}"
+            dist, vecs = _prune_rows(gen, dev, B, C, d, mips=metric is Metric.MIPS, f32=f32)
+            what = f"kernel 2 occlusion_rounds{mode} B={B} C={C} R={R} d={d} {metric.name}"
             out = occlusion_rounds(dist, vecs, alpha, R=R, metric=metric)
             ref = occlusion_rounds_plain(dist, vecs, alpha, R=R, metric=metric)
             check(torch.equal(out, ref), f"{what}: rounds differ")
             ms = time_ms(lambda: occlusion_rounds(dist, vecs, alpha, R=R, metric=metric), 20)
             plain_ms = time_ms(lambda: occlusion_rounds_plain(
-                dist, vecs, alpha, R=R, metric=metric), 3)
+                dist, vecs, alpha, R=R, metric=metric), 2 if f32 else 3)
             # the rows are ascending, so a row's live candidates are its first
             # n_live: its distances and rounds move once, and the vectors of
             # its live candidates; each star's distances to the row's C
-            # candidates are 2 C d int8 operations
+            # candidates are 2 C d operations (int8 tensor cores or f32)
             is_star = (out < R).int()
             stars, n_live = int(is_star.sum()), int((dist < INF).sum())
             strips = float(torch.nn.functional.pad(is_star, (0, -C % 16))
                            .view(B, -1, 16).amax(2).sum(1).float().mean())
             # a star in a later strip runs that strip's epilogue
             check(strips > 1.0, f"{what}: the stars stay in one strip a row")
-            b = bound(B * C * 8 + n_live * d, 2 * stars * C * d, INT8_OPS)
+            b = bound(B * C * 8 + n_live * d * size, 2 * stars * C * d,
+                      F32_OPS if f32 else INT8_OPS)
             times[(C, R, metric)] = dict(ms=ms, plain_ms=plain_ms, **b)
             log(f"{what}: rounds equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms; bound "
                 f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {stars} stars, "
                 f"{stars / B:.2f} and {strips:.2f} strips a row; {n_live} live candidates)")
-    return dict(max_abs_err=0.0, library_ms=None, **times[(96, 32, Metric.L2)])
+    return dict(max_abs_err=0.0, library_ms=None, **times[(96, 32, Metric.L2)],
+                shapes={f"C{C}_R{R}_{m.name}": dict(ms=v["ms"], bound_ms=v["bound_ms"])
+                        for (C, R, m), v in times.items()})
+
+
+def kernel_expand_f32(dev):
+    """Kernel 1 on f32 rows at the f32 search's shape: B=10,000 queries over
+    a (100000, 32, 128) f32 inline array (1.64 GB, made on the card), equal
+    to its plain version (the same summation order) under L2 and MIPS."""
+    from parlayann_tpu_torch.types import Metric
+    from parlayann_tpu_torch.ops.kernels.expand import (
+        expand_distances, expand_distances_plain)
+
+    n_pad, R8, d, B = 100_000, 32, 128, 10_000
+    cg = torch.Generator(device=dev).manual_seed(SEED)
+    inline = torch.randn((n_pad, R8, d), generator=cg, device=dev)
+    ids = torch.randint(0, n_pad, (B,), generator=cg, device=dev, dtype=torch.int32)
+    q = torch.randn((B, d), generator=cg, device=dev)
+    for metric in (Metric.L2, Metric.MIPS):
+        out = expand_distances(inline, ids, q, metric=metric)
+        ref = expand_distances_plain(inline, ids, q, metric=metric)
+        check(torch.equal(out, ref), f"expand_distances f32 rows {metric} not bit-equal")
+    ms = time_ms(lambda: expand_distances(inline, ids, q, metric=Metric.L2), 20)
+    plain_ms = time_ms(lambda: expand_distances_plain(inline, ids, q, metric=Metric.L2), 5)
+    b = bound(unique_rows(ids, n_pad) * R8 * d * 4 + B * d * 4 + B * 4 + B * R8 * 4,
+              3 * B * R8 * d)
+    log(f"kernel 1 expand_distances f32 rows B={B} inline={tuple(inline.shape)}: "
+        f"bit-equal (L2, MIPS); {ms:.4f} ms vs plain {plain_ms:.4f} ms; bound "
+        f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
 def bitonic_check(gen, dev):
@@ -766,6 +820,75 @@ def flat_run(X, Q, gt, dev):
     return launches
 
 
+def f32_run(X, Q, gt, q8_idx, dev):
+    """Phase 7: the f32 tier at 100K and the q8 tier's lock-step search ->
+    {kernel entry: launches in this phase}."""
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.ops.kernels.expand import expand_distances
+    from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
+    from parlayann_tpu_torch.harness.recall import compute_recall
+
+    gt_ids, gt_d = gt
+    for w in (expand_distances, occlusion_rounds):
+        w.launches = w.launches_f32 = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph, points, stats = pt.build_vamana_index(
+        X, R=32, L=64, alpha=1.2, batch_cap_frac=0.16, quantize_build=False, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    avg_deg, max_deg = graph.stats()
+    check(points.data.dtype == torch.float32, "the f32 build did not keep f32 points")
+    log(f"f32 build: {build_s:.3f} s (R=32 L=64 alpha=1.2, 2 passes, batch_cap_frac=0.16, "
+        f"quantize_build=False); degree avg {avg_deg:.3f} max {max_deg}; "
+        f"visited {stats.total_visited} cmps {stats.total_cmps}")
+    idx = pt.Index(points=points, graph=graph)
+    recall = {}
+    for beam in BEAMS:
+        ids, dists, res, dt = idx.batch_search_timed(Q, k=K, beam_size=beam, rounds=3)
+        r = compute_recall(ids.cpu().numpy(), gt_ids, gt_d, K)
+        recall[("f32", beam)] = r
+        check(ids.shape == (len(Q), K) and bool((ids >= 0).all()),
+              f"f32 beam {beam}: malformed ids")
+        check(_no_duplicates(ids), f"f32 beam {beam}: duplicate ids")
+        check(bool(torch.isfinite(dists).all()), f"f32 beam {beam}: distances not finite")
+        log(f"f32 search beam={beam}: recall@{K} {r:.4f}  QPS {len(Q) / dt:.1f}  "
+            f"({dt * 1e3:.3f} ms / {len(Q)} queries; visited "
+            f"{float(res.num_visited.float().mean()):.2f} cmps "
+            f"{float(res.dist_cmps.float().mean()):.1f})")
+    check(idx.inline is not None and idx.inline.dtype == torch.float32,
+          "the f32 search did not use f32 inline rows")
+    log(f"f32 inline rows {tuple(idx.inline.shape)} {idx.inline.numel() * 4 / 1e9:.3f} GB")
+    for name, kw in (("expand=2", dict(expand=2)), ("degree_limit=16", dict(degree_limit=16))):
+        ids, _, res, dt = q8_idx.batch_search_timed(Q, k=K, beam_size=64, rounds=3, **kw)
+        r = compute_recall(ids.cpu().numpy(), gt_ids, gt_d, K)
+        recall[(name, 64)] = r
+        check(ids.shape == (len(Q), K) and bool((ids >= 0).all()), f"q8 {name}: malformed ids")
+        check(_no_duplicates(ids), f"q8 {name}: duplicate ids")
+        log(f"q8 lock-step search beam=64 {name}: recall@{K} {r:.4f}  QPS {len(Q) / dt:.1f}  "
+            f"({dt * 1e3:.3f} ms; visited {float(res.num_visited.float().mean()):.2f} "
+            f"cmps {float(res.dist_cmps.float().mean()):.1f})")
+    check(q8_idx.inline is not None and q8_idx.inline.dtype == torch.int8,
+          "the q8 lock-step search did not use int8 inline rows")
+    torch.cuda.synchronize()
+    launches = {
+        "expand_distances (f32 rows)": expand_distances.launches_f32,
+        "expand_distances (int8 rows)": expand_distances.launches - expand_distances.launches_f32,
+        "occlusion_rounds (f32 rows)": occlusion_rounds.launches_f32,
+    }
+    log("launches during the f32 tier slice:", launches)
+    for name, n in launches.items():
+        check(n > 0, f"{name} was not launched by the f32 tier slice")
+    qd = torch.as_tensor(Q).to(dev)
+    prof = profile_window(lambda: idx.batch_search(qd, k=K, beam_size=64),
+                          f"f32 search of {len(Q)} queries at beam 64")
+    check(prof is not None, "the f32 search's profile saw no device activity")
+    for (name, beam), r in recall.items():
+        if beam == 64:
+            check(r >= RECALL_BAR, f"{name} recall@{K} at beam 64 is {r:.4f} < {RECALL_BAR}")
+    return launches
+
+
 def tier_run(dev):
     """Phase 6: the capacity tiers at bench_1m_tiers' size -> (launches,
     the tiers' inline words and query words for kernel 6's check)."""
@@ -907,6 +1030,8 @@ def main():
     log("== phase 2: kernels against their plain versions")
     k1 = kernel_expand(gen, dev)
     k2 = kernel_occlude(gen, dev)
+    k1f = kernel_expand_f32(dev)
+    k2f = kernel_occlude(gen, dev, f32=True)
     kb = bitonic_check(gen, dev)
     k4 = kernel_flat(X, Q, gen, dev)
     log("== phase 3: the slice (q8 Vamana build + q8 fused search)")
@@ -921,7 +1046,10 @@ def main():
     k5 = kernel_cluster(indexes, Q, dev)
     log("== phase 5: the FlatIndex slice")
     launches["flat_topk"] = flat_run(X, Q, gt, dev)
-    del indexes, idx
+    del indexes
+    log("== phase 7: the f32 tier at 100K (f32 build, f32 and q8 lock-step search)")
+    launches.update(f32_run(X, Q, gt, idx, dev))
+    del idx
     log("== phase 6: the capacity tiers at 1M (q8 build, 1-bit and JL search)")
     tier_launches, kept = tier_run(dev)
     launches["expand_bits_flat"] = tier_launches["expand_bits_flat"]
@@ -937,6 +1065,15 @@ def main():
              source="parlayann_tpu_torch/csrc/occlude.cu",
              replaces="parlayann_tpu/ops/pallas/occlude.py:91",
              launches=launches["occlusion_rounds"], **k2),
+        # the f32 modes, launched by phase 7
+        dict(name="expand_distances (f32 rows)", route="cuda",
+             source="parlayann_tpu_torch/csrc/expand.cu",
+             replaces="parlayann_tpu/ops/pallas/expand.py:129",
+             launches=launches["expand_distances (f32 rows)"], **k1f),
+        dict(name="occlusion_rounds (f32 rows)", route="cuda",
+             source="parlayann_tpu_torch/csrc/occlude.cu",
+             replaces="parlayann_tpu/ops/pallas/occlude.py:91",
+             launches=launches["occlusion_rounds (f32 rows)"], **k2f),
         dict(name="beam_search_fused", route="cuda",
              source="parlayann_tpu_torch/csrc/fusedbeam.cu",
              replaces="parlayann_tpu/ops/pallas/fusedbeam.py:627",

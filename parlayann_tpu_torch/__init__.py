@@ -6,10 +6,13 @@ is PyTorch; every Pallas kernel on the ported path is a hand-written CUDA
 kernel for Hopper (``csrc/``), built with nvcc at first use and bound through
 ctypes. Nothing here imports jax.
 
-Ported so far: the q8 Vamana build (:func:`build_vamana_index`); the
-search of :class:`Index` on the q8 tier (the fused beam), on the packed
+Ported so far: the Vamana build on the q8 tier or on the f32 points
+(:func:`build_vamana_index`, ``quantize_build=False``); the search of
+:class:`Index` on the f32 points, on the q8 tier (the fused beam, or the
+lock-step search at ``expand > 1`` or ``degree_limit < R``), on the packed
 1-bit tier (``enable_bit_tier``) and on the JL tiers (``enable_jl``, 1-bit
-and 8-bit, dense and sparse), each with a full-precision rerank; the
+and 8-bit, dense and sparse), the quantized ones with a full-precision
+rerank; the
 ClusterIndex build and search (:func:`build_cluster_index`,
 :class:`ClusterIndex`); the flat brute-force search (:class:`FlatIndex`).
 Entry points that place data take ``device``; ``None`` means the CUDA

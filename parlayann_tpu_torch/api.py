@@ -52,10 +52,13 @@ def _valid_pos(name, value, lo=1):
 
 
 def build_vamana_index(data, metric="Euclidian", R: int = 64, L: int = 128,
-                       alpha: float = 1.2, two_pass: bool = True, **kwargs):
+                       alpha: float = 1.2, two_pass: bool = True,
+                       quantize_build: bool = True, **kwargs):
     """Validated Vamana build (python/wrapper.py:4-24) -> (graph, points,
-    stats). Keyword arguments go to :func:`build.vamana.build_vamana_index`
-    (``device``, ``batch_cap_frac``, ``seed``, ...)."""
+    stats): on the q8 tier, or on the float32 points with
+    ``quantize_build=False``. Other keyword arguments go to
+    :func:`build.vamana.build_vamana_index` (``device``,
+    ``batch_cap_frac``, ``seed``, ...)."""
     from parlayann_tpu_torch.build import vamana
 
     data = _valid_data(data)
@@ -66,7 +69,7 @@ def build_vamana_index(data, metric="Euclidian", R: int = 64, L: int = 128,
         raise ValueError(f"alpha must be in [0.8, 4], got {alpha}")
     return vamana.build_vamana_index(
         data, metric=valid_metric(metric), R=R, L=L, alpha=alpha,
-        two_pass=two_pass, **kwargs)
+        two_pass=two_pass, quantize_build=quantize_build, **kwargs)
 
 
 def build_cluster_index(data, metric="Euclidian", m: int = 64, Rc: int = 16,

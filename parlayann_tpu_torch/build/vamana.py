@@ -14,7 +14,11 @@ The host slices the shuffled insert order into the prefix-doubling schedule
 last run with alpha = 1, the last with ``alpha`` (index.h:171-176). Rows are
 sorted by distance once at the end (index.h:180-185). Steady batches (at
 least max(max_batch, 4096) wide) read candidate vectors through kernel 1
-from an inline neighbour-vector array rebuilt for the batch.
+from an inline neighbour-vector array rebuilt for the batch, unless that
+array would pass INLINE_BUDGET bytes (JAX vamana.py:524-534): then they
+gather rows. Builds run on int8 points (the q8 tier, the default) or on
+the float32 points themselves (``quantize_build=False``); distances are
+float32 either way.
 
 Not ported yet: ``cand_mode="exact"``, the fused read phase
 (``build_beam_fused``), ``single_batch`` and ``profile``.
@@ -44,6 +48,9 @@ from parlayann_tpu_torch.build.reverse import (
 # read-phase vertices expanded per beam step: the JAX package's shipped
 # default (vamana.py:590) — it shapes the graph, so parity needs it
 READ_EXPAND = 2
+# the largest inline array the read phase builds (JAX vamana.py:530): the
+# f32 array at 100K x 128, R=32 is 1.64 GB, at 1M 16.4 GB, which gathers
+INLINE_BUDGET = 6 << 30
 
 
 class BuildStats(NamedTuple):
@@ -164,6 +171,9 @@ def build_vamana_graph(points: PointSet, bp: BuildParams,
     rng = np.random.default_rng(bp.seed)
     start = torch.zeros((1,), dtype=torch.int32, device=dev)  # index.h:143
     sched, max_batch = batch_schedule(n, n, bp.batch_cap_frac)
+    R8 = (R + 7) // 8 * 8
+    inline_ok = (points.n_pad * R8 * points.d * points.data.element_size()
+                 <= INLINE_BUDGET)
 
     t0 = time.perf_counter()
     tot_vis = torch.zeros((), dtype=torch.int64, device=dev)
@@ -174,7 +184,7 @@ def build_vamana_graph(points: PointSet, bp: BuildParams,
         for bi, (lo, hi) in enumerate(sched):
             batch = torch.from_numpy(_pad_pow2(order[lo:hi], max_batch)).to(dev)
             inline = (build_inline(points.data, nbrs)
-                      if (hi - lo) >= max(max_batch, 4096) else None)
+                      if inline_ok and (hi - lo) >= max(max_batch, 4096) else None)
             cand_ids, cand_d, v, c = _read_phase(
                 nbrs, degs, points.data, batch, start, inline,
                 R=R, L=L, vmax=vmax, metric=points.metric, n_valid=n)
@@ -217,10 +227,11 @@ def build_vamana_index(
 ):
     """diskannpy-style wrapper (python/builder.cpp:40-90): MIPS data is
     normalized with a dimension-dependent alpha, and float or uint8 inputs
-    build on the q8 tier; search reranks at full precision. Returns
-    (graph, full-precision PointSet, BuildStats). ``data`` is an array,
-    placed on ``device`` (None: the card), or a PointSet (which keeps its
-    own device)."""
+    build on the q8 tier unless ``quantize_build=False``, which builds on
+    the float32 points; search reranks at full precision. Returns (graph,
+    full-precision PointSet, BuildStats). ``data`` is an array, placed on
+    ``device`` (None: the card), or a PointSet (which keeps its own
+    device)."""
     metric = Metric.coerce(metric)
     ps = data if isinstance(data, PointSet) else PointSet.from_numpy(
         np.asarray(data), metric=metric, normalize=(metric is Metric.MIPS),
@@ -230,10 +241,11 @@ def build_vamana_index(
     build_ps = ps
     if quantize_build and ps.data.dtype in (torch.float32, torch.uint8):
         build_ps = quantize.quantize_pointset(ps, bits=8)
-    if build_ps.data.dtype != torch.int8:
-        raise NotImplementedError(
-            "only builds on the int8 tier are ported (the f32 tier is "
-            'ROADMAP queue 1, "The f32 tier")')
+    if build_ps.data.dtype not in (torch.int8, torch.float32):
+        # the kernels read int8 or float32 rows; uint8 builds through its
+        # exact affine remap into the q8 tier
+        raise ValueError(f"builds run on int8 or float32 points, not "
+                         f"{build_ps.data.dtype}; pass quantize_build=True")
     bp = BuildParams(R=R, L=L, alpha=alpha, num_passes=2 if two_pass else 1,
                      seed=seed, batch_cap_frac=batch_cap_frac)
     graph, stats = build_vamana_graph(build_ps, bp, verbose=verbose)

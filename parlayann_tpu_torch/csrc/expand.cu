@@ -2,27 +2,37 @@
 //
 // Replaces parlayann_tpu/ops/pallas/expand.py:129 expand_distances (kernel
 // body _expand_kernel, expand.py:59). For each of B queries it reads the
-// R8 x d int8 inline row of the vertex ids[b] (the neighbour vectors stored
+// R8 x d inline row of the vertex ids[b] (the neighbour vectors stored
 // contiguously, build_inline's layout) and writes the R8 distances to the
-// f32 query: squared L2 or negated dot.
+// f32 query: squared L2 or negated dot. The JAX kernel casts rows of any
+// dtype; here int8 rows (the q8 tier) and f32 rows (the full-precision
+// tier) each have a kernel.
 //
-// What bounds it on the H100: bytes. Each query reads one 4 KB row
-// (R8 = 32, d = 128) from a random place in device memory and does two
-// flops per byte, far below the card's ~300 flops-per-byte balance point,
-// so the kernel is a gather at memory bandwidth. The TPU version needed a
-// grouped DMA ring because each row was one DMA descriptor; here a warp
-// reads its row with 16-byte loads, 512 bytes per warp-wide load, which
-// keeps every transaction full and lets many rows be in flight at once.
+// What bounds it on the H100: bytes. Each query reads one 4 KB int8 row
+// or 16 KB f32 row (R8 = 32, d = 128) from a random place in device memory
+// and does two or three flops per value, far below the card's ~300
+// flops-per-byte balance point, so the kernel is a gather at memory
+// bandwidth. The TPU version needed a grouped DMA ring because each row
+// was one DMA descriptor; here a warp reads its row with 16-byte loads,
+// 512 bytes per warp-wide load, which keeps every transaction full and
+// lets many rows be in flight at once.
 //
-// Design: one warp per query. When d is a multiple of 16 and d / 16 is a
+// int8 rows: one warp per query. When d is a multiple of 16 and d / 16 is a
 // power of two no larger than 32, lane l always reads the same 16 query
 // values, so it keeps them in registers; the d / 16 lanes that share one
 // neighbour reduce with xor shuffles. Otherwise a generic loop reduces one
 // neighbour at a time across the whole warp. Both sum in f32; on int8
 // vectors and integer-valued queries (the build path) every distance is an
 // exact integer, so the result equals the plain PyTorch version bit for bit.
+//
+// f32 rows: one warp per query, scoring 32 rows at a time with the row
+// scoring of kernels 3 and 5 (pa::score32 of warp.cuh: groups of 8 lanes
+// read 8 rows in 16-byte chunks, any d and alignment, and sum in one fixed
+// f32 order with no fused multiply-add). The plain version replays that
+// order (ops/distance.py:gathered_lane_order, chunk 4), so the two agree
+// bit for bit.
 
-#include "common.cuh"
+#include "warp.cuh"
 
 namespace {
 
@@ -90,6 +100,32 @@ cudaError_t launch(const int8_t* inl, const int* ids, const float* q, float* out
   return cudaGetLastError();
 }
 
+// One warp a query over f32 rows; each warp stages its query (zero-padded
+// to nch 16-byte chunks) in its slice of shared memory.
+template <bool kMips>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+expand_f32_kernel(const float* __restrict__ inl, const int* __restrict__ ids,
+                  const float* __restrict__ queries, float* __restrict__ out, int B,
+                  int n_pad, int R8, int d, int nch, int vec) {
+  extern __shared__ __align__(16) float squery[];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int b = blockIdx.x * kWarpsPerBlock + w;
+  if (b >= B) return;  // whole warp leaves together
+  float* qf = squery + static_cast<size_t>(w) * 4 * nch;
+  const pa::Query q = pa::stage_query<float>(queries + static_cast<size_t>(b) * d, d, nch,
+                                             qf, nullptr, lane);
+  const int v = min(max(ids[b], 0), n_pad - 1);
+  const int row_bytes = d * 4;
+  const char* row = reinterpret_cast<const char*>(inl) + static_cast<size_t>(v) * R8 * row_bytes;
+  float* o = out + static_cast<size_t>(b) * R8;
+  for (int j0 = 0; j0 < R8; j0 += 32) {
+    const int j = j0 + lane;
+    const float dist = pa::score32<float>(q, row + static_cast<size_t>(j0) * row_bytes,
+                                          row_bytes, nch, vec, kMips, j < R8 ? lane : -1, lane);
+    if (j < R8) o[j] = dist;
+  }
+}
+
 }  // namespace
 
 extern "C" int pa_expand_distances(const void* inl, const void* ids, const void* queries,
@@ -107,6 +143,23 @@ extern "C" int pa_expand_distances(const void* inl, const void* ids, const void*
   const cudaError_t err = mips ? launch<true>(in, id, q, o, B, n_pad, R8, d, vec16, s)
                                : launch<false>(in, id, q, o, B, n_pad, R8, d, vec16, s);
   return static_cast<int>(err);
+}
+
+extern "C" int pa_expand_distances_f32(const void* inl, const void* ids, const void* queries,
+                                       void* out, int B, int n_pad, int R8, int d, int mips,
+                                       void* stream) {
+  if (B == 0) return 0;
+  const int nch = (d * 4 + 15) / 16;
+  const int vec = pa::widest_load(inl, d * 4);
+  const size_t smem = static_cast<size_t>(kWarpsPerBlock) * nch * 16;
+  auto kernel = mips ? &expand_f32_kernel<true> : &expand_f32_kernel<false>;
+  const cudaError_t err = pa::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(B + kWarpsPerBlock - 1) / kWarpsPerBlock, kWarpsPerBlock * 32, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(inl), static_cast<const int*>(ids),
+      static_cast<const float*>(queries), static_cast<float*>(out), B, n_pad, R8, d, nch, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* pa_error_string(int code) {

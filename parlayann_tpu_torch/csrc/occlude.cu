@@ -2,7 +2,8 @@
 //
 // Replaces parlayann_tpu/ops/pallas/occlude.py:91 occlusion_rounds (kernel
 // body _occl_kernel, occlude.py:39). For each row b: C candidates sorted by
-// their distance to the point p (INF = invalid) and their int8 vectors. R
+// their distance to the point p (INF = invalid) and their int8 or f32
+// vectors (the JAX kernel casts any dtype; each of the two has a kernel). R
 // rounds; each takes the first live candidate as the star and kills every
 // live c with alpha * d(star, c) <= d(p, c). Output: the round in which each
 // candidate became the star, else R + C.
@@ -32,8 +33,8 @@
 //     of tiles whose 16 candidates are all dead is skipped), and keeps
 //     only the outcome: 16 rows of kill bits, one a candidate, in its
 //     shared memory. No C x C matrix exists, and a strip no star falls in
-//     is never made. An f32 mode (ROADMAP A1) adds a second producer of
-//     these bits and nothing else.
+//     is never made. f32 vectors have a second producer of these bits
+//     (below) and share everything else.
 //  4. A round is then bit arithmetic in registers: lane w holds live word
 //     w (ceil(C / 32) words); a ballot and __ffs find the star (every
 //     candidate before it is dead), and each lane clears its word's bits
@@ -53,9 +54,24 @@
 // words), runs the global-memory variant: the same rounds on live words in
 // shared memory, each lane computing its candidate's distance to the star
 // from the vectors in device memory.
+//
+// f32 vectors: the strip producer runs on the f32 cores. Lane l takes
+// candidate 32 w + l of each live word w from the strip's first word on and
+// sums its 16 dot products with the strip's rows over the d values in
+// order, one rounded multiply and one rounded add a term (no fused
+// multiply-add); the squared norms are summed once a row in the same order.
+// L2 is max((n_i - 2 dot) + n_j, 0) and MIPS -dot, as the plain version
+// (ops/kernels/occlude.py:pairwise_ordered) computes them in the same
+// order, so the rounds are equal bit for bit. The global-memory variant
+// computes the same three sums from device memory. An f32 row takes 4x the
+// shared memory of an int8 row: 51 KB at C = 96, d = 128 (4 rows an SM).
+// What bounds it: the star strips' 2 C d f32 operations a star against the
+// 67 TFLOP/s f32 rate, near the row bytes' time at 3.35 TB/s; tensor cores
+// (3xTF32, as flatscan.cu) are later work.
 
 #include <atomic>
 #include <mutex>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -69,7 +85,7 @@ constexpr int kSmemBlock = 227 * 1024;
 // reads it.
 struct Layout {
   int Cv;  // candidate rows stored: C rounded up to 16
-  int dp;  // bytes a vector: d rounded up to 32, zeros past d
+  int dp;  // bytes a vector: d values rounded up to 32 bytes, zeros past d
   int vs;  // vector row stride: dp + 16
   int W;   // live words: ceil(C / 32); also the words of a kill row
   int kill_off, dist_off, norm_off, bytes;
@@ -77,10 +93,10 @@ struct Layout {
 
 inline int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-Layout make_layout(int C, int d) {
+Layout make_layout(int C, int d, int elem_bytes) {
   Layout L;
   L.Cv = round_up(C, kStrip);
-  L.dp = round_up(d, 32);
+  L.dp = round_up(d * elem_bytes, 32);
   L.vs = L.dp + 16;
   L.W = (C + 31) / 32;
   L.kill_off = L.Cv * L.vs;
@@ -140,17 +156,133 @@ __device__ __forceinline__ int init_row(const float* db, int* rb, float* sd, uns
   return n_live;
 }
 
+// Strip s of an int8 row: kill bit (i, c) = alpha * d(16 s + i, c) <=
+// d(p, c) for the candidates c of every pair of 8-candidate tiles with a
+// live one, from int8 mma.sync products. Bits of skipped tiles, of columns
+// before the strip and past n_live, and of rows past n_live (never staged)
+// are never written or are garbage: they only meet dead candidates, whose
+// live bits are already clear.
 template <bool kMips>
+__device__ __forceinline__ void make_strip_s8(int s, const int8_t* sv, const float* sd,
+                                              const int* nrm, unsigned* kill, unsigned live,
+                                              float alpha, int n_live, const Layout& L,
+                                              int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  unsigned char* kill_bytes = reinterpret_cast<unsigned char*>(kill);
+  const int r0 = s * kStrip;
+  const int8_t* a_lo = sv + (r0 + g) * L.vs + 4 * t;
+  const int8_t* a_hi = a_lo + 8 * L.vs;
+  for (int n0 = r0; n0 < n_live; n0 += 16) {
+    const unsigned word = __shfl_sync(pa::kFullMask, live, n0 >> 5);
+    if (((word >> (n0 & 31)) & 0xffffu) == 0) continue;
+    const int8_t* bp = sv + (n0 + g) * L.vs + 4 * t;
+    int acc[2][4] = {};
+    for (int k0 = 0; k0 < L.dp; k0 += 32) {
+      const uint32_t a[4] = {ld32(a_lo + k0), ld32(a_hi + k0), ld32(a_lo + k0 + 16),
+                             ld32(a_hi + k0 + 16)};
+      mma_s8(acc[0], a, ld32(bp + k0), ld32(bp + k0 + 16));
+      mma_s8(acc[1], a, ld32(bp + 8 * L.vs + k0), ld32(bp + 8 * L.vs + k0 + 16));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + 8 * h + 2 * t;
+      const float2 dpc = *reinterpret_cast<const float2*>(sd + col);
+      unsigned bits[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float dic;
+        if (kMips) {
+          dic = -static_cast<float>(acc[h][i]);
+        } else {
+          // unsigned: the int32 wraps exactly as sum((a - b)^2) would
+          const unsigned l2 = static_cast<unsigned>(nrm[r0 + g + 8 * (i >> 1)]) +
+                              static_cast<unsigned>(nrm[col + (i & 1)]) -
+                              2u * static_cast<unsigned>(acc[h][i]);
+          dic = static_cast<float>(static_cast<int>(l2));
+        }
+        bits[i] = __ballot_sync(pa::kFullMask, alpha * dic <= ((i & 1) ? dpc.y : dpc.x));
+      }
+      if (t == 0) {  // lane 4g + t holds columns 2t, 2t + 1 of rows g, g + 8
+        const int at = (n0 >> 3) + h, sh = 4 * g;
+        kill_bytes[g * 4 * L.W + at] = static_cast<unsigned char>(
+            spread4(bits[0] >> sh) | (spread4(bits[1] >> sh) << 1));
+        kill_bytes[(g + 8) * 4 * L.W + at] = static_cast<unsigned char>(
+            spread4(bits[2] >> sh) | (spread4(bits[3] >> sh) << 1));
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// The pair distance of f32 vectors from their dot product and squared
+// norms, as the plain version forms it: -dot (MIPS) or max((n_i - 2 dot) +
+// n_j, 0) (L2).
+template <bool kMips>
+__device__ __forceinline__ float pair_f32(float dot, float ni, float nj) {
+  if (kMips) return -dot;
+  return fmaxf(__fadd_rn(__fsub_rn(ni, __fmul_rn(2.f, dot)), nj), 0.f);
+}
+
+// Strip s of an f32 row: the same kill bits from f32 dot products. Lane l
+// takes candidate 32 w + l of each live word w from the strip's first word
+// and sums its 16 dot products with the strip's rows over the values in
+// order (the zeros past d add nothing); a ballot a strip row gives the
+// word. The bits of skipped words, columns before the strip and rows past
+// n_live are garbage as above, and only meet dead candidates.
+template <bool kMips>
+__device__ __forceinline__ void make_strip_f32(int s, const char* sv, const float* sd,
+                                               const float* nrm, unsigned* kill, unsigned live,
+                                               float alpha, int n_live, const Layout& L,
+                                               int lane) {
+  const int r0 = s * kStrip;
+  const int slots = L.dp / 16;
+  const int words = (n_live + 31) >> 5;
+  for (int w = r0 >> 5; w < words; ++w) {
+    if (__shfl_sync(pa::kFullMask, live, w) == 0) continue;
+    const int c = 32 * w + lane;
+    float acc[kStrip];
+#pragma unroll
+    for (int i = 0; i < kStrip; ++i) acc[i] = 0.f;
+    if (c < n_live) {
+      const float4* y = reinterpret_cast<const float4*>(sv + c * L.vs);
+      for (int k = 0; k < slots; ++k) {
+        const float4 b = y[k];
+#pragma unroll
+        for (int i = 0; i < kStrip; ++i) {
+          const float4 a = reinterpret_cast<const float4*>(sv + (r0 + i) * L.vs)[k];
+          acc[i] = __fadd_rn(acc[i], __fmul_rn(a.x, b.x));
+          acc[i] = __fadd_rn(acc[i], __fmul_rn(a.y, b.y));
+          acc[i] = __fadd_rn(acc[i], __fmul_rn(a.z, b.z));
+          acc[i] = __fadd_rn(acc[i], __fmul_rn(a.w, b.w));
+        }
+      }
+    }
+    const float dpc = sd[c];
+    const float nc = kMips || c >= n_live ? 0.f : nrm[c];
+#pragma unroll
+    for (int i = 0; i < kStrip; ++i) {
+      const float ni = kMips ? 0.f : nrm[r0 + i];
+      const bool k = c < n_live && __fmul_rn(alpha, pair_f32<kMips>(acc[i], ni, nc)) <= dpc;
+      const unsigned bits = __ballot_sync(pa::kFullMask, k);
+      if (lane == 0) kill[i * L.W + w] = bits;
+    }
+  }
+  __syncwarp();
+}
+
+template <bool kMips, typename T>
 __global__ void __launch_bounds__(32)
-occlusion_mma_kernel(const float* __restrict__ dist, const int8_t* __restrict__ vecs,
-                     float alpha, int* __restrict__ rounds, int C, int d, int R, int vec,
-                     Layout L) {
+occlusion_strip_kernel(const float* __restrict__ dist, const T* __restrict__ vecs,
+                       float alpha, int* __restrict__ rounds, int C, int d, int R, int vec,
+                       Layout L) {
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x, b = blockIdx.x;
-  int8_t* sv = reinterpret_cast<int8_t*>(smem);
+  char* sv = reinterpret_cast<char*>(smem);
   unsigned* kill = reinterpret_cast<unsigned*>(smem + L.kill_off);  // 16 rows of W words
   float* sd = reinterpret_cast<float*>(smem + L.dist_off);
-  int* nrm = reinterpret_cast<int*>(smem + L.norm_off);
+  int* nrm = reinterpret_cast<int*>(smem + L.norm_off);  // int32 (int8) or f32 norms
+  float* nrm_f = reinterpret_cast<float*>(nrm);
   int* rb = rounds + static_cast<size_t>(b) * C;
 
   unsigned live;  // lane w: live word w
@@ -159,13 +291,14 @@ occlusion_mma_kernel(const float* __restrict__ dist, const int8_t* __restrict__ 
   if (n_live == 0) return;
 
   // stage vectors [0, n_live) as 16-byte slots, zeros past d
-  const int8_t* vb = vecs + static_cast<size_t>(b) * C * d;
+  const int row_bytes = d * static_cast<int>(sizeof(T));
+  const char* vb = reinterpret_cast<const char*>(vecs) + static_cast<size_t>(b) * C * row_bytes;
   const int slots = L.dp / 16;
   for (int i = lane; i < n_live * slots; i += 32) {
     const int c = i / slots, j = i - c * slots;
-    pa::stage_slot(reinterpret_cast<char*>(sv + c * L.vs + 16 * j),
-                   reinterpret_cast<const char*>(vb + static_cast<size_t>(c) * d + 16 * j),
-                   reinterpret_cast<const char*>(vecs), min(max(d - 16 * j, 0), 16), vec);
+    pa::stage_slot(sv + c * L.vs + 16 * j, vb + static_cast<size_t>(c) * row_bytes + 16 * j,
+                   reinterpret_cast<const char*>(vecs), min(max(row_bytes - 16 * j, 0), 16),
+                   vec);
   }
   pa::cp_async_commit();
   pa::cp_async_wait_all();
@@ -173,71 +306,30 @@ occlusion_mma_kernel(const float* __restrict__ dist, const int8_t* __restrict__ 
   if (!kMips) {
     for (int c = lane; c < n_live; c += 32) {
       const int4* row = reinterpret_cast<const int4*>(sv + c * L.vs);
-      int acc = 0;
-      for (int j = 0; j < slots; ++j) {
-        const int4 v = row[j];
-        acc = __dp4a(v.x, v.x, acc);
-        acc = __dp4a(v.y, v.y, acc);
-        acc = __dp4a(v.z, v.z, acc);
-        acc = __dp4a(v.w, v.w, acc);
+      if constexpr (kF32) {
+        float acc = 0.f;
+        for (int j = 0; j < slots; ++j) {
+          const float4 v = reinterpret_cast<const float4*>(row)[j];
+          acc = __fadd_rn(acc, __fmul_rn(v.x, v.x));
+          acc = __fadd_rn(acc, __fmul_rn(v.y, v.y));
+          acc = __fadd_rn(acc, __fmul_rn(v.z, v.z));
+          acc = __fadd_rn(acc, __fmul_rn(v.w, v.w));
+        }
+        nrm_f[c] = acc;
+      } else {
+        int acc = 0;
+        for (int j = 0; j < slots; ++j) {
+          const int4 v = row[j];
+          acc = __dp4a(v.x, v.x, acc);
+          acc = __dp4a(v.y, v.y, acc);
+          acc = __dp4a(v.z, v.z, acc);
+          acc = __dp4a(v.w, v.w, acc);
+        }
+        nrm[c] = acc;
       }
-      nrm[c] = acc;
     }
     __syncwarp();
   }
-
-  // Strip s: kill bit (i, c) = alpha * d(16 s + i, c) <= d(p, c) for the
-  // candidates c of every pair of tiles with a live one. Bits of skipped
-  // tiles, of columns before the strip and past n_live, and of rows past
-  // n_live (never staged) are never written or are garbage: they only
-  // meet dead candidates, whose live bits are already clear.
-  const int g = lane >> 2, t = lane & 3;
-  unsigned char* kill_bytes = reinterpret_cast<unsigned char*>(kill);
-  auto make_strip = [&](int s) {
-    const int r0 = s * kStrip;
-    const int8_t* a_lo = sv + (r0 + g) * L.vs + 4 * t;
-    const int8_t* a_hi = a_lo + 8 * L.vs;
-    for (int n0 = r0; n0 < n_live; n0 += 16) {
-      const unsigned word = __shfl_sync(pa::kFullMask, live, n0 >> 5);
-      if (((word >> (n0 & 31)) & 0xffffu) == 0) continue;
-      const int8_t* bp = sv + (n0 + g) * L.vs + 4 * t;
-      int acc[2][4] = {};
-      for (int k0 = 0; k0 < L.dp; k0 += 32) {
-        const uint32_t a[4] = {ld32(a_lo + k0), ld32(a_hi + k0), ld32(a_lo + k0 + 16),
-                               ld32(a_hi + k0 + 16)};
-        mma_s8(acc[0], a, ld32(bp + k0), ld32(bp + k0 + 16));
-        mma_s8(acc[1], a, ld32(bp + 8 * L.vs + k0), ld32(bp + 8 * L.vs + k0 + 16));
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = n0 + 8 * h + 2 * t;
-        const float2 dpc = *reinterpret_cast<const float2*>(sd + col);
-        unsigned bits[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          float dic;
-          if (kMips) {
-            dic = -static_cast<float>(acc[h][i]);
-          } else {
-            // unsigned: the int32 wraps exactly as sum((a - b)^2) would
-            const unsigned l2 = static_cast<unsigned>(nrm[r0 + g + 8 * (i >> 1)]) +
-                                static_cast<unsigned>(nrm[col + (i & 1)]) -
-                                2u * static_cast<unsigned>(acc[h][i]);
-            dic = static_cast<float>(static_cast<int>(l2));
-          }
-          bits[i] = __ballot_sync(pa::kFullMask, alpha * dic <= ((i & 1) ? dpc.y : dpc.x));
-        }
-        if (t == 0) {  // lane 4g + t holds columns 2t, 2t + 1 of rows g, g + 8
-          const int at = (n0 >> 3) + h, sh = 4 * g;
-          kill_bytes[g * 4 * L.W + at] = static_cast<unsigned char>(
-              spread4(bits[0] >> sh) | (spread4(bits[1] >> sh) << 1));
-          kill_bytes[(g + 8) * 4 * L.W + at] = static_cast<unsigned char>(
-              spread4(bits[2] >> sh) | (spread4(bits[3] >> sh) << 1));
-        }
-      }
-    }
-    __syncwarp();
-  };
 
   int made = -1;  // the strip in shared memory
   for (int r = 0; r < R; ++r) {
@@ -250,7 +342,11 @@ occlusion_mma_kernel(const float* __restrict__ dist, const int8_t* __restrict__ 
     if (lane == 0) rb[star] = r;
     if (star / kStrip != made) {
       made = star / kStrip;
-      make_strip(made);
+      if constexpr (kF32)
+        make_strip_f32<kMips>(made, sv, sd, nrm_f, kill, live, alpha, n_live, L, lane);
+      else
+        make_strip_s8<kMips>(made, reinterpret_cast<const int8_t*>(sv), sd, nrm, kill, live,
+                             alpha, n_live, L, lane);
     }
     if (lane < L.W) live &= ~kill[(star % kStrip) * L.W + lane];
   }
@@ -258,11 +354,12 @@ occlusion_mma_kernel(const float* __restrict__ dist, const int8_t* __restrict__ 
 
 // The same rounds for a row too large for the kernel above: only the live
 // words sit in shared memory (W words); each lane computes its
-// candidate's distance to the star in int32 from device memory and one
-// ballot a word clears the occluded ones.
-template <bool kMips>
+// candidate's distance to the star from device memory (int8: in int32;
+// f32: the dot product and both squared norms in the strip producer's
+// order) and one ballot a word clears the occluded ones.
+template <bool kMips, typename T>
 __global__ void __launch_bounds__(32)
-occlusion_global_kernel(const float* __restrict__ dist, const int8_t* __restrict__ vecs,
+occlusion_global_kernel(const float* __restrict__ dist, const T* __restrict__ vecs,
                         float alpha, int* __restrict__ rounds, int C, int d, int R, int W) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x, b = blockIdx.x;
@@ -271,7 +368,7 @@ occlusion_global_kernel(const float* __restrict__ dist, const int8_t* __restrict
   int* rb = rounds + static_cast<size_t>(b) * C;
   unsigned unused;
   const int n_live = init_row(db, rb, nullptr, live, unused, C, R, W, lane);
-  const int8_t* vb = vecs + static_cast<size_t>(b) * C * d;
+  const T* vb = vecs + static_cast<size_t>(b) * C * d;
   const int n_words = (n_live + 31) >> 5;
   int star = -1;
   for (int r = 0; r < R; ++r) {
@@ -289,22 +386,35 @@ occlusion_global_kernel(const float* __restrict__ dist, const int8_t* __restrict
       rb[star] = r;
     }
     __syncwarp();
-    const int8_t* x = vb + static_cast<size_t>(star) * d;
+    const T* x = vb + static_cast<size_t>(star) * d;
     for (int ww = w; ww < n_words; ++ww) {
       const unsigned m = ww == w ? lw : live[ww];
       if (m == 0) continue;
       const int c = 32 * ww + lane;
       bool kill = false;
       if ((m >> lane) & 1u) {
-        const int8_t* y = vb + static_cast<size_t>(c) * d;
-        unsigned acc = 0;
-        for (int k = 0; k < d; ++k) {
-          const int p = x[k], q = y[k];
-          acc += static_cast<unsigned>(kMips ? p * q : (p - q) * (p - q));
+        const T* y = vb + static_cast<size_t>(c) * d;
+        if constexpr (std::is_same<T, float>::value) {
+          float dot = 0.f, nx = 0.f, ny = 0.f;
+          for (int k = 0; k < d; ++k) {
+            const float p = x[k], q = y[k];
+            dot = __fadd_rn(dot, __fmul_rn(p, q));
+            if (!kMips) {
+              nx = __fadd_rn(nx, __fmul_rn(p, p));
+              ny = __fadd_rn(ny, __fmul_rn(q, q));
+            }
+          }
+          kill = __fmul_rn(alpha, pair_f32<kMips>(dot, nx, ny)) <= db[c];
+        } else {
+          unsigned acc = 0;
+          for (int k = 0; k < d; ++k) {
+            const int p = x[k], q = y[k];
+            acc += static_cast<unsigned>(kMips ? p * q : (p - q) * (p - q));
+          }
+          const float dsc = kMips ? -static_cast<float>(static_cast<int>(acc))
+                                  : static_cast<float>(static_cast<int>(acc));
+          kill = alpha * dsc <= db[c];
         }
-        const float dsc = kMips ? -static_cast<float>(static_cast<int>(acc))
-                                : static_cast<float>(static_cast<int>(acc));
-        kill = alpha * dsc <= db[c];
       }
       const unsigned k = __ballot_sync(pa::kFullMask, kill);
       if (k && lane == 0) live[ww] = m & ~k;
@@ -313,12 +423,13 @@ occlusion_global_kernel(const float* __restrict__ dist, const int8_t* __restrict
   }
 }
 
-// Let a launch of occlusion_mma_kernel<kMips> on the current device take
-// `bytes` of dynamic shared memory, with shared memory preferred over L1
-// (the kernel reads each byte once). The attributes persist, so they are set
-// only when a launch needs more than any launch before it on that device.
-template <bool kMips>
-cudaError_t allow_mma_smem(int bytes) {
+// Let a launch of occlusion_strip_kernel<kMips, T> on the current device
+// take `bytes` of dynamic shared memory, with shared memory preferred over
+// L1 (the kernel reads each byte once). The attributes persist, so they are
+// set only when a launch needs more than any launch before it on that
+// device.
+template <bool kMips, typename T>
+cudaError_t allow_strip_smem(int bytes) {
   constexpr int kMaxDevices = 64;
   static std::atomic<int> granted[kMaxDevices];  // bytes allowed so far
   static std::mutex mu;
@@ -329,7 +440,7 @@ cudaError_t allow_mma_smem(int bytes) {
   if (g != nullptr && bytes <= g->load()) return cudaSuccess;
   std::lock_guard<std::mutex> lock(mu);
   if (g != nullptr && bytes <= g->load()) return cudaSuccess;
-  const auto kernel = &occlusion_mma_kernel<kMips>;
+  const auto kernel = &occlusion_strip_kernel<kMips, T>;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -338,29 +449,46 @@ cudaError_t allow_mma_smem(int bytes) {
   return err;
 }
 
-}  // namespace
-
-extern "C" int pa_occlusion_rounds(const void* dist, const void* vecs, float alpha,
-                                   void* rounds, int B, int C, int d, int R, int mips,
-                                   void* stream) {
-  if (B == 0) return 0;
-  const Layout L = make_layout(C, d);
-  const auto* df = static_cast<const float*>(dist);
-  const auto* vi = static_cast<const int8_t*>(vecs);
-  auto* ri = static_cast<int*>(rounds);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <bool kMips, typename T>
+cudaError_t launch(const float* dist, const T* vecs, float alpha, int* rounds, int B, int C,
+                   int d, int R, cudaStream_t st) {
+  const Layout L = make_layout(C, d, sizeof(T));
   if (L.W <= kMaxLiveWords && L.bytes <= kSmemBlock) {
-    auto kernel = mips ? &occlusion_mma_kernel<true> : &occlusion_mma_kernel<false>;
-    const cudaError_t err = mips ? allow_mma_smem<true>(L.bytes) : allow_mma_smem<false>(L.bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaError_t err = allow_strip_smem<kMips, T>(L.bytes);
+    if (err != cudaSuccess) return err;
     // the widest copy that the base address and the row length keep aligned
+    const int row_bytes = d * static_cast<int>(sizeof(T));
     const uintptr_t addr = reinterpret_cast<uintptr_t>(vecs);
     int vec = 16;
-    while (vec > 1 && ((addr % vec) != 0 || d % vec != 0)) vec /= 2;
-    kernel<<<B, 32, L.bytes, st>>>(df, vi, alpha, ri, C, d, R, vec, L);
-    return static_cast<int>(cudaGetLastError());
+    while (vec > 1 && ((addr % vec) != 0 || row_bytes % vec != 0)) vec /= 2;
+    occlusion_strip_kernel<kMips, T><<<B, 32, L.bytes, st>>>(dist, vecs, alpha, rounds, C, d, R,
+                                                             vec, L);
+    return cudaGetLastError();
   }
-  auto kernel = mips ? &occlusion_global_kernel<true> : &occlusion_global_kernel<false>;
-  kernel<<<B, 32, L.W * sizeof(unsigned), st>>>(df, vi, alpha, ri, C, d, R, L.W);
-  return static_cast<int>(cudaGetLastError());
+  occlusion_global_kernel<kMips, T><<<B, 32, L.W * sizeof(unsigned), st>>>(
+      dist, vecs, alpha, rounds, C, d, R, L.W);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int launch_metric(const void* dist, const void* vecs, float alpha, void* rounds, int B, int C,
+                  int d, int R, int mips, void* stream) {
+  const auto* df = static_cast<const float*>(dist);
+  const auto* v = static_cast<const T*>(vecs);
+  auto* ri = static_cast<int*>(rounds);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = mips ? launch<true, T>(df, v, alpha, ri, B, C, d, R, st)
+                               : launch<false, T>(df, v, alpha, ri, B, C, d, R, st);
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
+// f32: the candidate vectors are float32 (else int8).
+extern "C" int pa_occlusion_rounds(const void* dist, const void* vecs, float alpha,
+                                   void* rounds, int B, int C, int d, int R, int mips, int f32,
+                                   void* stream) {
+  if (B == 0) return 0;
+  return f32 ? launch_metric<float>(dist, vecs, alpha, rounds, B, C, d, R, mips, stream)
+             : launch_metric<int8_t>(dist, vecs, alpha, rounds, B, C, d, R, mips, stream);
 }

@@ -11,18 +11,27 @@ Counterpart of parlayann_tpu/index.py (GraphIndex, python/graph_index.cpp:
 - the JL 8-bit tier (``enable_jl(bits=8)``) runs the lock-step search with
   ``k`` over its int8 projections, gathering rows;
 - the q8 tier is the JAX package's fused path (``_fused_search_1d``,
-  index.py:63-93) on kernel 3.
+  index.py:63-93) on kernel 3 when ``use_fused`` holds, ``expand == 1``
+  and ``degree_limit >= R``;
+- everything else on the q8 tier (``expand > 1``, ``degree_limit < R``,
+  ``use_fused=False``) and the full-precision (f32) tier run the
+  lock-step ``search/fused.py:fused_search`` (index.py:416-446) over the
+  tier's inline rows (``build_inline_cache``, kernel 1) or, past the
+  cache's byte budget, by gathering rows.
 
 Every tier starts from the entry top-1 over a sampled tier (or the given
-starts, or ``start_point``) and ends in the full-precision rerank. The
-configurations this slice does not serve raise NotImplementedError naming
-the ROADMAP item; none falls back to another path.
+starts, or ``start_point``); the quantized tiers end in the
+full-precision rerank, the f32 tier in the beam's first k entries. The
+JAX package's TPU-only eligibility tests of the fused kernel (its VMEM
+beam-state budget, ``d >= R8``) are not carried over: kernel 3 takes any
+L up to 4096 and any d. ``random_starts`` raises NotImplementedError
+naming its ROADMAP item; nothing falls back to another path.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -31,18 +40,12 @@ from parlayann_tpu_torch.types import Metric, QueryParams
 from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.data.graph import GraphIndexData
 from parlayann_tpu_torch.ops import quantize
-from parlayann_tpu_torch.ops.kernels.expand import build_inline_bits
+from parlayann_tpu_torch.ops.kernels.expand import build_inline, build_inline_bits
 from parlayann_tpu_torch.ops.kernels.fusedbeam import beam_search_fused
 from parlayann_tpu_torch.search.beam import beam_search_batch
+from parlayann_tpu_torch.search.fused import FusedResult, fused_search
 from parlayann_tpu_torch.search.rerank import rerank_topk
 from parlayann_tpu_torch.utils.timing import timed_rounds
-
-
-class FusedResult(NamedTuple):
-    ids: torch.Tensor  # (B, k)
-    dists: torch.Tensor  # (B, k) full precision
-    num_visited: torch.Tensor  # (B,)
-    dist_cmps: torch.Tensor  # (B,)
 
 
 def _entry_top1(q: torch.Tensor, evecs: torch.Tensor, eids: torch.Tensor, *,
@@ -68,6 +71,13 @@ class Index:
     graph: GraphIndexData
     start_point: int = 0
     qpoints: Optional[PointSet] = None  # q8 tier (graph_index.cpp:86-101)
+    # (n_pad, R8, d) inline neighbour rows of the lock-step search's tier
+    # (the q8 tier if any, else the points), in its dtype; None past the
+    # byte budget of build_inline_cache, which then clears use_inline
+    inline: Optional[torch.Tensor] = None
+    use_inline: bool = True
+    _inline_src: Optional[PointSet] = None
+    use_fused: bool = True  # the q8 tier's kernel-3 walk where it applies
     bit_points: Optional[PointSet] = None  # packed 1-bit tier
     jl_tier: Optional[quantize.JLTier] = None
     # (n_pad, R8, W) int32 inline words of a 1-bit tier, and that tier
@@ -117,6 +127,27 @@ class Index:
             self._inline_bits_src = src
         return self.inline_bits
 
+    def build_inline_cache(self, hbm_budget_bytes: int = 6 << 30) -> Optional[torch.Tensor]:
+        """Inline rows (n_pad, R8, d) of the lock-step search's tier (the
+        q8 tier if any, else the full-precision points) for kernel 1, kept
+        for the next search and keyed on that tier, so enabling the q8
+        tier after an f32 search rebuilds it in int8. An array of more than
+        ``hbm_budget_bytes`` is not built: ``use_inline`` turns off and the
+        search gathers rows (JAX index.py:194-213, which budgets R rows a
+        vertex; here the R8 rows the array really holds)."""
+        if not self.use_inline:
+            return None
+        src = self.qpoints if self.qpoints is not None else self.points
+        if self.inline is None or self._inline_src is not src:
+            self.inline = None  # free the stale array before the new one
+            R8 = (self.graph.max_degree + 7) // 8 * 8
+            if src.n_pad * R8 * src.d * src.data.element_size() > hbm_budget_bytes:
+                self.use_inline = False
+                return None
+            self.inline = build_inline(src.data, self.graph.neighbors)
+            self._inline_src = src
+        return self.inline
+
     def build_entry_cache(self, E: int = 4096, seed: int = 0):
         """Fixed uniform sample for the entry tier, drawn as the JAX package
         draws it (same seed, same ids). A tier of the same size is kept."""
@@ -135,8 +166,8 @@ class Index:
                      expand_group: int = 1, random_starts: int = 0,
                      seed: int = 0, starts=None):
         """Search all query rows -> (ids (B, k), dists (B, k), result): a
-        FusedResult on the q8 tier, the BeamResult of the lock-step search
-        on the 1-bit and JL tiers.
+        FusedResult on the q8 and f32 tiers, the BeamResult of the
+        lock-step search on the 1-bit and JL tiers.
 
         ``starts``: optional per-query start ids, (B,) or (B, S); they take
         precedence over the entry tier and ``start_point``. The rerank pool
@@ -149,10 +180,6 @@ class Index:
         ``random_starts``, which are not ported yet."""
         if random_starts > 0:
             _not_ported("random_starts", 'queue 1, "The remaining tiers"')
-        if (self.bit_points is None and self.jl_tier is None
-                and self.qpoints is None):
-            _not_ported("search without a quantized tier (the f32 tier)",
-                        'queue 1, "The f32 tier"')
         qp = QueryParams(k=k, beamSize=beam_size, cut=cut, limit=limit,
                          degree_limit=degree_limit).resolved(
             self.graph.max_degree, self.points.n)
@@ -184,8 +211,18 @@ class Index:
             q = self.jl_tier.translate_query(qf)
             bits = 1 if self.jl_tier.bits == 1 else 32
             search_k = 0 if bits == 1 else k
+        elif (self.qpoints is not None and self.use_fused and expand == 1
+              and qp.degree_limit >= self.graph.max_degree):
+            return self._search_q8(qf, start_arr, qp, k, L, pool)
         else:
-            return self._search_q8(qf, start_arr, qp, k, L, pool, expand)
+            tier = self.qpoints if self.qpoints is not None else self.points
+            res = fused_search(
+                qf, tier, self.points.data, self.graph.neighbors,
+                self.graph.degrees, start_arr, self.build_inline_cache(), k=k,
+                L=L, cut=qp.cut, limit=qp.limit, degree_limit=qp.degree_limit,
+                expand=expand, rerank_pool=pool,
+                do_rerank=tier is not self.points)
+            return res.ids, res.dists, res
         inline = self.build_inline_bits_cache(tier) if bits == 1 else None
         res = beam_search_batch(
             q, tier.data, self.graph.neighbors, self.graph.degrees, start_arr,
@@ -196,15 +233,9 @@ class Index:
                                  pool=pool, metric=self.points.metric)
         return ids, dists, res
 
-    def _search_q8(self, qf, start_arr, qp, k, L, pool, expand):
+    def _search_q8(self, qf, start_arr, qp, k, L, pool):
         """The q8 tier's fused path: kernel 3 walks each query, then the
         rerank."""
-        if expand != 1:
-            _not_ported("multi-expansion search (expand > 1) on the q8 tier",
-                        'queue 1, "The q8 search\'s lock-step path"')
-        if qp.degree_limit < self.graph.max_degree:
-            _not_ported("degree_limit < R on the fused path",
-                        'queue 1, "The q8 search\'s lock-step path"')
         tier = self.qpoints
         q_t = quantize.translate_query(qf, tier).float()
         fid, _, nv, cmps = beam_search_fused(
@@ -213,7 +244,8 @@ class Index:
             limit=qp.limit)
         ids, dists = rerank_topk(qf, self.points.data, fid, k=k, pool=pool,
                                  metric=self.points.metric)
-        return ids, dists, FusedResult(ids, dists, nv, cmps)
+        return ids, dists, FusedResult(
+            ids, dists, nv, cmps, torch.zeros((), dtype=torch.int32, device=ids.device))
 
     def batch_search_timed(self, queries, warmup: bool = True, rounds: int = 1,
                            **kw):

@@ -77,11 +77,15 @@ def index_from_state(points: PointSet, graph: GraphIndexData,
                      entry_ids: Optional[np.ndarray] = None,
                      qpoints: Optional[PointSet] = None,
                      bit_points: Optional[PointSet] = None,
-                     jl_tier: Optional[JLTier] = None) -> Index:
-    """An Index over converted points, graph and tiers; ``entry_ids`` (the
-    JAX Index's sampled entry tier) are installed as they are."""
+                     jl_tier: Optional[JLTier] = None, use_inline: bool = True,
+                     use_fused: bool = True) -> Index:
+    """An Index over converted points, graph and tiers (with no
+    ``qpoints`` it searches the full-precision tier); ``entry_ids`` (the
+    JAX Index's sampled entry tier) are installed as they are, and the
+    JAX Index's ``use_inline`` and ``use_fused`` switches carried over."""
     idx = Index(points=points, graph=graph, qpoints=qpoints,
-                bit_points=bit_points, jl_tier=jl_tier)
+                bit_points=bit_points, jl_tier=jl_tier, use_inline=use_inline,
+                use_fused=use_fused)
     if entry_ids is not None:
         idx.entry_ids = torch.tensor(np.asarray(entry_ids, dtype=np.int32)).to(points.device)
         idx.entry_vecs = points.data[idx.entry_ids.long()]

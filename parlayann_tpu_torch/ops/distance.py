@@ -65,7 +65,8 @@ def gathered_lane_order(queries: torch.Tensor, cand_vecs: torch.Tensor,
     span = 8 * chunk
     t = torch.nn.functional.pad(t, (0, -d % span))
     # (B, K, pass, sub-lane, value) -> (B, K, sub-lane, pass and value)
-    t = t.view(B, K, -1, 8, chunk).transpose(2, 3).reshape(B, K, 8, -1)
+    t = t.view(B, K, t.shape[2] // span, 8, chunk).transpose(2, 3).reshape(
+        B, K, 8, t.shape[2] // 8)
     acc = torch.zeros(t.shape[:3], dtype=torch.float32, device=t.device)
     for i in range(t.shape[3]):
         acc = acc + t[..., i]

@@ -7,7 +7,8 @@ returns the distances to the R8 inline neighbours of ``expand_ids[b]``.
 Slots at or beyond a vertex's degree hold garbage distances that the
 caller masks.
 
-Kernel 1 (``expand_distances``, ``csrc/expand.cu``) reads int8 vectors.
+Kernel 1 (``expand_distances``, ``csrc/expand.cu``) reads int8 vectors
+(the q8 tier) or f32 vectors (the full-precision tier), one kernel each.
 Kernel 6 (``expand_bits_flat``, ``csrc/expandbits.cu``) reads the 1-bit
 tier's packed int32 words and returns XOR + popcount hamming distances; it
 also serves ``expand_distances(bits=1)``. Its inline array is
@@ -93,10 +94,15 @@ expand_bits_flat.launches = 0
 def expand_distances_plain(inline: torch.Tensor, expand_ids: torch.Tensor,
                            queries: torch.Tensor, *, metric: Metric,
                            bits: int = 32) -> torch.Tensor:
-    """The kernels' function in PyTorch: (B, R8) f32 distances."""
+    """The kernels' function in PyTorch: (B, R8) f32 distances. f32 rows
+    sum in the f32 kernel's order (``distance.gathered_lane_order``, 4
+    values a 16-byte chunk), so the two agree bit for bit; int8 rows sum
+    exact integers on the build path, in any order."""
     if bits == 1:
         return expand_bits_flat_plain(inline, expand_ids, queries)
     rows = inline[expand_ids.long().clamp(0, inline.shape[0] - 1)]
+    if inline.dtype == torch.float32:
+        return distance.gathered_lane_order(queries, rows, metric, chunk=4)
     return distance.gathered(queries, rows, metric)
 
 
@@ -106,14 +112,16 @@ def expand_distances(inline: torch.Tensor, expand_ids: torch.Tensor,
     """-> (B, R8) f32 distances from query b to the inline neighbours of
     ``expand_ids[b]`` (ids are clamped into range). CPU tensors run
     :func:`expand_distances_plain`; CUDA tensors launch kernel 1, which
-    takes an int8 inline array, int32 ids and f32 queries. ``bits=1``: the
-    inline array and the queries are packed int32 words and the call is
-    :func:`expand_bits_flat` (kernel 6)."""
+    takes an int8 or a float32 inline array (one kernel each; the f32
+    launches are also counted in ``launches_f32``), int32 ids and f32
+    queries. ``bits=1``: the inline array and the queries are packed int32
+    words and the call is :func:`expand_bits_flat` (kernel 6)."""
     if bits == 1:
         return expand_bits_flat(inline, expand_ids, queries)
     if not _lib.route(inline, expand_ids, queries):
         return expand_distances_plain(inline, expand_ids, queries, metric=metric)
-    _lib.require(inline, "inline", torch.int8, 3)
+    f32 = inline.dtype == torch.float32
+    _lib.require(inline, "inline", torch.float32 if f32 else torch.int8, 3)
     _lib.require(expand_ids, "expand_ids", torch.int32, 1)
     _lib.require(queries, "queries", torch.float32, 2)
     n_pad, R8, d = inline.shape
@@ -125,13 +133,16 @@ def expand_distances(inline: torch.Tensor, expand_ids: torch.Tensor,
     out = torch.empty((B, R8), dtype=torch.float32, device=queries.device)
     if B == 0:
         return out
-    fn = _lib.function("pa_expand_distances", [_lib.VP] * 4 + [_lib.INT] * 5 + [_lib.VP])
+    name = "pa_expand_distances_f32" if f32 else "pa_expand_distances"
+    fn = _lib.function(name, [_lib.VP] * 4 + [_lib.INT] * 5 + [_lib.VP])
     rc = fn(inline.data_ptr(), expand_ids.data_ptr(), queries.data_ptr(),
             out.data_ptr(), B, n_pad, R8, d, int(metric is Metric.MIPS),
             _lib.stream())
     expand_distances.launches += 1
+    expand_distances.launches_f32 += f32
     _lib.check(rc, "expand_distances")
     return out
 
 
 expand_distances.launches = 0
+expand_distances.launches_f32 = 0

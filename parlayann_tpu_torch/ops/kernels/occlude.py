@@ -8,14 +8,17 @@ is the round in which each candidate became the star, ``R + C`` if never;
 the caller recovers the (B, R) selection with one stable sort.
 
 The CUDA kernel is ``csrc/occlude.cu``: one warp a row; the occlusion
-tests of 16 candidates against the later ones come from int8 tensor-core
-products when the star first reaches them, kept as bits; a round is bit
-arithmetic on the row's live words.
+tests of 16 candidates against the later ones are made when the star
+first reaches them, from int8 tensor-core products (int8 vectors) or f32
+dot products (f32 vectors), and kept as bits; a round is bit arithmetic
+on the row's live words.
 ``occlusion_rounds_plain`` follows the JAX package's
-``_occlusion_loop_xla`` (build/prune.py:111): one C x C pairwise matrix as
-a float32 matmul, then R rounds of masks. On int8 candidates every
-distance is an exact integer in both (below 2^24 for d <= 258, where the
-f32 sums are exact), so the rounds are equal.
+``_occlusion_loop_xla`` (build/prune.py:111): one C x C pairwise matrix,
+then R rounds of masks. On int8 candidates the matrix is one float32
+matmul: every distance is an exact integer in both (below 2^24 for
+d <= 258, where the f32 sums are exact), so the rounds are equal. On f32
+candidates it is :func:`pairwise_ordered`, the kernel's own summation
+order, so the rounds are equal bit for bit there too.
 """
 
 from __future__ import annotations
@@ -38,12 +41,39 @@ def pairwise(cand_vecs: torch.Tensor, metric: Metric) -> torch.Tensor:
     return torch.clamp(nrm[:, :, None] - 2.0 * dot + nrm[:, None, :], min=0.0)
 
 
+def pairwise_ordered(cand_vecs: torch.Tensor, metric: Metric,
+                     max_elems: int = 1 << 24) -> torch.Tensor:
+    """(B, C, d) float32 -> (B, C, C) in the f32 kernel's order: each dot
+    product and squared norm summed over the d values in order, one
+    rounded product and one rounded add a term; L2 as
+    max((n_i - 2 dot) + n_j, 0), MIPS as -dot. Rows go in chunks of at
+    most ``max_elems`` pair entries."""
+    B, C, d = cand_vecs.shape
+    out = torch.empty((B, C, C), dtype=torch.float32, device=cand_vecs.device)
+    step = max(1, max_elems // max(C * C, 1))
+    for lo in range(0, B, step):
+        vt = cand_vecs[lo:lo + step].transpose(1, 2)  # (b, d, C)
+        dot = torch.zeros((vt.shape[0], C, C), dtype=torch.float32, device=vt.device)
+        nrm = torch.zeros((vt.shape[0], C), dtype=torch.float32, device=vt.device)
+        for k in range(d):
+            col = vt[:, k]
+            dot = dot + col[:, :, None] * col[:, None, :]
+            nrm = nrm + col * col
+        if metric is Metric.MIPS:
+            out[lo:lo + step] = -dot
+        else:
+            out[lo:lo + step] = torch.clamp(
+                (nrm[:, :, None] - 2.0 * dot) + nrm[:, None, :], min=0.0)
+    return out
+
+
 def occlusion_rounds_plain(cand_dists: torch.Tensor, cand_vecs: torch.Tensor,
                            alpha, *, R: int, metric: Metric) -> torch.Tensor:
     """The kernel's function in PyTorch -> (B, C) int32 rounds."""
     B, C = cand_dists.shape
     lane = torch.arange(C, device=cand_dists.device)
-    pair_d = pairwise(cand_vecs, metric)
+    pair_d = (pairwise_ordered(cand_vecs, metric)
+              if cand_vecs.dtype == torch.float32 else pairwise(cand_vecs, metric))
     alpha = torch.as_tensor(alpha, dtype=torch.float32, device=cand_dists.device)
     dead = cand_dists >= INF
     rounds = torch.full((B, C), R + C, dtype=torch.int32, device=cand_dists.device)
@@ -67,20 +97,22 @@ def occlusion_rounds(cand_dists: torch.Tensor, cand_vecs: torch.Tensor, alpha,
     """-> (B, C) int32: selection round per candidate, R + C if unselected.
     CPU tensors run :func:`occlusion_rounds_plain`; CUDA tensors launch the
     kernel, which takes f32 distances and int8 vectors (any alignment) of
-    any C and d with C * d + 8 C <= 227 KB. A row whose workspace does not
-    fit one CTA's shared memory, or with more than 1024 candidates, runs
-    the kernel's global-memory variant."""
+    any C and d with C * d + 8 C <= 227 KB, or f32 vectors of any C and d
+    (those launches are also counted in ``launches_f32``). A row whose
+    workspace does not fit one CTA's shared memory, or with more than 1024
+    candidates, runs the kernel's global-memory variant."""
     if not _lib.route(cand_dists, cand_vecs):
         return occlusion_rounds_plain(cand_dists, cand_vecs, alpha, R=R,
                                       metric=metric)
     _lib.require(cand_dists, "cand_dists", torch.float32, 2)
-    _lib.require(cand_vecs, "cand_vecs", torch.int8, 3)
+    f32 = cand_vecs.dtype == torch.float32
+    _lib.require(cand_vecs, "cand_vecs", torch.float32 if f32 else torch.int8, 3)
     B, C = cand_dists.shape
     d = cand_vecs.shape[2]
     if cand_vecs.shape[:2] != (B, C):
         raise ValueError(f"shape mismatch: cand_dists {tuple(cand_dists.shape)}, "
                          f"cand_vecs {tuple(cand_vecs.shape)}")
-    if C * d + 8 * C > 227 * 1024:
+    if not f32 and C * d + 8 * C > 227 * 1024:
         raise ValueError(f"C={C} candidates of d={d} bytes exceed one block's "
                          "shared memory")
     rounds = torch.empty((B, C), dtype=torch.int32, device=cand_dists.device)
@@ -88,13 +120,15 @@ def occlusion_rounds(cand_dists: torch.Tensor, cand_vecs: torch.Tensor, alpha,
         return rounds
     fn = _lib.function(
         "pa_occlusion_rounds",
-        [_lib.VP, _lib.VP, _lib.FLOAT, _lib.VP] + [_lib.INT] * 5 + [_lib.VP])
+        [_lib.VP, _lib.VP, _lib.FLOAT, _lib.VP] + [_lib.INT] * 6 + [_lib.VP])
     rc = fn(cand_dists.data_ptr(), cand_vecs.data_ptr(), float(alpha),
-            rounds.data_ptr(), B, C, d, R, int(metric is Metric.MIPS),
+            rounds.data_ptr(), B, C, d, R, int(metric is Metric.MIPS), int(f32),
             _lib.stream())
     occlusion_rounds.launches += 1
+    occlusion_rounds.launches_f32 += f32
     _lib.check(rc, "occlusion_rounds")
     return rounds
 
 
 occlusion_rounds.launches = 0
+occlusion_rounds.launches_f32 = 0

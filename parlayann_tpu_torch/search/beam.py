@@ -217,3 +217,8 @@ def beam_search_batch(
     out_ids = torch.where(beam_dists < INF, beam_ids, -1)
     return BeamResult(out_ids, beam_dists, vis_ids, vis_dists, num_visited,
                       dist_cmps)
+
+
+def top_k_from_beam(res: BeamResult, k: int):
+    """First k frontier entries -> (ids, dists); -1 id for missing."""
+    return res.beam_ids[:, :k], res.beam_dists[:, :k]

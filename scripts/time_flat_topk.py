@@ -5,7 +5,7 @@ Usage, on a machine with an NVIDIA GPU and nvcc:
     python3 scripts/time_flat_topk.py [--kernel flat_topk|occlusion|fusedbeam|cluster]
                                       [--root DIR]
                                       [--reps N] [--tag NAME]
-                                      [--build N ...] [--build-reps K]
+                                      [--build N ...] [--build-reps K] [--f32-build]
 
 Imports ``parlayann_tpu_torch`` from DIR (default: this repository), builds
 its kernels, and times one of them with chip_smoke.py's timer (this
@@ -61,8 +61,12 @@ alpha=1.2, two passes; batch_cap_frac 0.16 at 100K, 0.04 at 1M),
 ``--build-reps`` times on the host clock (fenced), then once more under
 torch.profiler. It reports each timed build's seconds, the average
 degree, the digests of the graphs (equal digests: equal graphs), and
-kernel 2's summed device ms and launches and the idle share of the
-profiled build.
+kernel 2's and kernel 1's summed device ms and launches, the idle share
+of the profiled build, and the caching allocator's device allocations
+and frees during it (``cudaMalloc`` / ``cudaFree`` calls, which block the
+host). ``--f32-build`` builds each size a second
+time on the f32 points (``quantize_build=False``), timed and profiled the
+same way (keys ``build{N}_f32_*``).
 """
 
 from __future__ import annotations
@@ -210,16 +214,20 @@ def time_cluster(chip, reps, dev, cache=None):
     return out
 
 
-def build_run(chip, n, reps, dev):
-    """Time the q8 build of n points ``reps`` times, then profile it once."""
+def build_run(chip, n, reps, dev, quantize_build=True):
+    """Time the q8 (or f32) build of n points ``reps`` times, then profile
+    it once."""
     import torch
     import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.ops.kernels.expand import expand_distances
     from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
     from parlayann_tpu_torch.utils import synthetic
 
     n_clusters, frac = BUILDS[n]
     X, _ = synthetic.clustered(n, 128, n_clusters=n_clusters, cluster_std=0.35, seed=SEED)
     kw = dict(R=32, L=64, alpha=1.2, batch_cap_frac=frac, device=dev)
+    if not quantize_build:
+        kw["quantize_build"] = False
     seconds, digests = [], set()
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -229,16 +237,25 @@ def build_run(chip, n, reps, dev):
         seconds.append(time.perf_counter() - t0)
         digests.add(hashlib.sha256(graph.neighbors.cpu().numpy().tobytes()
                                    + graph.degrees.cpu().numpy().tobytes()).hexdigest()[:16])
-    before = occlusion_rounds.launches
-    prof = chip.profile_window(lambda: pt.build_vamana_index(X, **kw), f"{n} build")
+    tag = f"build{n}" + ("" if quantize_build else "_f32")
+    before = occlusion_rounds.launches, expand_distances.launches
+    mem = torch.cuda.memory_stats()
+    prof = chip.profile_window(lambda: pt.build_vamana_index(X, **kw), f"{tag}")
+    mem_after = torch.cuda.memory_stats()
     if prof is None:
         sys.exit("time_flat_topk: the profiled build saw no device activity")
-    occl_us = sum(us for name, us in prof["by_name"].items() if "occlusion" in name)
-    tag = f"build{n}"
+
+    def device_ms(part):
+        return sum(us for name, us in prof["by_name"].items() if part in name) / 1e3
+
     return {f"{tag}_s": seconds, f"{tag}_avg_degree": graph.stats()[0],
-            f"{tag}_graph": sorted(digests), f"{tag}_occlusion_ms": occl_us / 1e3,
-            f"{tag}_occlusion_launches": occlusion_rounds.launches - before,
-            f"{tag}_idle_share": prof["idle"]}
+            f"{tag}_graph": sorted(digests), f"{tag}_occlusion_ms": device_ms("occlusion"),
+            f"{tag}_occlusion_launches": occlusion_rounds.launches - before[0],
+            f"{tag}_expand_ms": device_ms("expand_"),
+            f"{tag}_expand_launches": expand_distances.launches - before[1],
+            f"{tag}_busy_ms": prof["busy_ms"], f"{tag}_idle_share": prof["idle"],
+            **{f"{tag}_{k}": mem_after.get(k, 0) - mem.get(k, 0)
+               for k in ("num_device_alloc", "num_device_free")}}
 
 
 def main():
@@ -254,6 +271,8 @@ def main():
     ap.add_argument("--build", type=int, action="append", default=[], choices=sorted(BUILDS),
                     help="also time and profile the q8 build of this many points")
     ap.add_argument("--build-reps", type=int, default=1, help="timed builds of each size")
+    ap.add_argument("--f32-build", action="store_true",
+                    help="also time and profile each --build size on the f32 points")
     ap.add_argument("--index-cache", default=None,
                     help="cluster: load the two ClusterIndexes from this file, or build "
                          "and save them there")
@@ -289,6 +308,8 @@ def main():
         out.update(time_occlusion(chip, args.reps or 50, dev))
     for n in args.build:
         out.update(build_run(chip, n, args.build_reps, dev))
+        if args.f32_build:
+            out.update(build_run(chip, n, args.build_reps, dev, quantize_build=False))
     out["card"] = chip.card_line()
     print(json.dumps(out), flush=True)
 

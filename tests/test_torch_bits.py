@@ -324,8 +324,7 @@ def test_torch_inline_bits_cache_follows_the_tier(built):
 
 
 def test_torch_lock_step_tiers_take_expand_and_degree_limit(built):
-    """expand > 1 and degree_limit < R, refused on the q8 fused path, run on
-    the lock-step tiers."""
+    """expand > 1 and degree_limit < R run on the lock-step 1-bit tier."""
     b = built
     idx = pt.Index(points=b["tps"], graph=b["tg"]).enable_bit_tier()
     for kw in (dict(expand=2), dict(degree_limit=8)):

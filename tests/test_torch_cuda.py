@@ -6,8 +6,10 @@ GPU machine without the JAX package; run it there from the repository root
 with ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``
 (the shared conftest imports jax). Shapes are small versions of the main
 path's. On int8 data with integer-valued queries every distance is an
-exact integer, so those comparisons are exact. On f32 data the kernel and
-its plain version sum in another order. Flat top-k distances agree to rtol
+exact integer, so those comparisons are exact. Kernels 1 and 2 on f32
+rows, and kernel 5, sum in one fixed f32 order that their plain versions
+replay, so those comparisons are exact too. Elsewhere on f32 data the
+kernel and its plain version sum in another order. Flat top-k distances agree to rtol
 1e-5 plus 1e-6 x (||q||^2 + max ||x||^2) (the L2 algebra cancels the
 norms), and ids agree except where two distances lie within that
 tolerance; cluster-walk distances agree to rtol 1e-5 (L2) or to 1e-5 of
@@ -66,6 +68,46 @@ def test_torch_cuda_expand_distances_bit_equal(gen, cuda, d):
     for metric in (Metric.L2, Metric.MIPS):
         got = expand_distances(inl, ids, q, metric=metric)
         assert torch.equal(got, expand_distances_plain(inl, ids, q, metric=metric))
+
+
+@pytest.mark.parametrize("R8", [16, 32, 64])
+@pytest.mark.parametrize("d", [128, 96, 21, 20])
+def test_torch_cuda_expand_distances_f32_equal(gen, cuda, d, R8):
+    """Kernel 1 on f32 rows equals its plain version (the same summation
+    order) under L2 and MIPS; d = 21 is a row of 84 bytes (4-byte loads),
+    20 of 80 (16-byte rows off a 16-byte boundary: 8-byte loads) and 96 a
+    row whose last pass covers part of the 8 lanes; ids out of range are
+    clamped; f32 launches are counted apart."""
+    inl = t(gen.standard_normal((700, R8, d)).astype(np.float32), cuda)
+    for B in (0, 1, 999):
+        ids = t(gen.integers(-3, 703, B).astype(np.int32), cuda)
+        q = t((gen.standard_normal((B, d)) * 3).astype(np.float32), cuda)
+        for metric in (Metric.L2, Metric.MIPS):
+            before = (expand_distances.launches, expand_distances.launches_f32)
+            got = expand_distances(inl, ids, q, metric=metric)
+            n = int(B > 0)
+            assert (expand_distances.launches, expand_distances.launches_f32) == (
+                before[0] + n, before[1] + n)
+            assert got.shape == (B, R8)
+            assert torch.equal(got, expand_distances_plain(inl, ids, q, metric=metric))
+
+
+def test_torch_cuda_expand_distances_f32_main_shape(gen, cuda):
+    """The f32 search's shape: B=10,000 over a (100000, 32, 128) f32 inline
+    array, and a view whose rows start 4 bytes past a 16-byte boundary."""
+    inl = t(gen.standard_normal((100_000, 32, 128)).astype(np.float32), cuda)
+    ids = t(gen.integers(0, 100_000, 10_000).astype(np.int32), cuda)
+    q = t(gen.standard_normal((10_000, 128)).astype(np.float32), cuda)
+    for metric in (Metric.L2, Metric.MIPS):
+        got = expand_distances(inl, ids, q, metric=metric)
+        assert torch.equal(got, expand_distances_plain(inl, ids, q, metric=metric))
+    small = inl[:500]
+    flat = torch.empty(small.numel() + 4, dtype=torch.float32, device=cuda)
+    view = flat[1:1 + small.numel()].view(small.shape)
+    view.copy_(small)
+    ids = ids[:700] % 500
+    assert torch.equal(expand_distances(view, ids, q[:700], metric=Metric.L2),
+                       expand_distances_plain(small, ids, q[:700], metric=Metric.L2))
 
 
 INF32 = np.float32(3.0e38)
@@ -164,6 +206,53 @@ def test_torch_cuda_occlusion_rounds_misaligned_vectors(gen, cuda):
         occlusion_rounds(torch.zeros((1, 2000), device=cuda),
                          torch.zeros((1, 2000, 120), dtype=torch.int8, device=cuda),
                          1.2, R=32, metric=Metric.L2)
+
+
+def _occl_rows_f32(gen, B, C, d, metric):
+    """f32 rows as the f32 build's prunes see them: the metric's distances
+    to a point p, ascending, with an INF tail of up to C // 3 slots."""
+    p = gen.standard_normal((B, 1, d))
+    vecs = gen.standard_normal((B, C, d))
+    dist = ((vecs - p) ** 2).sum(-1) if metric is Metric.L2 else -(vecs * p).sum(-1)
+    tail = np.arange(C)[None, :] >= C - gen.integers(0, C // 3 + 1, (B, 1))
+    dist = np.where(tail, INF32, dist.astype(np.float32))
+    order = np.argsort(dist, axis=1, kind="stable")
+    return (np.take_along_axis(dist, order, 1),
+            np.take_along_axis(vecs, order[:, :, None], 1).astype(np.float32))
+
+
+@pytest.mark.parametrize("d", [128, 100, 21])
+@pytest.mark.parametrize("C,R", [(40, 32), (64, 32), (96, 32), (192, 64), (37, 16)])
+def test_torch_cuda_occlusion_rounds_f32_equal(gen, cuda, C, R, d):
+    """Kernel 2 on f32 vectors at the build's four prune shapes and one off
+    the strip and word widths: rounds equal to the plain version, which
+    forms the pair distances in the kernel's order; d = 21 takes 4-byte
+    copies. A row with no live candidate and one with fewer than R; f32
+    launches are counted apart."""
+    for metric in (Metric.L2, Metric.MIPS):
+        dist, vecs = _occl_rows_f32(gen, 64, C, d, metric)
+        dist[3] = INF32
+        dist[5, 3:] = INF32
+        before = occlusion_rounds.launches_f32
+        got = _check_occl(dist, vecs, 1.2, R, metric, cuda)
+        assert occlusion_rounds.launches_f32 == before + 1
+        assert bool((got[:, 0] == 0).sum() == 63)
+
+
+@pytest.mark.parametrize("C,d", [(300, 256), (1100, 16), (96, 700)])
+def test_torch_cuda_occlusion_rounds_f32_large_rows(gen, cuda, C, d):
+    """f32 rows past one CTA's shared memory ((300, 256): 309 KB; (96, 700))
+    or past 1024 candidates run the global-memory variant: still equal."""
+    for metric in (Metric.L2, Metric.MIPS):
+        dist, vecs = _occl_rows_f32(gen, 3, C, d, metric)
+        _check_occl(dist, vecs, 1.2, 64, metric, cuda)
+
+
+def test_torch_cuda_occlusion_rounds_f32_build_shape(gen, cuda):
+    """The chip check's shape, B=2048 rows of (C, R) = (96, 32), d=128."""
+    for metric in (Metric.L2, Metric.MIPS):
+        dist, vecs = _occl_rows_f32(gen, 2048, 96, 128, metric)
+        _check_occl(dist, vecs, 1.2, 32, metric, cuda)
 
 
 def _walk_case(gen, dev, *, n=2000, d=128, R=32, B=128, S=3, lim=128, qkind="int"):
@@ -303,7 +392,7 @@ def test_torch_cuda_bitonic_rows(gen, cuda, W):
 
 
 def test_torch_cuda_wrappers_reject_bad_input(cuda):
-    inl = torch.zeros((8, 8, 16), dtype=torch.float32, device=cuda)
+    inl = torch.zeros((8, 8, 16), dtype=torch.float64, device=cuda)
     ids = torch.zeros(4, dtype=torch.int32, device=cuda)
     q = torch.zeros((4, 16), device=cuda)
     with pytest.raises(ValueError, match="int8"):
@@ -694,3 +783,31 @@ def test_torch_cuda_bit_tier_search_equals_cpu(cluster_data, cuda):
         assert torch.equal(getattr(got[2], name).cpu(), getattr(want[2], name)), name
     assert torch.equal(got[0].cpu(), want[0])
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)
+
+
+def test_torch_cuda_f32_tier_and_lock_step_search(cluster_data, cuda):
+    """The f32 build and the lock-step searches on the card: the build
+    launches kernel 2's f32 mode, the f32 tier's search kernel 1's f32 mode
+    and the q8 tier's expand=2 and degree_limit < R searches its int8 mode;
+    recall@10 against exact ground truth stays near the CPU build's (0.999
+    f32, 0.9995 at expand=2, 0.917 at degree_limit=12 on the CPU)."""
+    from parlayann_tpu_torch.harness.recall import compute_recall
+    from parlayann_tpu_torch.search.exact import compute_groundtruth
+
+    X, Q = cluster_data
+    before = occlusion_rounds.launches_f32
+    g, ps, _ = build_vamana_index(X[:3000], R=16, L=32, quantize_build=False, device=cuda)
+    assert occlusion_rounds.launches_f32 > before and ps.data.dtype == torch.float32
+    gt, gt_d = compute_groundtruth(ps, Q, 20)
+    idx = Index(points=ps, graph=g)
+    f32_before = expand_distances.launches_f32
+    ids, _, res = idx.batch_search(Q, k=10, beam_size=32)
+    assert expand_distances.launches_f32 > f32_before and idx.inline.dtype == torch.float32
+    assert compute_recall(ids.cpu().numpy(), gt, gt_d, 10) >= 0.95
+    idx.enable_quantized(bits=8)
+    for kw, floor in ((dict(expand=2), 0.95), (dict(degree_limit=12), 0.85)):
+        n, n_f32 = expand_distances.launches, expand_distances.launches_f32
+        ids, _, _ = idx.batch_search(Q, k=10, beam_size=32, **kw)
+        assert expand_distances.launches > n and expand_distances.launches_f32 == n_f32
+        assert idx.inline.dtype == torch.int8
+        assert compute_recall(ids.cpu().numpy(), gt, gt_d, 10) >= floor, kw
