@@ -9,12 +9,14 @@ Phases:
      the CUDA kernels from ``parlayann_tpu_torch/csrc``.
   2. each kernel against its plain PyTorch version on the card, at the main
      path's shapes, with both times (CUDA events, after a warm-up); kernel
-     2 at the build's four prune shapes, (C, R) = (96, 32), (64, 32),
-     (40, 32) and (192, 64) over B=2048 rows of d=128, under L2 and MIPS,
-     each on rows of its own metric's distances; then the f32 modes of
-     kernels 1 (B=10,000 over a (100000, 32, 128) f32 inline array) and 2
-     (the same four prune shapes on f32 vectors, L2 and MIPS), each equal
-     to its plain version, which sums in the kernel's order.
+     2 at the builds' five prune shapes, (C, R) = (96, 32), (64, 32),
+     (40, 32), (192, 64) and (50, 20) over B=2048 rows of d=128, under L2
+     and MIPS, each on rows of its own metric's distances; then the f32
+     modes of kernels 1 (B=10,000 over a (100000, 32, 128) f32 inline
+     array) and 2 (the same five prune shapes on f32 vectors, L2 and MIPS,
+     with each shape's share of rechecked tests, and integer-valued rows at
+     alpha 1), each equal to its plain version, which sums in the serial
+     order (kernel 1's own; kernel 2 rechecks in it).
   3. the slice through the user entry points: a q8 Vamana build of the
      synthetic clustered 100K x 128 set (R=32, L=64, alpha=1.2, two passes,
      batch_cap_frac=0.16), then q8 ``Index.batch_search`` of 10K queries at
@@ -96,8 +98,10 @@ int8 points) of 2 B N d over 495 T/s (N: the points in the valid mask
 where there is one), the H100 SXM dense TF32 rate;
 kernel 2's are its stars' 2 C d int8 products and kernel 3's its 2 d int8
 products and sums a distance (integer-valued queries on the int8 tier),
-both over 1,979 T/s, the dense int8 rate (kernel 2's f32 mode: its stars'
-2 C d f32 operations over 67 T/s); kernel 2's bytes are each row's
+both over 1,979 T/s, the dense int8 rate (kernel 2's f32 mode runs 3xTF32
+on the tensor cores: its stars' 3 x 2 C d operations over 495 T/s, as
+kernel 4's; the f32-core bound of its earlier design, 2 C d over 67 T/s,
+is printed beside it); kernel 2's bytes are each row's
 distances and rounds (8 B C) and its live candidates' vectors.
 ``library_ms`` is one PyTorch call
 computing the same function where there is one (only for kernel 4: the cuBLAS product of the
@@ -290,14 +294,20 @@ def kernel_expand(gen, dev):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
-def _prune_rows(gen, dev, B, C, d, mips=False, f32=False):
+def _prune_rows(gen, dev, B, C, d, mips=False, f32=False, u8=False):
     """Candidate rows as robustPrune sees them: the metric's distances to a
     point p (squared L2, or -p.c under MIPS), ascending, with a tail of INF
-    (invalid) slots; int8 vectors (the q8 build), or normal f32 vectors
-    with their f32 distances (the f32 build)."""
+    (invalid) slots; int8 vectors (the q8 build), normal f32 vectors with
+    their f32 distances (the f32 build), or (``u8``) f32 vectors of integer
+    values in [0, 256) with their exact distances (a uint8 build's float32
+    copy)."""
     from parlayann_tpu_torch.ops.distance import INF
 
-    if f32:
+    if u8:
+        p = torch.randint(0, 256, (B, 1, d), generator=gen)
+        vecs = torch.randint(0, 256, (B, C, d), generator=gen)
+        f32 = True
+    elif f32:
         p = torch.randn((B, 1, d), generator=gen)
         vecs = torch.randn((B, C, d), generator=gen)
     else:
@@ -318,8 +328,14 @@ OCCLUDE_SHAPES = ((96, 32), (64, 32), (40, 32), (192, 64), (50, 20))
 def kernel_occlude(gen, dev, f32=False):
     """Kernel 2 at the builds' five prune shapes under L2 and MIPS, on int8
     or (``f32``) f32 vectors: rounds equal to the plain version (on f32
-    vectors it forms the pair distances in the kernel's order) -> the
-    kernels entry at (96, 32), L2, with every shape's times."""
+    vectors it forms the pair distances in the serial order that the
+    kernel rechecks in) -> the kernels entry at (96, 32), L2, with every
+    shape's times. On f32 vectors each shape also prints the share of the
+    tests the rounds can read that fell inside the margin and were
+    rechecked, on the normal rows and on integer-valued rows at alpha 1
+    (where exact ties d(star, c) = d(p, c) occur), whose rounds are checked
+    too; the bound counts the 3xTF32 operations at the TF32 rate, and the
+    f32-core bound of the design before it is printed beside it."""
     from parlayann_tpu_torch.types import Metric
     from parlayann_tpu_torch.ops.distance import INF
     from parlayann_tpu_torch.ops.kernels.occlude import (
@@ -332,9 +348,27 @@ def kernel_occlude(gen, dev, f32=False):
         for metric in (Metric.L2, Metric.MIPS):
             dist, vecs = _prune_rows(gen, dev, B, C, d, mips=metric is Metric.MIPS, f32=f32)
             what = f"kernel 2 occlusion_rounds{mode} B={B} C={C} R={R} d={d} {metric.name}"
-            out = occlusion_rounds(dist, vecs, alpha, R=R, metric=metric)
+            counts = torch.zeros(2, dtype=torch.int64, device=dev)
+            out = occlusion_rounds(dist, vecs, alpha, R=R, metric=metric, counts=counts)
             ref = occlusion_rounds_plain(dist, vecs, alpha, R=R, metric=metric)
             check(torch.equal(out, ref), f"{what}: rounds differ")
+            extra, note = {}, ""
+            if f32:
+                tests, rechecks = counts.tolist()
+                check(tests > 0, f"{what}: the kernel counted no tests")
+                idist, ivecs = _prune_rows(gen, dev, B, C, d, mips=metric is Metric.MIPS,
+                                           u8=True)
+                icounts = torch.zeros(2, dtype=torch.int64, device=dev)
+                check(torch.equal(
+                    occlusion_rounds(idist, ivecs, 1.0, R=R, metric=metric, counts=icounts),
+                    occlusion_rounds_plain(idist, ivecs, 1.0, R=R, metric=metric)),
+                    f"{what}: rounds differ on integer-valued rows at alpha 1")
+                itests, irechecks = icounts.tolist()
+                extra = dict(recheck_share=rechecks / tests,
+                             int_recheck_share=irechecks / max(itests, 1))
+                note = (f"; rechecked {rechecks} of {tests} tests "
+                        f"({extra['recheck_share']:.4%}), integer rows at alpha 1 "
+                        f"{irechecks} of {itests} ({extra['int_recheck_share']:.4%})")
             ms = time_ms(lambda: occlusion_rounds(dist, vecs, alpha, R=R, metric=metric), 20)
             plain_ms = time_ms(lambda: occlusion_rounds_plain(
                 dist, vecs, alpha, R=R, metric=metric), 2 if f32 else 3)
@@ -348,14 +382,22 @@ def kernel_occlude(gen, dev, f32=False):
                            .view(B, -1, 16).amax(2).sum(1).float().mean())
             # a star in a later strip runs that strip's epilogue
             check(strips > 1.0, f"{what}: the stars stay in one strip a row")
-            b = bound(B * C * 8 + n_live * d * size, 2 * stars * C * d,
-                      F32_OPS if f32 else INT8_OPS)
-            times[(C, R, metric)] = dict(ms=ms, plain_ms=plain_ms, **b)
+            nbytes = B * C * 8 + n_live * d * size
+            if f32:  # 3xTF32: three TF32 products a term
+                b = bound(nbytes, 3 * 2 * stars * C * d, TF32_OPS)
+                extra["f32_core_bound_ms"] = bound(nbytes, 2 * stars * C * d)["bound_ms"]
+                note += f"; the f32-core bound {extra['f32_core_bound_ms']:.4f} ms"
+            else:
+                b = bound(nbytes, 2 * stars * C * d, INT8_OPS)
+            times[(C, R, metric)] = dict(ms=ms, plain_ms=plain_ms, **b, **extra)
             log(f"{what}: rounds equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms; bound "
                 f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {stars} stars, "
-                f"{stars / B:.2f} and {strips:.2f} strips a row; {n_live} live candidates)")
-    return dict(max_abs_err=0.0, library_ms=None, **times[(96, 32, Metric.L2)],
-                shapes={f"C{C}_R{R}_{m.name}": dict(ms=v["ms"], bound_ms=v["bound_ms"])
+                f"{stars / B:.2f} and {strips:.2f} strips a row; {n_live} live candidates)"
+                f"{note}")
+    head = {k: v for k, v in times[(96, 32, Metric.L2)].items()
+            if k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+    return dict(max_abs_err=0.0, library_ms=None, **head,
+                shapes={f"C{C}_R{R}_{m.name}": {k: v[k] for k in v if k != "plain_ms"}
                         for (C, R, m), v in times.items()})
 
 

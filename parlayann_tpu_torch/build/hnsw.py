@@ -456,7 +456,8 @@ def build_hnsw_graph(points: PointSet, bp: BuildParams, verbose: bool = False,
     ``bp.L`` efc. ``quantize_build`` runs every build distance on the q8
     tier (float32 and uint8 points); the index's levels then hold the
     full-precision vectors again, so search changes only through the
-    graph."""
+    graph. Without it, uint8 points build on an exact float32 copy (kernel
+    2's f32 mode) and the levels hold them as uint8."""
     n = points.n
     m = bp.R if bp.R > 0 else 20
     efc = bp.L if bp.L > 0 else 50
@@ -466,12 +467,7 @@ def build_hnsw_graph(points: PointSet, bp: BuildParams, verbose: bool = False,
     dev = points.device
     t0 = time.perf_counter()
 
-    build_ps = points
-    if quantize_build and points.data.dtype in (torch.float32, torch.uint8):
-        build_ps = quantize.quantize_pointset(points, bits=8)
-    if build_ps.data.dtype not in (torch.int8, torch.float32):
-        raise ValueError(f"builds run on int8 or float32 points, not "
-                         f"{build_ps.data.dtype}; pass quantize_build=True")
+    build_ps = quantize.build_tier(points, quantize_build)
 
     levels_of, order = insert_plan(n, m_l, bp.seed)
     levels = [_make_level(build_ps, np.flatnonzero(levels_of >= lv_no).astype(np.int32),

@@ -17,8 +17,8 @@ least max(max_batch, 4096) wide) read candidate vectors through kernel 1
 from an inline neighbour-vector array rebuilt for the batch, unless that
 array would pass INLINE_BUDGET bytes (JAX vamana.py:524-534): then they
 gather rows. Builds run on int8 points (the q8 tier, the default) or on
-the float32 points themselves (``quantize_build=False``); distances are
-float32 either way.
+the float32 points themselves (``quantize_build=False``; uint8 points on
+an exact float32 copy); distances are float32 either way.
 
 Not ported yet: ``cand_mode="exact"``, the fused read phase
 (``build_beam_fused``), ``single_batch`` and ``profile``.
@@ -228,8 +228,8 @@ def build_vamana_index(
     """diskannpy-style wrapper (python/builder.cpp:40-90): MIPS data is
     normalized with a dimension-dependent alpha, and float or uint8 inputs
     build on the q8 tier unless ``quantize_build=False``, which builds on
-    the float32 points; search reranks at full precision. Returns (graph,
-    full-precision PointSet, BuildStats). ``data`` is an array, placed on
+    the float32 points (uint8: an exact float32 copy); search reranks at
+    full precision. Returns (graph, full-precision PointSet, BuildStats). ``data`` is an array, placed on
     ``device`` (None: the card), or a PointSet (which keeps its own
     device)."""
     metric = Metric.coerce(metric)
@@ -238,14 +238,7 @@ def build_vamana_index(
         device=device)
     if metric is Metric.MIPS and ps.d <= 200:
         alpha = 1.0 if ps.d < 100 else 0.98
-    build_ps = ps
-    if quantize_build and ps.data.dtype in (torch.float32, torch.uint8):
-        build_ps = quantize.quantize_pointset(ps, bits=8)
-    if build_ps.data.dtype not in (torch.int8, torch.float32):
-        # the kernels read int8 or float32 rows; uint8 builds through its
-        # exact affine remap into the q8 tier
-        raise ValueError(f"builds run on int8 or float32 points, not "
-                         f"{build_ps.data.dtype}; pass quantize_build=True")
+    build_ps = quantize.build_tier(ps, quantize_build)
     bp = BuildParams(R=R, L=L, alpha=alpha, num_passes=2 if two_pass else 1,
                      seed=seed, batch_cap_frac=batch_cap_frac)
     graph, stats = build_vamana_graph(build_ps, bp, verbose=verbose)

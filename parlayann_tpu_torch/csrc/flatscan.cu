@@ -76,6 +76,7 @@
 #include <type_traits>
 
 #include "bitonic.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -104,17 +105,10 @@ struct Params {
 using pa::cp_async;
 using pa::cp_async_commit;
 using pa::cp_async_wait_all;
+using pa::mma_tf32;
 using pa::smem_addr;
+using pa::split_tf32;
 using pa::stage_slot;
-
-// The TF32 value nearest to x (ties away from zero), as the f32 bit pattern
-// the mma reads: cvt.rna.tf32.f32's rounding, written as the two integer
-// operations it comes to for every input that is not a NaN (add half a
-// TF32 ulp to the magnitude bits, clear the 13 bits the mma drops); the
-// instruction itself compiles to about twice as many.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
 
 // (distance, id) as one unsigned key in key_less order (distance bits made
 // monotone), for atomicMin; ~0 is "none".
@@ -133,25 +127,6 @@ __device__ __forceinline__ void unpack_key(unsigned long long key, float& d, int
   const uint32_t m = static_cast<uint32_t>(key >> 32);
   d = __uint_as_float((m & 0x80000000u) ? (m & 0x7fffffffu) : ~m);
   id = static_cast<int>(static_cast<uint32_t>(key));
-}
-
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// D = A B + D on one m16n8k8 TF32 fragment (PTX ISA, "Matrix Fragments for
-// mma.m16n8k8" with .tf32): A row-major 16 x 8, a0 (g, t), a1 (g + 8, t),
-// a2 (g, t + 4), a3 (g + 8, t + 4); B column-major 8 x 8, b0 (t, g), b1
-// (t + 4, g); C/D c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8,
-// 2t + 1), with g = lane / 4 (groupID) and t = lane % 4 (threadID_in_group).
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Insert the candidates of one row of the distance tile `row` (kCT values,

@@ -7,18 +7,22 @@ kills every candidate c with ``alpha * d(star, c) <= d(p, c)``. The output
 is the round in which each candidate became the star, ``R + C`` if never;
 the caller recovers the (B, R) selection with one stable sort.
 
-The CUDA kernel is ``csrc/occlude.cu``: one warp a row; the occlusion
-tests of 16 candidates against the later ones are made when the star
-first reaches them, from int8 tensor-core products (int8 vectors) or f32
-dot products (f32 vectors), and kept as bits; a round is bit arithmetic
-on the row's live words.
+The CUDA kernel is ``csrc/occlude.cu``: one CTA a row (one warp for int8
+vectors, four for f32); the occlusion tests of 16 candidates against the
+later ones are made when the star first reaches them, from int8
+tensor-core products (int8 vectors) or 3xTF32 tensor-core products (f32
+vectors), and kept as bits; a round is bit arithmetic on the row's live
+words. On f32 vectors a test whose tensor-core value lies within
+:func:`occlusion_margin` of its threshold is decided again from the
+serial dot product, so the rounds stay exact.
 ``occlusion_rounds_plain`` follows the JAX package's
 ``_occlusion_loop_xla`` (build/prune.py:111): one C x C pairwise matrix,
 then R rounds of masks. On int8 candidates the matrix is one float32
 matmul: every distance is an exact integer in both (below 2^24 for
 d <= 258, where the f32 sums are exact), so the rounds are equal. On f32
-candidates it is :func:`pairwise_ordered`, the kernel's own summation
-order, so the rounds are equal bit for bit there too.
+candidates it is :func:`pairwise_ordered`, the serial order in which the
+f32 kernel decides every test its tensor-core sum leaves in doubt, so the
+rounds are equal bit for bit there too.
 """
 
 from __future__ import annotations
@@ -43,11 +47,11 @@ def pairwise(cand_vecs: torch.Tensor, metric: Metric) -> torch.Tensor:
 
 def pairwise_ordered(cand_vecs: torch.Tensor, metric: Metric,
                      max_elems: int = 1 << 24) -> torch.Tensor:
-    """(B, C, d) float32 -> (B, C, C) in the f32 kernel's order: each dot
-    product and squared norm summed over the d values in order, one
-    rounded product and one rounded add a term; L2 as
-    max((n_i - 2 dot) + n_j, 0), MIPS as -dot. Rows go in chunks of at
-    most ``max_elems`` pair entries."""
+    """(B, C, d) float32 -> (B, C, C) in the serial order that the f32
+    kernel's norms and rechecks use: each dot product and squared norm
+    summed over the d values in order, one rounded product and one rounded
+    add a term; L2 as max((n_i - 2 dot) + n_j, 0), MIPS as -dot. Rows go
+    in chunks of at most ``max_elems`` pair entries."""
     B, C, d = cand_vecs.shape
     out = torch.empty((B, C, C), dtype=torch.float32, device=cand_vecs.device)
     step = max(1, max_elems // max(C * C, 1))
@@ -65,6 +69,33 @@ def pairwise_ordered(cand_vecs: torch.Tensor, metric: Metric,
             out[lo:lo + step] = torch.clamp(
                 (nrm[:, :, None] - 2.0 * dot) + nrm[:, None, :], min=0.0)
     return out
+
+
+U = 2.0 ** -24  # the f32 unit roundoff
+
+
+def dot_error_coeff(d: int) -> float:
+    """c_d: |t - s| <= c_d * sum_k |a_k b_k| + 2^-100 for the f32 kernel's
+    3xTF32 dot product t and the serial f32 dot product s of two d-vectors
+    (the derivation is in ``csrc/occlude.cu``'s header): the split's dropped
+    products (3.01 x 2^-20), the tensor core's accumulation (10 x 2^-23 an
+    mma of 8 products, ceil(d / 8) of them a chain), t's two f32 adds
+    (2^-23) and the serial sum's gamma_d."""
+    g = d * U / (1.0 - d * U)
+    return 3.01 * 2.0 ** -20 + 2.0 ** -23 * (1.0 + 10.04 * ((d + 7) // 8)) + g
+
+
+def occlusion_margin(n_i, n_j, d: int, alpha: float, metric: Metric):
+    """The f32 kernel's margin M (``csrc/occlude.cu:make_margin``, in float64):
+    4 x the bound on |alpha pair(t) - alpha pair(s)| from the serial
+    squared norms ``n_i`` and ``n_j`` (arrays or tensors). A test with
+    |alpha pair(t) - d(p, c)| <= M is rechecked serially."""
+    g = d * U / (1.0 - d * U)
+    c, s, a = dot_error_coeff(d), 1.0 + 2.0 * g, abs(float(alpha))
+    root = (n_i * n_j) ** 0.5
+    if metric is Metric.MIPS:
+        return 4 * a * (c + 3 * U) * s * root + 4 * a * 2.0 ** -100
+    return 8 * a * c * s * root + 52 * a * U * (n_i + n_j) + 8 * a * 2.0 ** -100
 
 
 def occlusion_rounds_plain(cand_dists: torch.Tensor, cand_vecs: torch.Tensor,
@@ -93,14 +124,19 @@ def occlusion_rounds_plain(cand_dists: torch.Tensor, cand_vecs: torch.Tensor,
 
 
 def occlusion_rounds(cand_dists: torch.Tensor, cand_vecs: torch.Tensor, alpha,
-                     *, R: int, metric: Metric) -> torch.Tensor:
+                     *, R: int, metric: Metric,
+                     counts: torch.Tensor | None = None) -> torch.Tensor:
     """-> (B, C) int32: selection round per candidate, R + C if unselected.
     CPU tensors run :func:`occlusion_rounds_plain`; CUDA tensors launch the
     kernel, which takes f32 distances and int8 vectors (any alignment) of
     any C and d with C * d + 8 C <= 227 KB, or f32 vectors of any C and d
     (those launches are also counted in ``launches_f32``). A row whose
     workspace does not fit one CTA's shared memory, or with more than 1024
-    candidates, runs the kernel's global-memory variant."""
+    candidates, runs the kernel's global-memory variant. ``counts``, an
+    int64 tensor of 2 on the card, gains the f32 tensor-core tests the
+    rounds can read and the rechecks among them (int8 vectors and the
+    global-memory variant add nothing; the plain version leaves it as it
+    is)."""
     if not _lib.route(cand_dists, cand_vecs):
         return occlusion_rounds_plain(cand_dists, cand_vecs, alpha, R=R,
                                       metric=metric)
@@ -115,15 +151,19 @@ def occlusion_rounds(cand_dists: torch.Tensor, cand_vecs: torch.Tensor, alpha,
     if not f32 and C * d + 8 * C > 227 * 1024:
         raise ValueError(f"C={C} candidates of d={d} bytes exceed one block's "
                          "shared memory")
+    if counts is not None:
+        _lib.require(counts, "counts", torch.int64, 1)
+        if counts.numel() != 2 or counts.device != cand_dists.device:
+            raise ValueError("counts must hold 2 int64 on the inputs' device")
     rounds = torch.empty((B, C), dtype=torch.int32, device=cand_dists.device)
     if B == 0:
         return rounds
     fn = _lib.function(
         "pa_occlusion_rounds",
-        [_lib.VP, _lib.VP, _lib.FLOAT, _lib.VP] + [_lib.INT] * 6 + [_lib.VP])
+        [_lib.VP, _lib.VP, _lib.FLOAT, _lib.VP] + [_lib.INT] * 6 + [_lib.VP, _lib.VP])
     rc = fn(cand_dists.data_ptr(), cand_vecs.data_ptr(), float(alpha),
             rounds.data_ptr(), B, C, d, R, int(metric is Metric.MIPS), int(f32),
-            _lib.stream())
+            None if counts is None else counts.data_ptr(), _lib.stream())
     occlusion_rounds.launches += 1
     occlusion_rounds.launches_f32 += f32
     _lib.check(rc, "occlusion_rounds")

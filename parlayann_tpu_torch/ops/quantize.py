@@ -21,6 +21,7 @@ MIPS 2-bit and 4-bit tiers and the trimmed MIPS scale are not ported yet
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -91,6 +92,21 @@ def quantize_pointset(ps: PointSet, bits: int = 8, trim: float = 0.0) -> PointSe
         qdata = mips_translate(ps.data, slope, offset, bits)
     return PointSet(data=qdata, n=ps.n, d=ps.d, metric=ps.metric, bits=bits,
                     quant_slope=slope, quant_offset=offset)
+
+
+def build_tier(ps: PointSet, quantize_build: bool) -> PointSet:
+    """The points a graph build computes its distances on: the q8 tier of
+    float32 or uint8 points when ``quantize_build``; else int8 and float32
+    points as they are, and uint8 points as an exact float32 copy (the
+    kernels read int8 or float32 rows; the JAX package builds on uint8 as
+    it is, with the same integer distances)."""
+    if quantize_build and ps.data.dtype in (torch.float32, torch.uint8):
+        return quantize_pointset(ps, bits=8)
+    if ps.data.dtype == torch.uint8:
+        return dataclasses.replace(ps, data=ps.data.float())
+    if ps.data.dtype not in (torch.int8, torch.float32):
+        raise ValueError(f"builds run on int8, uint8 or float32 points, not {ps.data.dtype}")
+    return ps
 
 
 def translate_query(q: torch.Tensor, ps: PointSet) -> torch.Tensor:

@@ -5,7 +5,8 @@ Usage, on a machine with an NVIDIA GPU and nvcc:
     python3 scripts/time_flat_topk.py [--kernel flat_topk|occlusion|fusedbeam|cluster]
                                       [--root DIR]
                                       [--reps N] [--tag NAME]
-                                      [--build N ...] [--build-reps K] [--f32-build]
+                                      [--f32] [--build N ...] [--build-reps K]
+                                      [--f32-build]
 
 Imports ``parlayann_tpu_torch`` from DIR (default: this repository), builds
 its kernels, and times one of them with chip_smoke.py's timer (this
@@ -18,11 +19,12 @@ checkout in turns (A, B, B, A) in one call on one machine.
   shape, the synthetic clustered 100K x 128 set (seed 7) and its 10K
   queries, k=10, L2, on f32 points and on the q8 tier (int8 points,
   translated queries).
-- ``--kernel occlusion`` (kernel 2): chip_smoke.py's four prune shapes,
-  B=2048 rows of d=128 at (C, R) = (96, 32), (64, 32), (40, 32) and
-  (192, 64), alpha 1.2, under L2 and under MIPS, each on rows of its own
-  metric that chip_smoke.py makes from seed 7, so every checkout is timed
-  on the same inputs. Each shape's rounds are also checked against the
+- ``--kernel occlusion`` (kernel 2): chip_smoke.py's five prune shapes,
+  B=2048 rows of d=128 at (C, R) = (96, 32), (64, 32), (40, 32),
+  (192, 64) and (50, 20), alpha 1.2, under L2 and under MIPS, each on rows
+  of its own metric that chip_smoke.py makes from seed 7, so every
+  checkout is timed on the same inputs; int8 vectors, or normal f32
+  vectors with ``--f32``. Each shape's rounds are also checked against the
   checkout's plain version.
 - ``--kernel fusedbeam`` (kernel 3): builds chip_smoke.py's q8 Vamana index
   of its synthetic clustered 100K x 128 set once (with the checkout's own
@@ -104,7 +106,7 @@ def time_flat(chip, reps, dev):
             for name, qq, xx in (("f32", q, ps.data), ("int8", q8, tier.data))}
 
 
-def time_occlusion(chip, reps, dev):
+def time_occlusion(chip, reps, dev, f32=False):
     import torch
     from parlayann_tpu_torch.types import Metric
     from parlayann_tpu_torch.ops.kernels.occlude import (
@@ -115,9 +117,9 @@ def time_occlusion(chip, reps, dev):
     for C, R in chip.OCCLUDE_SHAPES:
         for metric in (Metric.L2, Metric.MIPS):
             dist, vecs = chip._prune_rows(gen, dev, OCCLUDE_B, C, OCCLUDE_D,
-                                          mips=metric is Metric.MIPS)
+                                          mips=metric is Metric.MIPS, f32=f32)
             kw = dict(R=R, metric=metric)
-            key = f"C{C}_R{R}_{metric.name}"
+            key = f"C{C}_R{R}_{metric.name}" + ("_f32" if f32 else "")
             out[f"{key}_equal"] = bool(torch.equal(
                 occlusion_rounds(dist, vecs, ALPHA, **kw),
                 occlusion_rounds_plain(dist, vecs, ALPHA, **kw)))
@@ -271,6 +273,8 @@ def main():
     ap.add_argument("--build", type=int, action="append", default=[], choices=sorted(BUILDS),
                     help="also time and profile the q8 build of this many points")
     ap.add_argument("--build-reps", type=int, default=1, help="timed builds of each size")
+    ap.add_argument("--f32", action="store_true",
+                    help="occlusion: time kernel 2's f32 mode (normal f32 vectors)")
     ap.add_argument("--f32-build", action="store_true",
                     help="also time and profile each --build size on the f32 points")
     ap.add_argument("--index-cache", default=None,
@@ -305,7 +309,7 @@ def main():
     elif args.kernel == "cluster":
         out.update(time_cluster(chip, args.reps or 20, dev, args.index_cache))
     else:
-        out.update(time_occlusion(chip, args.reps or 50, dev))
+        out.update(time_occlusion(chip, args.reps or 50, dev, args.f32))
     for n in args.build:
         out.update(build_run(chip, n, args.build_reps, dev))
         if args.f32_build:

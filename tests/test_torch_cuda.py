@@ -6,9 +6,11 @@ GPU machine without the JAX package; run it there from the repository root
 with ``python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py``
 (the shared conftest imports jax). Shapes are small versions of the main
 path's. On int8 data with integer-valued queries every distance is an
-exact integer, so those comparisons are exact. Kernels 1 and 2 on f32
-rows, and kernel 5, sum in one fixed f32 order that their plain versions
-replay, so those comparisons are exact too. Elsewhere on f32 data the
+exact integer, so those comparisons are exact. Kernel 1 on f32 rows and
+kernel 5 sum in one fixed f32 order that their plain versions replay, and
+kernel 2 on f32 rows decides every test its tensor-core sum leaves in
+doubt from the plain version's serial sum, so those comparisons are exact
+too. Elsewhere on f32 data the
 kernel and its plain version sum in another order. Flat top-k distances agree to rtol
 1e-5 plus 1e-6 x (||q||^2 + max ||x||^2) (the L2 algebra cancels the
 norms), and ids agree except where two distances lie within that
@@ -28,7 +30,7 @@ from parlayann_tpu_torch.ops.kernels.expand import (
     expand_bits_flat, expand_bits_flat_plain, expand_distances,
     expand_distances_plain)
 from parlayann_tpu_torch.ops.kernels.occlude import (
-    occlusion_rounds, occlusion_rounds_plain)
+    occlusion_rounds, occlusion_rounds_plain, pairwise_ordered)
 from parlayann_tpu_torch.ops.kernels.fusedbeam import (
     beam_search_fused, beam_search_fused_plain, bitonic_sort_rows)
 from parlayann_tpu_torch.ops.kernels.flatscan import (
@@ -229,8 +231,8 @@ def _occl_rows_f32(gen, B, C, d, metric):
                                  (50, 20)])
 def test_torch_cuda_occlusion_rounds_f32_equal(gen, cuda, C, R, d):
     """Kernel 2 on f32 vectors at the build's four prune shapes and one off
-    the strip and word widths: rounds equal to the plain version, which
-    forms the pair distances in the kernel's order; d = 21 takes 4-byte
+    the strip and word widths: rounds equal to the plain version, whose
+    serial sums the kernel rechecks in; d = 21 takes 4-byte
     copies. A row with no live candidate and one with fewer than R; f32
     launches are counted apart."""
     for metric in (Metric.L2, Metric.MIPS):
@@ -257,6 +259,66 @@ def test_torch_cuda_occlusion_rounds_f32_build_shape(gen, cuda):
     for metric in (Metric.L2, Metric.MIPS):
         dist, vecs = _occl_rows_f32(gen, 2048, 96, 128, metric)
         _check_occl(dist, vecs, 1.2, 32, metric, cuda)
+
+
+def _check_counted(dist, vecs, alpha, R, metric):
+    """_check_occl on card tensors with the recheck counter -> (tests the
+    rounds can read, rechecks)."""
+    counts = torch.zeros(2, dtype=torch.int64, device=dist.device)
+    got = occlusion_rounds(dist, vecs, alpha, R=R, metric=metric, counts=counts)
+    assert torch.equal(got, occlusion_rounds_plain(dist, vecs, alpha, R=R, metric=metric))
+    tests, rechecks = counts.tolist()
+    assert 0 <= rechecks <= tests
+    return tests, rechecks
+
+
+@pytest.mark.parametrize("d", [128, 100, 21])
+def test_torch_cuda_occlusion_rounds_f32_threshold_rows(gen, cuda, d):
+    """Adversarial f32 rows: each candidate's d(p, c) is alpha times its
+    pair distance to candidate 0, the first star, as the plain version
+    rounds both (its serial order), or one ulp above or below that. Every
+    test of the first star then sits on its threshold, inside the margin:
+    each is rechecked serially (at least C - 1 a row), and the rounds stay
+    equal to the plain version's, later stars included."""
+    B, C, R, alpha = 64, 96, 32, 1.2
+    for metric in (Metric.L2, Metric.MIPS):
+        vecs = t(gen.standard_normal((B, C, d)).astype(np.float32), cuda)
+        thr = torch.tensor(alpha, device=cuda) * pairwise_ordered(vecs, metric)[:, 0]
+        step = t(gen.integers(-1, 2, (B, C)), cuda)
+        inf = torch.full_like(thr, float("inf"))
+        thr = torch.where(step > 0, torch.nextafter(thr, inf),
+                          torch.where(step < 0, torch.nextafter(thr, -inf), thr))
+        thr[:, 0] = thr[:, 1:].min(dim=1).values - 1.0  # candidate 0 first
+        thr, order = torch.sort(thr, dim=1, stable=True)
+        vecs = torch.gather(vecs, 1, order[:, :, None].expand(B, C, d)).contiguous()
+        tests, rechecks = _check_counted(thr, vecs, alpha, R, metric)
+        assert rechecks >= B * (C - 1), (metric, tests, rechecks)
+
+
+@pytest.mark.parametrize("lim", [4, 256])
+def test_torch_cuda_occlusion_rounds_f32_integer_rows(gen, cuda, lim):
+    """Integer-valued f32 rows in [0, lim) (the exact float32 copies of
+    uint8 builds) at alpha = 1: 3xTF32 is exact on them, and the ties
+    d(star, c) = d(p, c) fall inside the margin and are rechecked (many at
+    lim = 4); the rounds stay equal. An int8 launch adds nothing to the
+    counter."""
+    B, C, R = 256, 96, 32
+    for d in (16, 128):
+        for metric in (Metric.L2, Metric.MIPS):
+            p = gen.integers(0, lim, (B, 1, d))
+            vecs = gen.integers(0, lim, (B, C, d))
+            dist = (((vecs - p) ** 2).sum(-1) if metric is Metric.L2
+                    else -(vecs * p).sum(-1)).astype(np.float32)
+            order = np.argsort(dist, axis=1, kind="stable")
+            dist = np.take_along_axis(dist, order, 1)
+            vecs = np.take_along_axis(vecs, order[:, :, None], 1)
+            tests, rechecks = _check_counted(t(dist, cuda), t(vecs.astype(np.float32), cuda),
+                                             1.0, R, metric)
+            assert tests > 0 and (rechecks > 0 or lim > 4), (d, metric, tests, rechecks)
+    counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+    occlusion_rounds(t(dist, cuda), t((vecs - lim // 2).astype(np.int8), cuda), 1.0, R=R,
+                     metric=metric, counts=counts)
+    assert counts.tolist() == [0, 0]
 
 
 def _walk_case(gen, dev, *, n=2000, d=128, R=32, B=128, S=3, lim=128, qkind="int"):
@@ -873,6 +935,20 @@ def test_torch_cuda_hnsw_q8_build_equals_cpu(cluster_data, cuda):
     want = built["cpu"].batch_search(Q, k=10, ef=32)
     assert torch.equal(got[0].cpu(), want[0])
     torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5, atol=0)
+
+
+def test_torch_cuda_hnsw_uint8_build_equals_cpu(cluster_data, cuda):
+    """uint8 points with ``quantize_build=False`` (the default) build on an
+    exact float32 copy: the card's build launches kernel 2's f32 mode and
+    equals the CPU build (every distance an integer below 2^24)."""
+    X, _ = cluster_data
+    U = np.round((X[:1500] - X.min()) / (X.max() - X.min()) * 255).astype(np.uint8)
+    before = occlusion_rounds.launches_f32
+    built = {str(dev): build_hnsw_index(U, m=8, efc=16, batch_cap_frac=0.1, device=dev)[0]
+             for dev in ("cpu", cuda)}
+    assert occlusion_rounds.launches_f32 > before
+    assert built[str(cuda)].levels[0].points_l.dtype == torch.uint8
+    _same_hierarchy(built[str(cuda)], built["cpu"])
 
 
 def test_torch_cuda_hnsw_q8_beam_level_equals_cpu(cluster_data, cuda, monkeypatch):

@@ -279,3 +279,33 @@ def test_torch_f32_inline_cache_budget_and_source(built):
     assert idx.inline.dtype == torch.int8 and idx._inline_src is idx.qpoints
     fresh = pt.Index(points=b["tps"], graph=b["tg"]).enable_quantized(bits=8)
     assert torch.equal(q_ids, fresh.batch_search(b["Q"], k=K, beam_size=BEAM, expand=2)[0])
+
+
+def test_torch_f32_uint8_build_equals_jax_row_for_row():
+    """uint8 points with ``quantize_build=False``: the JAX package builds on
+    them as they are, the port on an exact float32 copy (kernel 2's f32
+    mode); every distance is an integer below 2^24, exact in both, so the
+    graphs are equal row for row. A row that differs must hold the same
+    multiset of distances to its point (a tie; none on this data). The
+    returned PointSet stays uint8 in both."""
+    X, _ = synthetic.clustered(1500, 32, n_queries=8, n_clusters=24, cluster_std=0.35, seed=3)
+    U = np.round((X - X.min()) / (X.max() - X.min()) * 255).astype(np.uint8)
+    kw = dict(R=R_BUILD, L=L_BUILD, alpha=1.2, quantize_build=False)
+    jg, jps, _ = jpt.build_vamana_index(U, **kw)
+    tg, tps, _ = pt.build_vamana_index(U, device="cpu", **kw)
+    assert tps.data.dtype == torch.uint8 and np.asarray(jps.data).dtype == np.uint8
+
+    def rows(nbrs, degs):
+        nbrs, degs = np.array(nbrs)[:len(U)], np.asarray(degs)[:len(U)]
+        nbrs[np.arange(nbrs.shape[1])[None, :] >= degs[:, None]] = -1
+        return nbrs, degs
+
+    (tn, td), (jn, jd) = rows(tg.neighbors.numpy(), tg.degrees.numpy()), rows(
+        jg.neighbors, jg.degrees)
+    u = U.astype(np.int64)
+    differ = np.flatnonzero((tn != jn).any(axis=1) | (td != jd))
+    for r in differ:
+        def dists(row):
+            return np.sort(((u[row[row >= 0]] - u[r]) ** 2).sum(1))
+        np.testing.assert_array_equal(dists(tn[r]), dists(jn[r]))
+    assert len(differ) == 0, f"{len(differ)} rows differ (all distance ties)"

@@ -8,6 +8,9 @@ Bars.
   differ: the two rows must hold the same multiset of distances to the
   row's point (a swap between equally distant neighbours); none differs
   on this data.
+- uint8 build without ``quantize_build`` (the JAX package builds on the
+  uint8 points, the port on an exact float32 copy through kernel 2's f32
+  mode): the same integer distances, so the same bar and tie rule.
 - f32 builds, under L2 and MIPS: the ROADMAP's builder bar. Each level's
   average degree within 0.5 of the JAX build's, recall@10 at ef = 24
   within 0.01, each package's searcher also run over the other's
@@ -53,6 +56,12 @@ METRICS = {"l2": (Metric.L2, JMetric.L2), "mips": (Metric.MIPS, JMetric.MIPS)}
 def data():
     return synthetic.clustered(1500, 32, n_queries=64, n_clusters=20,
                                cluster_std=0.35, seed=7)
+
+
+def u8_data():
+    """data()'s points mapped onto 0..255 as uint8."""
+    X, _ = data()
+    return np.round((X - X.min()) / (X.max() - X.min()) * 255).astype(np.uint8)
 
 
 def build_both(X, metric, quantize_build):
@@ -144,14 +153,12 @@ def test_torch_hnsw_assign_levels_matches_jax():
     assert 0.03 < (got >= 1).mean() < 0.4 and got.min() == 0
 
 
-def test_torch_hnsw_q8_build_equals_jax_row_for_row(q8):
-    """Level members, entrances and every level's adjacency (the tie rule
-    of the module docstring for a row that differs)."""
-    jidx, tidx = q8["jidx"], q8["tidx"]
+def assert_levels_equal_up_to_ties(jidx, tidx, q):
+    """Level members, entrances and every level's adjacency, the tie rule
+    of the module docstring for a row that differs; ``q`` holds the
+    integer points the build measured distances on."""
     np.testing.assert_array_equal(tidx.entrances, jidx.entrances)
     assert len(tidx.levels) == len(jidx.levels) >= 3
-    # the build's q8 tier, in which the tie rule measures distances
-    q = np.asarray(jquantize.quantize_pointset(jidx.points, bits=8).data).astype(np.int64)
     for jl, tl in zip(jidx.levels, tidx.levels):
         np.testing.assert_array_equal(tl.members, jl.members)
         assert tl.cap == jl.cap
@@ -166,6 +173,28 @@ def test_torch_hnsw_q8_build_equals_jax_row_for_row(q8):
                 return np.sort(((q[ids] - p) ** 2).sum(1))
             np.testing.assert_array_equal(dists(tn[r]), dists(jn[r]))
         assert len(differ) == 0, f"{len(differ)} rows differ (all distance ties)"
+
+
+def test_torch_hnsw_q8_build_equals_jax_row_for_row(q8):
+    """Every level row for row, distances measured on the build's q8 tier."""
+    jidx, tidx = q8["jidx"], q8["tidx"]
+    q = np.asarray(jquantize.quantize_pointset(jidx.points, bits=8).data).astype(np.int64)
+    assert_levels_equal_up_to_ties(jidx, tidx, q)
+
+
+def test_torch_hnsw_uint8_build_equals_jax_row_for_row():
+    """uint8 points with ``quantize_build=False`` (the default): the JAX
+    package builds on them as they are, the port on an exact float32 copy
+    (every distance an integer below 2^24, so exact in both); every level
+    equals the JAX build's row for row, and the levels hold the uint8
+    points as the JAX levels do."""
+    U = u8_data()
+    bp = dict(R=M, L=EFC, alpha=0.9, m_l=0.34, batch_cap_frac=FRAC)
+    jidx, _ = jh.build_hnsw_graph(JPointSet.from_numpy(U), JBuildParams(**bp))
+    tidx, _ = th.build_hnsw_graph(PointSet.from_numpy(U, device="cpu"), BuildParams(**bp))
+    assert_levels_equal_up_to_ties(jidx, tidx, U.astype(np.int64))
+    for jl, tl in zip(jidx.levels, tidx.levels):
+        assert tl.points_l.dtype == torch.uint8 and np.asarray(jl.points_l).dtype == np.uint8
 
 
 def test_torch_hnsw_f32_build_parity(f32):
