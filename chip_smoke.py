@@ -9,12 +9,12 @@ Phases:
      the CUDA kernels from ``parlayann_tpu_torch/csrc``.
   2. each kernel against its plain PyTorch version on the card, at the main
      path's shapes, with both times (CUDA events, after a warm-up); kernel
-     2 at the builds' five prune shapes, (C, R) = (96, 32), (64, 32),
-     (40, 32), (192, 64) and (50, 20) over B=2048 rows of d=128, under L2
-     and MIPS, each on rows of its own metric's distances; then the f32
-     modes of kernels 1 (B=10,000 over a (100000, 32, 128) f32 inline
-     array) and 2 (the same five prune shapes on f32 vectors, L2 and MIPS,
-     with each shape's share of rechecked tests, and integer-valued rows at
+     2 at the builds' six prune shapes, (C, R) = (96, 32), (64, 32),
+     (40, 32), (192, 64), (50, 20) and (80, 40) over B=2048 rows of d=128,
+     under L2 and MIPS, each on rows of its own metric's distances; then
+     the f32 modes of kernels 1 (B=10,000 over a (100000, 32, 128) f32
+     inline array) and 2 (the same six prune shapes on f32 vectors, L2
+     and MIPS, with each shape's share of rechecked tests, and integer-valued rows at
      alpha 1), each equal to its plain version, which sums in the serial
      order (kernel 1's own; kernel 2 rechecks in it).
   3. the slice through the user entry points: a q8 Vamana build of the
@@ -78,8 +78,31 @@ Phases:
      L = 12 and 50 (the search's ef), equal to its plain version. Phase 2 also holds
      kernel 1 at R8 = 40 (HNSW's level 0) and kernel 2 at (C, R) = (50, 20)
      (its forward prune) to their plain versions.
-  Launch counts are zeroed just before phases 3, 4, 5, 7, 8 and 6 and read
-  just after each; every kernel of the phase's path must have launched.
+  9. HCNNG and pyNNDescent at 100K, after phase 8. HCNNG on phase 3's set
+     and ground truth: ``build_hcnng_index(X, mst_deg=3, num_clusters=30,
+     cluster_size=1000)``, f32, the JAX package's default and ParlayANN's
+     SIFT-100K configuration; its fenced seconds split into label trees,
+     candidate passes (the host's queueing and waits), Kruskal and
+     assembly; the q8 search at beams 10/16/32/64 (recall@10 at beam 64
+     at least 0.95). pyNNDescent
+     on ``synthetic.uniform(100_000, 128, n_queries=10_000)`` (the
+     clustered set splits a k-NN graph into its 1000 islands) with exact
+     ground truth on the card: build A, ``build_pynndescent_index(X,
+     max_deg=40, cluster_size=100, num_clusters=10, alpha=1.2,
+     delta=0.05)`` in f32, and build B, the same with
+     ``quantize_build=True``; each prints its seconds, rounds and changed
+     counts, degrees and the share of the true 10 nearest neighbours its
+     rows hold (1,000 sampled points), and is searched on the q8 tier with
+     one random start a query at beams 30/55/80 (recall@10 at beam 80 at
+     least ``PYNN_BAR``). One descent round's draws are timed on the host
+     and on the card's generator. Kernels 2 (f32 and int8) and 3 must
+     launch. Kernel 3 is then checked against its plain version on the
+     HCNNG graph (degree up to 90: the shared-memory walk) at B = 1024 and
+     10,000 x L = 10 and 64, and on build A's graph with its random starts
+     at B = 10,000, L = 80, and timed at each.
+  Launch counts are zeroed just before phases 3, 4, 5, 7, 8, 9 and 6 and
+  read just after each; every kernel of the phase's path must have
+  launched.
 
 Kernel times are device times from CUDA events over back-to-back launches
 (the stream sleeps while the host queues them). Each kernel's entry in the
@@ -321,12 +344,13 @@ def _prune_rows(gen, dev, B, C, d, mips=False, f32=False, u8=False):
     return dist.to(dev), vecs.to(torch.float32 if f32 else torch.int8).to(dev)
 
 
-# (C, R) of the Vamana build's prunes, then of HNSW's forward prune
-OCCLUDE_SHAPES = ((96, 32), (64, 32), (40, 32), (192, 64), (50, 20))
+# (C, R) of the Vamana build's prunes, HNSW's forward prune and
+# pyNNDescent's undirect prune
+OCCLUDE_SHAPES = ((96, 32), (64, 32), (40, 32), (192, 64), (50, 20), (80, 40))
 
 
 def kernel_occlude(gen, dev, f32=False):
-    """Kernel 2 at the builds' five prune shapes under L2 and MIPS, on int8
+    """Kernel 2 at the builds' six prune shapes under L2 and MIPS, on int8
     or (``f32``) f32 vectors: rounds equal to the plain version (on f32
     vectors it forms the pair distances in the serial order that the
     kernel rechecks in) -> the kernels entry at (96, 32), L2, with every
@@ -1174,6 +1198,180 @@ def kernel_flat_hnsw(builds, X, dev, B=2000, k=50):
     return out
 
 
+HCNNG_BEAMS = (10, 16, 32, 64)
+PYNN_BEAMS = (30, 55, 80)
+PYNN_BUILDS = {"A": dict(), "B": dict(quantize_build=True)}  # f32, then q8
+# recall@10 floor at beam 80 of both pyNNDescent builds, with one random
+# start, on the standard-normal 100K set: the first card run of this phase
+# showed 0.5509 (A) and 0.5501 (B) on an NVIDIA H100 80GB HBM3; 0.50
+# leaves 0.05 for other draws and run-to-run change
+PYNN_BAR = 0.50
+PYNN_SEED = 0  # the pyNNDescent and HCNNG builds' draws
+HCNNG_FUSED = FUSED_SHAPES  # kernel 3's (B, L) on the HCNNG graph
+PYNN_FUSED = (10_000, 80)  # kernel 3's (B, L) on pyNNDescent build A
+
+
+def knn_share(graph, points, dev, sample=1000):
+    """The share of each sampled point's exact 10 nearest neighbours (itself
+    excluded) that its graph row holds, over ``sample`` points drawn from
+    seed 7."""
+    from parlayann_tpu_torch.ops import distance
+
+    rows = torch.from_numpy(np.random.default_rng(SEED).choice(
+        points.n, sample, replace=False)).to(dev)
+    d = distance.all_pairs(points.data[rows], points.data[:points.n], points.metric)
+    d[torch.arange(sample, device=dev), rows] = float("inf")
+    true = torch.topk(d, K, dim=1, largest=False).indices
+    nb = graph.neighbors[rows].long()
+    nb = torch.where(torch.arange(nb.shape[1], device=dev)[None, :]
+                     < graph.degrees[rows][:, None], nb, -1)
+    return float((true[:, :, None] == nb[:, None, :]).any(-1).float().mean())
+
+
+def draw_cost(dev, n_pad=100_000, K_deg=40):
+    """The seconds of one descent round's draws at n_pad (the (n_pad, 16)
+    and (n_pad, 16, 16) join slots and the (n_pad K,) reverse keys), on the
+    host generator (moved to the card) and on the card's, which a card
+    build uses -> (host, card)."""
+    from parlayann_tpu_torch.utils.draws import Draws
+
+    out = []
+    for host in (True, False):
+        dr = Draws(PYNN_SEED, dev, host=host)
+        dr.hops(0, n_pad, 16, 16, 2 * K_deg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dr.reverse_bits(0, n_pad * K_deg)
+        dr.hops(0, n_pad, 16, 16, 2 * K_deg)
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return tuple(out)
+
+
+def hcnng_run(X, Q, gt, dev):
+    """Phase 9, HCNNG: the SIFT-100K configuration on phase 3's set, its
+    q8 search -> the q8 Index over the graph."""
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.harness.recall import compute_recall
+
+    gt_ids, gt_d = gt
+    split = {}
+    torch.cuda.synchronize()
+    graph, points, secs = pt.build_hcnng_index(X, mst_deg=3, num_clusters=30,
+                                               cluster_size=1000, device=dev,
+                                               seed=PYNN_SEED, stats=split)
+    avg_deg, max_deg = graph.stats()
+    check(graph.max_degree == 90 and max_deg <= 90 and avg_deg > 3,
+          f"HCNNG: degrees avg {avg_deg} max {max_deg}")
+    log(f"HCNNG build (mst_deg=3, num_clusters=30, cluster_size=1000, f32): {secs:.3f} s "
+        f"fenced: label trees {split['labels_s']:.3f} s, candidate passes (queueing and "
+        f"waits) {split['candidates_s']:.3f} s, Kruskal {split['kruskal_s']:.3f} s, assembly "
+        f"{split['assembly_s']:.3f} s; degree avg {avg_deg:.3f} max {max_deg}")
+    idx = pt.Index(points=points, graph=graph).enable_quantized(bits=8)
+    recall = {}
+    for beam in HCNNG_BEAMS:
+        ids, dists, res, dt = idx.batch_search_timed(Q, k=K, beam_size=beam, rounds=3)
+        r = compute_recall(ids.cpu().numpy(), gt_ids, gt_d, K)
+        recall[beam] = r
+        what = f"HCNNG q8 search beam={beam}"
+        check(ids.shape == (len(Q), K) and bool((ids >= 0).all()), f"{what}: malformed ids")
+        check(_no_duplicates(ids), f"{what}: duplicate ids")
+        check(bool(torch.isfinite(dists).all()), f"{what}: distances not finite")
+        log(f"{what}: recall@{K} {r:.4f}  QPS {len(Q) / dt:.1f}  ({dt * 1e3:.3f} ms; "
+            f"visited {float(res.num_visited.float().mean()):.2f} "
+            f"cmps {float(res.dist_cmps.float().mean()):.1f})")
+    check(recall[64] >= RECALL_BAR,
+          f"HCNNG recall@{K} at beam 64 is {recall[64]:.4f} < {RECALL_BAR}")
+    return idx, dict(build_s=secs, recall=recall, **split)
+
+
+def pynn_run(dev):
+    """Phase 9, pyNNDescent: builds A (f32) and B (q8) of the SIFT-100K
+    configuration on the standard-normal 100K set, each searched on the q8
+    tier with one random start -> ({build: Index}, the queries)."""
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.search import exact
+    from parlayann_tpu_torch.harness.recall import compute_recall
+    from parlayann_tpu_torch.utils import synthetic
+
+    X, Q = synthetic.uniform(100_000, 128, n_queries=10_000, seed=SEED)
+    t0 = time.perf_counter()
+    points = pt.PointSet.from_numpy(X, device=dev)
+    gt_ids, gt_d = exact.compute_groundtruth(points, Q, 2 * K)
+    log(f"data: synthetic uniform {X.shape}, {len(Q)} queries; exact top-{2 * K} on the "
+        f"card {time.perf_counter() - t0:.3f} s")
+    host_s, card_s = draw_cost(dev)
+    log(f"one descent round's draws at n_pad=100000: host generator {host_s:.4f} s, "
+        f"card generator {card_s:.4f} s")
+    out, recall = {}, {}
+    for name, kw in PYNN_BUILDS.items():
+        stats = {}
+        torch.cuda.synchronize()
+        graph, _, secs = pt.build_pynndescent_index(
+            points, max_deg=40, cluster_size=100, num_clusters=10, alpha=1.2, delta=0.05,
+            seed=PYNN_SEED, stats=stats, **kw)
+        avg_deg, max_deg = graph.stats()
+        check(max_deg <= 40 and avg_deg > 5, f"pyNNDescent {name}: degrees {avg_deg}/{max_deg}")
+        share = knn_share(graph, points, dev)
+        log(f"pyNNDescent build {name} ({kw or 'f32'}): {secs:.3f} s fenced: init "
+            f"{stats['init_s']:.3f} s, {len(stats['changed'])} rounds and the polish "
+            f"{stats['rounds_s']:.3f} s, prune {stats['prune_s']:.3f} s; changed "
+            f"{stats['changed']}, polish {stats['polish_changed']}; degree avg "
+            f"{avg_deg:.3f} max {max_deg}; true 10-NN held in the row {share:.4f}")
+        idx = pt.Index(points=points, graph=graph).enable_quantized(bits=8)
+        for beam in PYNN_BEAMS:
+            ids, dists, res, dt = idx.batch_search_timed(
+                Q, k=K, beam_size=beam, random_starts=1, seed=SEED, rounds=3)
+            r = compute_recall(ids.cpu().numpy(), gt_ids, gt_d, K)
+            recall[(name, beam)] = r
+            what = f"pyNNDescent {name} q8 search beam={beam} random_starts=1"
+            check(ids.shape == (len(Q), K) and bool((ids >= 0).all()), f"{what}: malformed ids")
+            check(_no_duplicates(ids), f"{what}: duplicate ids")
+            check(bool(torch.isfinite(dists).all()), f"{what}: distances not finite")
+            log(f"{what}: recall@{K} {r:.4f}  QPS {len(Q) / dt:.1f}  ({dt * 1e3:.3f} ms; "
+                f"visited {float(res.num_visited.float().mean()):.2f} "
+                f"cmps {float(res.dist_cmps.float().mean()):.1f})")
+        out[name] = idx
+    for name in PYNN_BUILDS:
+        r = recall[(name, PYNN_BEAMS[-1])]
+        check(r >= PYNN_BAR, f"pyNNDescent {name} recall@{K} at beam {PYNN_BEAMS[-1]} is "
+              f"{r:.4f} < {PYNN_BAR}")
+    return out, Q
+
+
+def kernel_fusedbeam_random(idx, Q, dev, B, L):
+    """Kernel 3 on a pyNNDescent graph with the search's random starts (one
+    a query, drawn as ``Index.batch_search`` draws them), against its plain
+    version -> times and bound."""
+    from parlayann_tpu_torch.ops import quantize
+    from parlayann_tpu_torch.ops.kernels.fusedbeam import (
+        beam_search_fused, beam_search_fused_plain)
+
+    q = torch.as_tensor(Q[:B]).to(dev)
+    tier, g = idx.qpoints, idx.graph
+    starts = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, tier.n, (B, 1)).astype(np.int32)).to(dev)
+    args = (quantize.translate_query(q, tier).float(), tier.data, g.neighbors, g.degrees,
+            starts)
+    kw = dict(metric=tier.metric, n_valid=tier.n, k=K, L=L, limit=tier.n)
+    expanded = []
+    got = beam_search_fused(*args, **kw)
+    want = beam_search_fused_plain(*args, **kw, expanded=expanded)
+    for name, a, b in zip(("ids", "dists", "num_visited", "dist_cmps"), got, want):
+        check(torch.equal(a, b), f"beam_search_fused random starts B={B} L={L}: {name} differ")
+    ms = time_ms(lambda: beam_search_fused(*args, **kw), 10)
+    n_cmp = int(got[3].sum())
+    n_rows, n_adj = fused_rows(args, kw["n_valid"], expanded)
+    d, R = args[0].shape[1], args[2].shape[1]
+    b = bound(n_rows * d + n_adj * (R + 1) * 4 + B * d * 4 + B * 4 + B * L * 8 + B * 8,
+              2 * n_cmp * d, INT8_OPS)
+    log(f"kernel 3 beam_search_fused B={B} L={L} R={R} on pyNNDescent A's graph, one random "
+        f"start a query: ids, dists, nv, cmps equal; {ms:.4f} ms; bound {b['bound_ms']:.4f} "
+        f"ms ({b['bound_by']}; {n_adj} vertices, {n_cmp} distances to {n_rows} rows); "
+        f"visits mean {float(got[2].float().mean()):.2f} max {int(got[2].max())}")
+    return dict(ms=ms, **b)
+
+
 def tier_run(dev):
     """Phase 6: the capacity tiers at bench_1m_tiers' size -> (launches,
     the tiers' inline words and query words for kernel 6's check)."""
@@ -1348,6 +1546,29 @@ def main():
     k3h = kernel_fusedbeam(hnsw_builds["A"]._base_index(), Q, dev, shapes=HNSW_FUSED,
                            plain_at=HNSW_FUSED[0], what="HNSW A's level 0")
     del hnsw_builds
+    phase("phase 9: HCNNG and pyNNDescent at 100K (cluster trees, Kruskal, random starts)")
+    t9 = time.perf_counter()
+    from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
+    from parlayann_tpu_torch.ops.kernels.fusedbeam import beam_search_fused
+    for w in (occlusion_rounds, beam_search_fused):
+        w.launches = 0
+    occlusion_rounds.launches_f32 = 0
+    torch.cuda.synchronize()
+    hcnng_idx, _ = hcnng_run(X, Q, gt, dev)
+    pynn_idx, pynn_q = pynn_run(dev)
+    torch.cuda.synchronize()
+    p9 = {"occlusion_rounds": occlusion_rounds.launches - occlusion_rounds.launches_f32,
+          "occlusion_rounds (f32 rows)": occlusion_rounds.launches_f32,
+          "beam_search_fused": beam_search_fused.launches}
+    log("launches during phase 9:", p9)
+    for name, n in p9.items():
+        check(n > 0, f"{name} was not launched by phase 9")
+    phase("phase 2 (continued): kernel 3 on the HCNNG graph and with random starts")
+    k3c = kernel_fusedbeam(hcnng_idx, Q, dev, shapes=HCNNG_FUSED, plain_at=(1024, 64),
+                           what="the HCNNG graph")
+    k3r = kernel_fusedbeam_random(pynn_idx["A"], pynn_q, dev, *PYNN_FUSED)
+    del hcnng_idx, pynn_idx
+    log(f"phase 9 took {time.perf_counter() - t9:.1f} s")
     phase("phase 6: the capacity tiers at 1M (q8 build, 1-bit and JL search)")
     tier_launches, kept = tier_run(dev)
     launches["expand_bits_flat"] = tier_launches["expand_bits_flat"]
@@ -1361,6 +1582,11 @@ def main():
     k4["shapes"] = {"hnsw_A_level1_masked_f32_B2000_k50": k4h["f32"],
                     "hnsw_B_level1_masked_int8_B2000_k50": k4h["int8"]}
     k3["shapes"].update({f"hnsw_R40_B{B}_L{L}": v for (B, L), v in k3h.items()})
+    # phase9_launches: launches in phase 9 (HCNNG, pyNNDescent); kernel 3's
+    # times on the HCNNG graph (R = 90) and with random starts
+    k3["shapes"].update({f"hcnng_R90_B{B}_L{L}": dict(ms=v["ms"], bound_ms=v["bound_ms"])
+                         for (B, L), v in k3c.items()})
+    k3["shapes"][f"pynn_R40_random_starts_B{PYNN_FUSED[0]}_L{PYNN_FUSED[1]}"] = k3r
     h = hnsw_launches
     kernels = [
         dict(name="expand_distances", route="cuda",
@@ -1372,7 +1598,8 @@ def main():
              source="parlayann_tpu_torch/csrc/occlude.cu",
              replaces="parlayann_tpu/ops/pallas/occlude.py:91",
              launches=launches["occlusion_rounds"],
-             phase8_launches=h["occlusion_rounds"], **k2),
+             phase8_launches=h["occlusion_rounds"],
+             phase9_launches=p9["occlusion_rounds"], **k2),
         # the f32 modes, launched by phase 7
         dict(name="expand_distances (f32 rows)", route="cuda",
              source="parlayann_tpu_torch/csrc/expand.cu",
@@ -1383,12 +1610,14 @@ def main():
              source="parlayann_tpu_torch/csrc/occlude.cu",
              replaces="parlayann_tpu/ops/pallas/occlude.py:91",
              launches=launches["occlusion_rounds (f32 rows)"],
-             phase8_launches=h["occlusion_rounds (f32 rows)"], **k2f),
+             phase8_launches=h["occlusion_rounds (f32 rows)"],
+             phase9_launches=p9["occlusion_rounds (f32 rows)"], **k2f),
         dict(name="beam_search_fused", route="cuda",
              source="parlayann_tpu_torch/csrc/fusedbeam.cu",
              replaces="parlayann_tpu/ops/pallas/fusedbeam.py:627",
              launches=launches["beam_search_fused"],
-             phase8_launches=h["beam_search_fused"], **k3),
+             phase8_launches=h["beam_search_fused"],
+             phase9_launches=p9["beam_search_fused"], **k3),
         dict(name="flat_topk", route="cuda",
              source="parlayann_tpu_torch/csrc/flatscan.cu",
              replaces="parlayann_tpu/ops/pallas/flatscan.py:121",

@@ -17,6 +17,8 @@ ClusterIndex build and search (:func:`build_cluster_index`,
 :class:`ClusterIndex`); the flat brute-force search (:class:`FlatIndex`);
 the HNSW build and its layered search (:func:`build_hnsw_index`,
 :class:`HNSWIndex`, with the v2 and the reference's v3 model files); the
+HCNNG and pyNNDescent builds (:func:`build_hcnng_index`,
+:func:`build_pynndescent_index`) and ``random_starts`` search; the
 reference's file formats (``data/io.py``, ``PointSet.from_file``,
 ``GraphIndexData.load``/``save``, :func:`load_index`, ``Index.save``,
 ``ClusterIndex.save``/``load``).
@@ -28,7 +30,12 @@ from parlayann_tpu_torch.types import BuildParams, QueryParams, Metric
 from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.data.graph import GraphIndexData
 from parlayann_tpu_torch.api import (
-    build_vamana_index, build_hnsw_index, build_cluster_index, load_index,
+    build_vamana_index,
+    build_hcnng_index,
+    build_pynndescent_index,
+    build_hnsw_index,
+    build_cluster_index,
+    load_index,
 )
 from parlayann_tpu_torch.index import Index
 from parlayann_tpu_torch.build.clusterindex import ClusterIndex
@@ -44,6 +51,8 @@ __all__ = [
     "PointSet",
     "GraphIndexData",
     "build_vamana_index",
+    "build_hcnng_index",
+    "build_pynndescent_index",
     "build_hnsw_index",
     "build_cluster_index",
     "load_index",

@@ -1,8 +1,8 @@
 """High-level API with boundary validation (ParlayANNpy parity).
 
-Counterpart of parlayann_tpu/api.py for the Vamana, HNSW and ClusterIndex
-builds and ``load_index``: a bad dtype, metric, shape or path raises
-ValueError before any device work starts.
+Counterpart of parlayann_tpu/api.py for the Vamana, HCNNG, pyNNDescent,
+HNSW and ClusterIndex builds and ``load_index``: a bad dtype, metric,
+shape or path raises ValueError before any device work starts.
 """
 
 from __future__ import annotations
@@ -72,6 +72,46 @@ def build_vamana_index(data, metric="Euclidian", R: int = 64, L: int = 128,
     return vamana.build_vamana_index(
         data, metric=valid_metric(metric), R=R, L=L, alpha=alpha,
         two_pass=two_pass, quantize_build=quantize_build, **kwargs)
+
+
+def build_hcnng_index(data, metric="Euclidian", mst_deg: int = 3,
+                      num_clusters: int = 30, cluster_size: int = 1000,
+                      device=None, **kwargs):
+    """Validated HCNNG build (api.py:85-98) -> (graph, PointSet, build
+    seconds). ``data`` becomes a PointSet on ``device`` (None: the card)
+    unless it is one; other keyword arguments go to
+    :func:`build.hcnng.build_hcnng_index` (``seed``, ``verbose``)."""
+    from parlayann_tpu_torch.build import hcnng
+
+    data = _valid_data(data)
+    _valid_pos("mst_deg", mst_deg)
+    _valid_pos("num_clusters", num_clusters)
+    _valid_pos("cluster_size", cluster_size, lo=2)
+    return hcnng.build_hcnng_index(
+        data, metric=valid_metric(metric), mst_deg=mst_deg,
+        num_clusters=num_clusters, cluster_size=cluster_size, device=device,
+        **kwargs)
+
+
+def build_pynndescent_index(data, metric="Euclidian", max_deg: int = 40,
+                            num_clusters: int = 10, cluster_size: int = 100,
+                            alpha: float = 1.2, delta: float = 0.05,
+                            device=None, **kwargs):
+    """Validated pyNNDescent build (api.py:101-116) -> (graph, PointSet,
+    build seconds). ``data`` becomes a PointSet on ``device`` (None: the
+    card) unless it is one; other keyword arguments go to
+    :func:`build.pynndescent.build_pynndescent_index` (``quantize_build``,
+    ``seed``, ``verbose``). Search with ``random_starts``."""
+    from parlayann_tpu_torch.build import pynndescent
+
+    data = _valid_data(data)
+    _valid_pos("max_deg", max_deg)
+    if not (0.0 < float(delta) < 1.0):
+        raise ValueError(f"delta must be in (0, 1), got {delta}")
+    return pynndescent.build_pynndescent_index(
+        data, metric=valid_metric(metric), K=max_deg,
+        num_clusters=num_clusters, cluster_size=cluster_size,
+        alpha=alpha, delta=delta, device=device, **kwargs)
 
 
 def build_hnsw_index(data, metric="Euclidian", m: int = 20, efc: int = 50,

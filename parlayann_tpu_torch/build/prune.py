@@ -47,6 +47,23 @@ def sort_dedup_candidates(cand_ids, cand_dists, n_valid: int):
     return sid, sdist
 
 
+def _pairwise(cand_vecs: torch.Tensor, metric: Metric) -> torch.Tensor:
+    """(B, C, d) -> (B, C, C) all candidate-candidate distances in one
+    float32 ``torch.bmm`` with TF32 off (JAX prune.py:56): -dot for MIPS,
+    max(n_i - 2 dot + n_j, 0) for L2."""
+    v = cand_vecs.float()
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        dot = torch.bmm(v, v.transpose(1, 2))
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    if metric is Metric.MIPS:
+        return -dot
+    nrm = (v * v).sum(-1)
+    return torch.clamp(nrm[:, :, None] - 2.0 * dot + nrm[:, None, :], min=0.0)
+
+
 def _occlusion_loop(cand_ids, cand_dists, cand_vecs, alpha, R: int, metric: Metric):
     """R rounds of α-occlusion -> (sel_ids, sel_dists), both (B, R) in
     selection (= distance) order."""

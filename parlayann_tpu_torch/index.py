@@ -24,8 +24,9 @@ starts, or ``start_point``); the quantized tiers end in the
 full-precision rerank, the f32 tier in the beam's first k entries. The
 JAX package's TPU-only eligibility tests of the fused kernel (its VMEM
 beam-state budget, ``d >= R8``) are not carried over: kernel 3 takes any
-L up to 4096 and any d. ``random_starts`` raises NotImplementedError
-naming its ROADMAP item; nothing falls back to another path.
+L up to 4096 and any d. ``random_starts`` draws each query's starts as
+the JAX package does (index.py:318-322); nothing falls back to another
+path.
 
 ``Index.load``/``save`` read and write the reference's graph and data
 files (data/io.py), and ``batch_search_from_string`` searches a big-ann
@@ -200,16 +201,18 @@ class Index:
         lock-step search on the 1-bit and JL tiers.
 
         ``starts``: optional per-query start ids, (B,) or (B, S); they take
-        precedence over the entry tier and ``start_point``. The rerank pool
-        is min(k * rerank_factor, beam).
+        precedence over ``random_starts``, which take precedence over the
+        entry tier and ``start_point``. ``random_starts > 0``: every query
+        starts from that many uniformly random vertices,
+        ``np.random.default_rng(seed).integers(0, n, (B, random_starts))``
+        as in the JAX package (beamSearchRandom, beamSearch.h:309-351); a
+        graph without a navigable entry, such as pyNNDescent's k-NN graph,
+        needs them. The rerank pool is min(k * rerank_factor, beam).
 
         The JAX package's ``two_phase`` (resume at most B // 4 unconverged
         queries in a second phase) and ``expand_group`` (group expansions
         into one TPU step) schedule work on the TPU: both are accepted and
-        every query runs its untruncated search. ``seed`` draws the
-        ``random_starts``, which are not ported yet."""
-        if random_starts > 0:
-            _not_ported("random_starts", 'queue 1, "The remaining tiers"')
+        every query runs its untruncated search."""
         qp = QueryParams(k=k, beamSize=beam_size, cut=cut, limit=limit,
                          degree_limit=degree_limit).resolved(
             self.graph.max_degree, self.points.n)
@@ -218,6 +221,10 @@ class Index:
             start_arr = torch.as_tensor(starts).to(self.device, torch.int32)
             if start_arr.dim() == 1:
                 start_arr = start_arr[:, None]
+        elif random_starts > 0:
+            rs = np.random.default_rng(seed).integers(
+                0, self.points.n, (qf.shape[0], random_starts))
+            start_arr = torch.from_numpy(rs.astype(np.int32)).to(self.device)
         elif self.use_entry and self.points.n >= self.entry_min_n:
             # never clobber a caller-built tier (index.py:323-331)
             if self.entry_ids is None:

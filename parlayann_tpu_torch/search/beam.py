@@ -30,6 +30,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from parlayann_tpu_torch.types import Metric
@@ -222,3 +223,18 @@ def beam_search_batch(
 def top_k_from_beam(res: BeamResult, k: int):
     """First k frontier entries -> (ids, dists); -1 id for missing."""
     return res.beam_ids[:, :k], res.beam_dists[:, :k]
+
+
+def beam_search_random(queries, points_data, nbrs, degs, *, n_starts: int = 1,
+                       seed: int = 0, **kw) -> BeamResult:
+    """beamSearchRandom (beamSearch.h:309-351): every query starts from
+    ``n_starts`` uniformly random vertices,
+    ``np.random.default_rng(seed).integers(0, n_valid, (B, n_starts),
+    dtype=np.int32)``, the JAX package's draw (beam.py:392; an int32 draw,
+    where ``Index.batch_search`` draws int64). Other keyword arguments go
+    to :func:`beam_search_batch`."""
+    B = queries.shape[0]
+    n_valid = kw.get("n_valid", points_data.shape[0])
+    rs = np.random.default_rng(seed).integers(0, n_valid, (B, n_starts), dtype=np.int32)
+    return beam_search_batch(queries, points_data, nbrs, degs,
+                             torch.from_numpy(rs).to(queries.device), **kw)

@@ -19,9 +19,9 @@ checkout in turns (A, B, B, A) in one call on one machine.
   shape, the synthetic clustered 100K x 128 set (seed 7) and its 10K
   queries, k=10, L2, on f32 points and on the q8 tier (int8 points,
   translated queries).
-- ``--kernel occlusion`` (kernel 2): chip_smoke.py's five prune shapes,
+- ``--kernel occlusion`` (kernel 2): chip_smoke.py's six prune shapes,
   B=2048 rows of d=128 at (C, R) = (96, 32), (64, 32), (40, 32),
-  (192, 64) and (50, 20), alpha 1.2, under L2 and under MIPS, each on rows
+  (192, 64), (50, 20) and (80, 40), alpha 1.2, under L2 and under MIPS, each on rows
   of its own metric that chip_smoke.py makes from seed 7, so every
   checkout is timed on the same inputs; int8 vectors, or normal f32
   vectors with ``--f32``. Each shape's rounds are also checked against the

@@ -324,15 +324,19 @@ def test_torch_inline_bits_cache_follows_the_tier(built):
 
 
 def test_torch_lock_step_tiers_take_expand_and_degree_limit(built):
-    """expand > 1 and degree_limit < R run on the lock-step 1-bit tier."""
+    """expand > 1 and degree_limit < R run on the lock-step 1-bit tier, and
+    so do random starts: ``random_starts=2, seed=1`` searches from
+    ``default_rng(1).integers(0, n, (B, 2))``."""
     b = built
     idx = pt.Index(points=b["tps"], graph=b["tg"]).enable_bit_tier()
     for kw in (dict(expand=2), dict(degree_limit=8)):
         ids, _, _ = idx.batch_search(b["Q"], k=K, beam_size=32, **kw)
         assert ids.shape == (len(b["Q"]), K) and (ids >= 0).all()
         assert compute_recall(ids.numpy(), b["gt"], b["gt_d"], K) >= 0.3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.batch_search(b["Q"], random_starts=2)
+    got = idx.batch_search(b["Q"], k=K, beam_size=32, random_starts=2, seed=1)[0]
+    starts = np.random.default_rng(1).integers(0, b["tps"].n, (len(b["Q"]), 2))
+    assert torch.equal(got, idx.batch_search(b["Q"], k=K, beam_size=32, starts=starts)[0])
+    assert compute_recall(got.numpy(), b["gt"], b["gt_d"], K) >= 0.3
 
 
 def test_torch_jl_project_shapes(rng):

@@ -39,7 +39,11 @@ from parlayann_tpu_torch.ops.kernels.clusterbeam import (
     cluster_walk, cluster_walk_plain, seed_centroids)
 from parlayann_tpu_torch.ops.topk import lexsort
 from parlayann_tpu_torch.api import build_cluster_index, build_hnsw_index, build_vamana_index
-from parlayann_tpu_torch.build import hnsw
+from parlayann_tpu_torch.build import hcnng, hnsw, pynndescent
+from parlayann_tpu_torch.harness.recall import compute_recall
+from parlayann_tpu_torch.search.exact import compute_groundtruth
+from parlayann_tpu_torch.types import BuildParams
+from parlayann_tpu_torch.utils.draws import Draws
 from parlayann_tpu_torch.index import Index
 from parlayann_tpu_torch import interop
 
@@ -145,10 +149,11 @@ def _check_occl(dist, vecs, alpha, R, metric, dev):
 
 @pytest.mark.parametrize("d", [20, 100, 128])
 @pytest.mark.parametrize("C,R", [(37, 16), (40, 32), (50, 20), (64, 32), (96, 32),
-                                 (100, 40), (192, 64)])
+                                 (100, 40), (192, 64), (80, 40)])
 def test_torch_cuda_occlusion_rounds_equal(gen, cuda, C, R, d):
     """The build's C (40, 64, 96, 192), HNSW's forward prune (efc = 50,
-    m = 20) and widths off the 16-candidate strip and 32-candidate word; d = 128 takes 16-byte copies, 100 and 20 4-byte
+    m = 20), pyNNDescent's undirect prune (2K, K) = (80, 40) and widths off
+    the 16-candidate strip and 32-candidate word; d = 128 takes 16-byte copies, 100 and 20 4-byte
     ones. Each batch has a row with no live candidate and one with fewer
     than R; alpha = 1 on small integers makes d(star, c) = d(p, c) ties."""
     for metric in (Metric.L2, Metric.MIPS):
@@ -228,9 +233,10 @@ def _occl_rows_f32(gen, B, C, d, metric):
 
 @pytest.mark.parametrize("d", [128, 100, 21])
 @pytest.mark.parametrize("C,R", [(40, 32), (64, 32), (96, 32), (192, 64), (37, 16),
-                                 (50, 20)])
+                                 (50, 20), (80, 40)])
 def test_torch_cuda_occlusion_rounds_f32_equal(gen, cuda, C, R, d):
-    """Kernel 2 on f32 vectors at the build's four prune shapes and one off
+    """Kernel 2 on f32 vectors at the Vamana build's four prune shapes,
+    HNSW's (50, 20), pyNNDescent's (80, 40) and one off
     the strip and word widths: rounds equal to the plain version, whose
     serial sums the kernel rechecks in; d = 21 takes 4-byte
     copies. A row with no live candidate and one with fewer than R; f32
@@ -447,6 +453,22 @@ def test_torch_cuda_beam_search_fused_widest_beam_and_rows(gen, cuda):
     args = _walk_case(gen, cuda, R=300, B=64)
     for metric in (Metric.L2, Metric.MIPS):
         _check_walk(args, metric=metric, n_valid=2000, k=10, L=64)
+
+
+@pytest.mark.parametrize("L", [10, 64, 80])
+def test_torch_cuda_beam_search_fused_degree90_random_starts(gen, cuda, L):
+    """HCNNG's shape: R = 90 (the shared-memory walk; 90 is not a power of
+    two), degrees from 1 to 90 with most rows short, and one random start a
+    query as ``random_starts=1`` draws them."""
+    q, tier, nbrs, degs, _ = _walk_case(gen, cuda, R=90, B=512)
+    n_pad = tier.shape[0]
+    uneven = np.minimum(1 + gen.geometric(1 / 24, n_pad), 90).astype(np.int32)
+    degs = t(uneven, cuda)
+    starts = t(np.random.default_rng(0).integers(0, 2000, (512, 1)).astype(np.int32), cuda)
+    for metric in (Metric.L2, Metric.MIPS):
+        _, _, nv, _ = _check_walk((q, tier, nbrs, degs, starts), metric=metric,
+                                  n_valid=2000, k=10, L=L)
+        assert int(nv.max()) > 1
 
 
 @pytest.mark.parametrize("W", [2, 256, 2048])
@@ -965,3 +987,104 @@ def test_torch_cuda_hnsw_q8_beam_level_equals_cpu(cluster_data, cuda, monkeypatc
     assert expand_distances.launches > n
     _same_hierarchy(built[str(cuda)], built["cpu"])
 
+
+
+def _bar(a, b, gt, Q, *, deg_tol=0.5, recall_tol=0.01, **search):
+    """Two graphs over the same points: average degrees within ``deg_tol``,
+    recall@10 of their q8 searches within ``recall_tol`` (the graph-build parity bar
+    by default)."""
+    (ga, pa), (gb, pb) = a, b
+    assert abs(ga.stats()[0] - gb.stats()[0]) <= deg_tol
+    ra = compute_recall(Index(points=pa, graph=ga).enable_quantized(8).batch_search(
+        Q, k=10, **search)[0].cpu().numpy(), *gt, 10)
+    rb = compute_recall(Index(points=pb, graph=gb).enable_quantized(8).batch_search(
+        Q, k=10, **search)[0].cpu().numpy(), *gt, 10)
+    assert abs(ra - rb) <= recall_tol, (ra, rb)
+
+
+# The card's own draws give another random graph than the CPU's: held to
+# the sanity bound of the CPU tests' own-draws builds (degree within 1.0,
+# recall within 0.03) at a beam past the steep part of the recall curve
+# (at beam 10 HCNNG's card draws gave 0.9155 against the CPU's 0.936)
+OWN_DRAWS = dict(deg_tol=1.0, recall_tol=0.03)
+
+
+@pytest.mark.parametrize("draws", ["host", "card"])
+def test_torch_cuda_hcnng_build_matches_cpu(cluster_data, cuda, draws):
+    """The f32 HCNNG build at n = 1500 on the card against the CPU build of
+    the same seed. With the host's draws (``Draws(host=True)``) the two
+    differ only where the card sums distances in another order: the
+    graph-build parity bar at beam 10. With the card's generator, the default: the
+    sanity bound at beam 24. The card's q8 search launches kernel 3."""
+    X, Q = cluster_data
+    bp = BuildParams(num_clusters=8, cluster_size=150, MST_deg=3)
+    built = {}
+    for dev in ("cpu", cuda):
+        ps = PointSet.from_numpy(X[:1500], device=dev)
+        dr = Draws(0, dev, host=True) if draws == "host" else None
+        built[str(dev)] = hcnng.build_hcnng_graph(ps, bp, draws=dr)[0], ps
+    g = built[str(cuda)][0]
+    assert g.neighbors.is_cuda and g.max_degree == 24
+    gt = compute_groundtruth(built["cpu"][1], Q, 20)
+    n = beam_search_fused.launches
+    if draws == "host":
+        _bar(built[str(cuda)], built["cpu"], gt, Q, beam_size=10)
+    else:
+        _bar(built[str(cuda)], built["cpu"], gt, Q, beam_size=24, **OWN_DRAWS)
+    assert beam_search_fused.launches > n
+
+
+@pytest.mark.parametrize("quantize_build,draws", [(True, "host"), (False, "host"),
+                                                  (False, "card")])
+def test_torch_cuda_pynn_build_matches_cpu(gen, cuda, quantize_build, draws):
+    """pyNNDescent at n = 1500 on the card against the CPU build of the
+    same seed. With the host's draws (``Draws(host=True)``) the q8 build
+    (every distance an integer) equals it row for row, and so does its
+    random-start search through kernel 3; the f32 build is held to the
+    graph-build parity bar. With the card's generator, the default, the f32 build is
+    held to the sanity bound. Kernel 2 launches in the build's mode."""
+    X = gen.standard_normal((1500, 32)).astype(np.float32)
+    Q = gen.standard_normal((200, 32)).astype(np.float32)
+    bp = BuildParams(R=20, cluster_size=80, num_clusters=6, alpha=1.2, delta=0.05)
+    before = (occlusion_rounds.launches, occlusion_rounds.launches_f32)
+    built = {}
+    for dev in ("cpu", cuda):
+        ps = PointSet.from_numpy(X, device=dev)
+        dr = Draws(0, dev, host=True) if draws == "host" else None
+        g, _ = pynndescent.build_pynndescent_graph(
+            ps, bp, quantize_build=quantize_build, draws=dr)
+        built[str(dev)] = (g, ps)
+    n_f32 = occlusion_rounds.launches_f32 - before[1]
+    n_int8 = occlusion_rounds.launches - before[0] - n_f32
+    assert (n_int8 if quantize_build else n_f32) > 0
+    (gc, pc), (gg, pg) = built["cpu"], built[str(cuda)]
+    search = dict(beam_size=16, random_starts=1, seed=3)
+    if quantize_build:
+        assert torch.equal(gg.degrees.cpu(), gc.degrees)
+        mask = torch.arange(20)[None, :] < gc.degrees[:, None]
+        assert torch.equal(torch.where(mask, gg.neighbors.cpu(), -1),
+                           torch.where(mask, gc.neighbors, -1))
+        n = beam_search_fused.launches
+        got = Index(points=pg, graph=gg).enable_quantized(8).batch_search(Q, k=10, **search)
+        assert beam_search_fused.launches > n
+        want = Index(points=pc, graph=gc).enable_quantized(8).batch_search(Q, k=10, **search)
+        assert torch.equal(got[0].cpu(), want[0])
+    elif draws == "host":
+        _bar((gg, pg), (gc, pc), compute_groundtruth(pc, Q, 20), Q, **search)
+    else:
+        _bar((gg, pg), (gc, pc), compute_groundtruth(pc, Q, 20), Q,
+             **dict(search, beam_size=32), **OWN_DRAWS)
+
+
+def test_torch_cuda_draws_on_the_card(cuda):
+    """A card build's default draws come from the card's generator, land
+    on the card, in range, and repeat for a seed; ``host=True`` gives the
+    CPU's draws on the card."""
+    a, b = Draws(1, cuda), Draws(1, cuda)
+    assert a.gen.device.type == "cuda"
+    x = a.tree_bits(0, 0, 10_000)
+    assert x.is_cuda and x.dtype == torch.int32 and torch.equal(x, b.tree_bits(0, 0, 10_000))
+    c1, c2 = a.hops(0, 100, 16, 16, 80)
+    assert c2.is_cuda and int(c2.min()) >= 0 and int(c2.max()) < 80
+    assert torch.equal(Draws(1, cuda, host=True).tree_bits(0, 0, 1000).cpu(),
+                       Draws(1).tree_bits(0, 0, 1000))

@@ -134,13 +134,21 @@ def test_torch_slice_reference_keywords_match_jax(built, kw):
 
 
 def test_torch_slice_unported_configurations_raise(built):
-    """What the port still refuses: ``random_starts`` and ``single_batch``
-    builds. (The f32 tier, expand > 1, degree_limit < R and
-    ``quantize_build=False`` are served and held to the JAX package in
-    tests/test_torch_f32.py.)"""
-    idx = pt.Index(points=built["tps"], graph=built["tg"]).enable_quantized(bits=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        idx.batch_search(built["Q"][:4], random_starts=2)
+    """What the port still refuses: ``single_batch`` builds. (The f32
+    tier, expand > 1, degree_limit < R and ``quantize_build=False`` are
+    served and held to the JAX package in tests/test_torch_f32.py;
+    ``random_starts`` is served too: here the q8 search from random starts
+    returns the JAX package's ids on the JAX graph, and
+    tests/test_torch_pynndescent.py holds the draws.)"""
+    b = built
+    jg = b["jg"]
+    graph = interop.graph_from_state(np.asarray(jg.neighbors), np.asarray(jg.degrees),
+                                     jg.n, jg.max_degree, device="cpu")
+    idx = pt.Index(points=b["tps"], graph=graph).enable_quantized(bits=8)
+    jidx = jpt.Index(points=b["jps"], graph=jg).enable_quantized(bits=8)
+    kw = dict(k=K, beam_size=BEAM, random_starts=2, seed=4)
+    np.testing.assert_array_equal(idx.batch_search(b["Q"][:16], **kw)[0].numpy(),
+                                  np.asarray(jidx.batch_search(b["Q"][:16], **kw)[0]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         vamana.build_vamana_graph(built["tps"], BuildParams(R=8, L=16, single_batch=8))
 
