@@ -100,9 +100,34 @@ Phases:
      HCNNG graph (degree up to 90: the shared-memory walk) at B = 1024 and
      10,000 x L = 10 and 64, and on build A's graph with its random starts
      at B = 10,000, L = 80, and timed at each.
-  Launch counts are zeroed just before phases 3, 4, 5, 7, 8, 9 and 6 and
-  read just after each; every kernel of the phase's path must have
-  launched.
+  10. the reference's command line, tools and range search, after phase 9.
+     10a, the tutorial's k-NN flow (scripts/tutorial.sh) on phase 3's set
+     written as .fbin files: ``tools.compute_groundtruth -k 10``, a CLI
+     build (``-R 32 -L 64 -alpha 1.2 -two_pass 1 -quantize 1
+     -graph_outfile``, the CLI's batch_cap_frac 0.02), a CLI search at
+     ``-Q 64`` (recall@10 at least ``RECALL_BAR``) and the CLI's full
+     sweep with ``-res_path`` (a CSV bucket at 0.95 or above); kernels 2
+     and 3 must launch. 10b, an SSNPP-shaped range run (scripts/ssnpp_range,
+     scripts/bench_range.py): ``synthetic.clustered(1_000_000, 256,
+     n_queries=10_000, n_clusters=10_000)`` mapped onto uint8 by one affine
+     map of the base's range, the radius the 20th percentile of the
+     queries' exact 1-NN squared distances, a Vamana build (R=64, L=128,
+     alpha=1.0, two passes, uint8 on its exact f32 copy,
+     batch_cap_frac=0.04) saved as a graph file,
+     ``tools.compute_range_groundtruth -nonzero_path``, the CLI's ``-range
+     -self`` self-join and the same self-join once more for its lists
+     (every pair within the radius by exact integer distance; cumulative
+     recall over 2,000 sampled points against brute force at least
+     ``SELFJOIN_BAR``), ``range_search_wrapper`` over the 10K queries at
+     bench_range's beams 10-100 (cumulative recall at beam 100 at least
+     ``RANGE_BAR``; every id at its exact distance within the radius),
+     ``range_search_batch`` on 256 queries on the card equal to the CPU's,
+     one profiled BFS of 4,096 self-join rows, and the CLI's ``-range``
+     track over all nine beams up to 3000 on a 1,000-query crop made by
+     ``tools.crop``; kernel 2's f32 mode must launch.
+  Launch counts are zeroed just before phases 3, 4, 5, 7, 8, 9, 10a, 10b
+  and 6 and read just after each; every kernel of the phase's path must
+  have launched.
 
 Kernel times are device times from CUDA events over back-to-back launches
 (the stream sleeps while the host queues them). Each kernel's entry in the
@@ -1497,6 +1522,337 @@ def kernel_bits(kept, gen, dev):
             f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     return out
 
+# phase 10: the reference's command line, tools and range search
+RANGE_N, RANGE_D = 1_000_000, 256  # SSNPP's row shape: 256-d uint8
+RANGE_PCTL = 20  # scripts/bench_range.py: percentile of the exact 1-NN distances
+RANGE_BEAMS_Q = (10, 20, 30, 40, 50, 100)  # scripts/bench_range.py's beams
+RANGE_BAR = 0.95  # cumulative range recall of the 10K queries at beam 100
+SELFJOIN_BAR = 0.90  # the self-join's cumulative recall over sampled points
+SELFJOIN_SAMPLE = 2000  # vamanaRange/neighbors.h:120-138's brute-force check
+RANGE_CROP = 1000  # queries of the full-beam CLI run (RANGE_BEAMS, up to 3000)
+
+
+class _Tee:
+    """stdout that is also kept."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.out.write(s)
+        self.parts.append(s)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(args, what):
+    """``cli.main(args)`` on the card -> (its printed text, fenced seconds)."""
+    import contextlib
+
+    from parlayann_tpu_torch import cli
+
+    tee = _Tee(sys.stdout)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(rc == 0, f"{what}: the CLI returned {rc}")
+    log(f"{what}: {secs:.3f} s")
+    return "".join(tee.parts), secs
+
+
+def _wrappers():
+    """Every kernel wrapper, each counting its launches."""
+    from parlayann_tpu_torch.ops.kernels.clusterbeam import cluster_walk
+    from parlayann_tpu_torch.ops.kernels.expand import expand_bits_flat, expand_distances
+    from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk
+    from parlayann_tpu_torch.ops.kernels.fusedbeam import beam_search_fused
+    from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
+
+    return (expand_distances, occlusion_rounds, beam_search_fused, flat_topk,
+            cluster_walk, expand_bits_flat)
+
+
+def _zero_launches():
+    torch.cuda.synchronize()
+    for w in _wrappers():
+        w.launches = 0
+        if hasattr(w, "launches_f32"):
+            w.launches_f32 = 0
+
+
+def _launch_counts():
+    """{kernel entry of the JSON line: launches since _zero_launches}; the
+    f32 modes of kernels 1 and 2 have entries of their own."""
+    torch.cuda.synchronize()
+    out = {}
+    for w in _wrappers():
+        f32 = getattr(w, "launches_f32", None)
+        out[w.__name__] = w.launches - (f32 or 0)
+        if f32 is not None:
+            out[f"{w.__name__} (f32 rows)"] = f32
+    return out
+
+
+def tutorial_run(X, Q, dev):
+    """Phase 10a: the tutorial's k-NN flow (scripts/tutorial.sh) through
+    the tools and the CLI on phase 3's set -> {kernel: launches}."""
+    import csv
+    import re
+    import tempfile
+
+    from parlayann_tpu_torch.data import io
+    from parlayann_tpu_torch.tools import compute_groundtruth
+
+    with tempfile.TemporaryDirectory() as tmp:
+        f = {k: f"{tmp}/{k}" for k in ("base.fbin", "query.fbin", "gt.ibin", "g.graph",
+                                       "res.csv")}
+        io.write_bin(f["base.fbin"], X)
+        io.write_bin(f["query.fbin"], Q)
+        _zero_launches()
+        t0 = time.perf_counter()
+        compute_groundtruth.main(["-base_path", f["base.fbin"], "-query_path", f["query.fbin"],
+                                  "-gt_path", f["gt.ibin"], "-k", "10"])
+        log(f"tools.compute_groundtruth -k 10: {time.perf_counter() - t0:.3f} s")
+        common = ["-base_path", f["base.fbin"], "-quantize", "1"]
+        out, _ = run_cli(common + ["-R", "32", "-L", "64", "-alpha", "1.2", "-two_pass", "1",
+                                   "-graph_outfile", f["g.graph"]], "CLI build")
+        build_s = float(re.search(r"Built vamana graph in ([0-9.]+)s", out).group(1))
+        log(f"CLI build: {build_s:.3f} s as the CLI prints it, at the CLI's "
+            f"batch_cap_frac 0.02 (phase 3's build above ran at 0.16)")
+        search = common + ["-graph_path", f["g.graph"], "-query_path", f["query.fbin"],
+                           "-gt_path", f["gt.ibin"]]
+        out, _ = run_cli(search + ["-Q", "64"], "CLI search at -Q 64")
+        recall = float(re.search(r"recall = ([0-9.e+-]+), QPS", out).group(1))
+        _, sweep_s = run_cli(search + ["-res_path", f["res.csv"]],
+                             "CLI sweep (43 beams, 20 limits, the best-accuracy probe)")
+        with open(f["res.csv"], newline="") as fh:
+            rows = [r for r in csv.reader(fh)][4:]
+        buckets = [(float(r[1]), float(r[2]), float(r[3]), int(r[9]), float(r[10]))
+                   for r in rows if len(r) == 11]
+        for b, rec, qps, beam, cut in buckets:
+            log(f"  bucket {b}: recall {rec:.4f}, QPS {qps:.1f} (Q = {beam}, cut = {cut})")
+    launches = _launch_counts()
+    log("launches during phase 10a:", {k: v for k, v in launches.items() if v})
+    log(f"  expand_distances: {launches['expand_distances']} launches. The CLI build's "
+        f"batches stay under kernel 1's 4096 rows (0.02 x {len(X)} = {int(0.02 * len(X))}), "
+        f"and every sweep row has degree_limit = min(32, 5 l) = 32, so the fused walk runs")
+    check(recall >= RECALL_BAR, f"10a: recall@{K} at -Q 64 is {recall:.4f} < {RECALL_BAR}")
+    check(any(b >= 0.95 for b, *_ in buckets), "10a: the CSV has no bucket at 0.95 or above")
+    for name in ("occlusion_rounds", "beam_search_fused"):
+        check(launches[name] > 0, f"{name} was not launched by phase 10a")
+    log(f"phase 10a: recall@{K} at -Q 64 {recall:.4f}; build {build_s:.3f} s; "
+        f"sweep {sweep_s:.3f} s")
+    return launches
+
+
+def _exact_l2(xu, a, b, rows_per=1 << 20):
+    """Exact squared L2 (int64) between uint8 rows a[i] and b[i] on the card."""
+    out = []
+    for lo in range(0, a.shape[0], rows_per):
+        da = xu[a[lo:lo + rows_per]].int() - xu[b[lo:lo + rows_per]].int()
+        out.append((da * da).sum(1, dtype=torch.int64))
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.int64, device=xu.device)
+
+
+def _u8_affine(x, lo, hi):
+    return ((x - lo) * (255.0 / (hi - lo))).round().clamp(0, 255).to(torch.uint8)
+
+
+def range_run(dev):
+    """Phase 10b: an SSNPP-shaped range run at 1M x 256 uint8 -> {kernel:
+    launches}."""
+    import re
+    import tempfile
+
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.build.vamana import INLINE_BUDGET
+    from parlayann_tpu_torch.data import io
+    from parlayann_tpu_torch.harness.recall import range_recall
+    from parlayann_tpu_torch.harness.range_sweep import RANGE_BEAMS, range_search_wrapper
+    from parlayann_tpu_torch.search import exact
+    from parlayann_tpu_torch.search.beam import beam_search_batch
+    from parlayann_tpu_torch.search.range import (
+        RangeResult, range_query, range_search_batch, self_join, self_join_rows)
+    from parlayann_tpu_torch.tools import compute_range_groundtruth, crop
+    from parlayann_tpu_torch.types import Metric
+    from parlayann_tpu_torch.utils import synthetic
+
+    t0 = time.perf_counter()
+    X, Q = synthetic.clustered(RANGE_N, RANGE_D, n_queries=10_000, n_clusters=10_000,
+                               cluster_std=0.35, seed=SEED)
+    x, q = torch.from_numpy(X).to(dev), torch.from_numpy(Q).to(dev)
+    del X, Q
+    lo, hi = x.min(), x.max()  # one affine map of the base's range onto [0, 255]
+    xu, qu = _u8_affine(x, lo, hi), _u8_affine(q, lo, hi)
+    del x, q
+    xq = torch.cat([xu, qu])  # queries as rows RANGE_N.. for _exact_l2
+    xu_np, qu_np = xu.cpu().numpy(), qu.cpu().numpy()
+    log(f"data: synthetic clustered {tuple(xu.shape)} uint8, {qu.shape[0]} queries, 10000 "
+        f"clusters, mapped onto [0, 255] ({time.perf_counter() - t0:.2f} s)")
+    _zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    points = pt.PointSet.from_numpy(xu_np, device=dev)
+    nn_ids, _ = exact.exact_knn(qu_np, points, 1)
+    nn_d = _exact_l2(xq, torch.arange(qu.shape[0], device=dev) + RANGE_N,
+                     nn_ids[:, 0].long()).cpu().numpy()
+    rad = float(np.percentile(nn_d, RANGE_PCTL))
+    log(f"radius {rad} (the {RANGE_PCTL}th percentile of the queries' exact 1-NN squared "
+        f"distances; median {float(np.median(nn_d))})")
+
+    t0 = time.perf_counter()
+    graph, points, stats = pt.build_vamana_index(
+        xu_np, R=64, L=128, alpha=1.0, two_pass=True, quantize_build=False,
+        batch_cap_frac=0.04, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    avg_deg, max_deg = graph.stats()
+    inline_gb = points.n_pad * 64 * RANGE_D * 4 / 1e9
+    log(f"build: {build_s:.3f} s (uint8 on its exact f32 copy, R=64 L=128 alpha=1.0, "
+        f"2 passes, batch_cap_frac=0.04); degree avg {avg_deg:.3f} max {max_deg}; "
+        f"visited {stats.total_visited} cmps {stats.total_cmps}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; read phase "
+        f"{'inline rows (kernel 1)' if inline_gb * 1e9 <= INLINE_BUDGET else 'gathers rows'}"
+        f" ({inline_gb:.1f} GB of f32 inline rows against a {INLINE_BUDGET / 2**30:.0f} GiB "
+        f"budget)")
+    nbrs, degs = graph.neighbors, graph.degrees
+    r = repr(rad)
+    with tempfile.TemporaryDirectory() as tmp:
+        f = {k: f"{tmp}/{k}" for k in ("base.u8bin", "query.u8bin", "g.graph", "gt.rbin",
+                                       "nz.u8bin", "crop.u8bin", "crop.rbin")}
+        io.write_bin(f["base.u8bin"], xu_np)
+        io.write_bin(f["query.u8bin"], qu_np)
+        graph.save(f["g.graph"])  # -graph_outfile
+
+        t0 = time.perf_counter()
+        compute_range_groundtruth.main([
+            "-base_path", f["base.u8bin"], "-query_path", f["query.u8bin"],
+            "-gt_path", f["gt.rbin"], "-radius", r, "-data_type", "uint8",
+            "-nonzero_path", f["nz.u8bin"]])
+        gt = io.read_range_ibin(f["gt.rbin"])
+        sizes = np.array([len(g) for g in gt])
+        nz = io.read_bin(f["nz.u8bin"], np.uint8)
+        check(nz.shape[0] == int((sizes > 0).sum()) and np.array_equal(nz, qu_np[sizes > 0]),
+              "the -nonzero_path file is not the non-empty queries")
+        log(f"range ground truth: {time.perf_counter() - t0:.3f} s; {int((sizes > 0).sum())} "
+            f"of {len(gt)} queries non-empty, {int(sizes.sum())} matches, largest set "
+            f"{int(sizes.max())}")
+
+        out, cli_s = run_cli(["-base_path", f["base.u8bin"], "-graph_path", f["g.graph"],
+                              "-data_type", "uint8", "-range", "-self", "-radius", r,
+                              "-radius_2", r], "CLI self-join (files read included)")
+        m = re.search(r"Self-join: (\d+) edges, (\d+) distance comparisons", out)
+        edges, cmps = int(m.group(1)), int(m.group(2))
+
+        # the self-join once more, for its lists
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows, cmps2 = self_join(points.data, nbrs, degs, rad, rad, metric=Metric.L2,
+                                n_valid=RANGE_N)
+        sj_s = time.perf_counter() - t0
+        lens = np.array([len(a) for a in rows])
+        check(int(lens.sum()) == edges and cmps2 == cmps,
+              "the self-join's lists differ from the CLI's run")
+        log(f"self-join: {edges} edges, {cmps} distance comparisons, {sj_s:.3f} s "
+            f"({(RANGE_N + 4095) // 4096} batches of 4096; {int((lens > 0).sum())} points "
+            f"with a match, largest list {int(lens.max())})")
+        src = torch.from_numpy(np.repeat(np.arange(RANGE_N), lens)).to(dev)
+        dst = torch.from_numpy(np.concatenate(rows).astype(np.int64)).to(dev)
+        dd = _exact_l2(xu, src, dst)
+        check(bool((dd <= rad).all()) and not bool((src == dst).any()),
+              "the self-join reported a pair outside the radius, or a point itself")
+
+        sample = np.sort(np.random.default_rng(SEED).choice(RANGE_N, SELFJOIN_SAMPLE,
+                                                            replace=False))
+        sgt = exact.compute_range_groundtruth(points, xu_np[sample], rad)
+        sgt = [g[g != i] for g, i in zip(sgt, sample)]
+        pw, cum = range_recall([rows[i] for i in sample], sgt)
+        log(f"self-join sampled check ({SELFJOIN_SAMPLE} points, brute force over the base): "
+            f"{sum(len(g) for g in sgt)} true pairs, pointwise recall {pw:.4f}, cumulative "
+            f"{cum:.4f}")
+        del src, dst, dd, rows
+
+        qf = qu.float()
+        cap = 256
+        while cap < int(sizes.max()):
+            cap *= 2
+        torch.cuda.reset_peak_memory_stats()
+        table = range_search_wrapper(qf, points.data, nbrs, degs, gt, rad, beams=RANGE_BEAMS_Q,
+                                     metric=Metric.L2, n_valid=RANGE_N, repeats=2)
+        log(f"query track: cap {cap} (largest set {int(sizes.max())}); peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        # exactness: every reported id lies within the radius, at its exact distance
+        rr = range_query(qf, points.data, nbrs, degs, 0, rad, initial_beam=100, cap=cap,
+                         metric=Metric.L2, n_valid=RANGE_N)
+        hit = (rr.ids >= 0) & (rr.dists <= rad)
+        qi, slot = hit.nonzero(as_tuple=True)
+        ed = _exact_l2(xq, qi + RANGE_N, rr.ids[qi, slot].long())
+        check(bool((ed <= rad).all()) and bool((ed.float() == rr.dists[qi, slot]).all()),
+              "the query track reported an id outside the radius or at a wrong distance")
+        # the ground truth's norm expansion against exact distances
+        got = [set() for _ in gt]
+        for a, b in zip(qi.tolist(), rr.ids[qi, slot].tolist()):
+            got[a].add(b)
+        gq = torch.from_numpy(np.repeat(np.arange(len(gt)), sizes)).to(dev)
+        gi = torch.from_numpy(np.concatenate(gt).astype(np.int64)).to(dev)
+        gd = _exact_l2(xq, gq + RANGE_N, gi)
+        missed = sum(len(s - set(gt[a].tolist())) for a, s in enumerate(got))
+        log(f"ground truth against exact distances: {int((gd > rad).sum())} of "
+            f"{int(sizes.sum())} pairs beyond the radius, {missed} pairs within it missing "
+            f"(the f32 norm expansion at {int(sizes.sum())} pairs)")
+
+        # card against CPU on 256 non-empty queries, seeded by a beam search
+        sel = torch.from_numpy(np.flatnonzero(sizes > 0)[:256]).to(dev)
+        bres = beam_search_batch(
+            qf[sel], points.data, nbrs, degs, torch.zeros(1, dtype=torch.int32, device=dev),
+            metric=Metric.L2, n_valid=RANGE_N, k=0, L=100)
+        seeds = torch.where(bres.beam_dists <= rad, bres.beam_ids, -1)
+        args = (qf[sel], points.data, nbrs, degs, seeds)
+        card = range_search_batch(*args, rad, metric=Metric.L2, n_valid=RANGE_N, cap=cap)
+        host = range_search_batch(*(a.cpu() for a in args), rad, metric=Metric.L2,
+                                  n_valid=RANGE_N, cap=cap)
+        for a, b, name in zip(card, host, RangeResult._fields):
+            check(torch.equal(a.cpu(), b), f"range_search_batch on the card: {name} differs "
+                  f"from the CPU's")
+        log(f"range_search_batch on 256 queries: card equals CPU (ids, dists, counts, "
+            f"dist_cmps; {int(host.counts.sum())} matches)")
+
+        prof = profile_window(
+            lambda: self_join_rows(points.data, nbrs, degs,
+                                   torch.arange(4096, dtype=torch.int32, device=dev), rad,
+                                   metric=Metric.L2, n_valid=RANGE_N),
+            "range BFS of 4096 self-join rows")
+        check(prof is not None, "the profiled range BFS saw no device activity")
+
+        crop.main([f["query.u8bin"], f["crop.u8bin"], "-n", str(RANGE_CROP)])
+        compute_range_groundtruth.main([
+            "-base_path", f["base.u8bin"], "-query_path", f["crop.u8bin"],
+            "-gt_path", f["crop.rbin"], "-radius", r, "-data_type", "uint8"])
+        out, full_s = run_cli(["-base_path", f["base.u8bin"], "-graph_path", f["g.graph"],
+                               "-query_path", f["crop.u8bin"], "-gt_path", f["crop.rbin"],
+                               "-data_type", "uint8", "-range", "-radius", r],
+                              f"CLI range track, {RANGE_CROP} queries, beams 10-3000")
+        check(out.count("For initial beam = ") == sum(b <= RANGE_N for b in RANGE_BEAMS),
+              "the CLI range track missed a beam")
+    launches = _launch_counts()
+    log("launches during phase 10b:", {k: v for k, v in launches.items() if v})
+    log(f"phase 10b: build {build_s:.3f} s, self-join {sj_s:.3f} s ({cli_s:.3f} s through "
+        f"the CLI), full-beam CLI run {full_s:.3f} s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB since the query track")
+    check(cum >= SELFJOIN_BAR, f"10b: the self-join's sampled cumulative recall {cum:.4f} "
+          f"< {SELFJOIN_BAR}")
+    row = {t.initial_beam: t for t in table}[100]
+    check(row.cumulative_recall >= RANGE_BAR, f"10b: cumulative range recall at beam 100 "
+          f"{row.cumulative_recall:.4f} < {RANGE_BAR}")
+    check(launches["occlusion_rounds (f32 rows)"] > 0,
+          "occlusion_rounds (f32 rows) was not launched by phase 10b")
+    return launches
+
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1569,6 +1925,11 @@ def main():
     k3r = kernel_fusedbeam_random(pynn_idx["A"], pynn_q, dev, *PYNN_FUSED)
     del hcnng_idx, pynn_idx
     log(f"phase 9 took {time.perf_counter() - t9:.1f} s")
+    phase("phase 10a: the tutorial's k-NN flow through the tools and the CLI")
+    p10 = tutorial_run(X, Q, dev)
+    phase("phase 10b: an SSNPP-shaped range run at 1M x 256 uint8")
+    for name, n in range_run(dev).items():
+        p10[name] += n
     phase("phase 6: the capacity tiers at 1M (q8 build, 1-bit and JL search)")
     tier_launches, kept = tier_run(dev)
     launches["expand_bits_flat"] = tier_launches["expand_bits_flat"]
@@ -1637,6 +1998,11 @@ def main():
              route="cuda", source="parlayann_tpu_torch/csrc/bitonic.cuh",
              replaces="parlayann_tpu/ops/pallas/bitonic.py:51", launches=0, **kb),
     ]
+    # phase10_launches: launches in phase 10 (the CLI's tutorial flow and the
+    # SSNPP-shaped range run), on each kernel it launched
+    for k in kernels:
+        if p10.get(k["name"]):
+            k["phase10_launches"] = p10[k["name"]]
     phase("done")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -21,12 +21,17 @@ HCNNG and pyNNDescent builds (:func:`build_hcnng_index`,
 :func:`build_pynndescent_index`) and ``random_starts`` search; the
 reference's file formats (``data/io.py``, ``PointSet.from_file``,
 ``GraphIndexData.load``/``save``, :func:`load_index`, ``Index.save``,
-``ClusterIndex.save``/``load``).
+``ClusterIndex.save``/``load``); range search (``search/range.py``:
+``range_search_batch``, ``range_query``, ``self_join``) with its exact
+ground truth; the sweep harnesses (``harness/sweep.py``,
+``harness/range_sweep.py``, ``harness/csv.py``), the data tools
+(``python -m parlayann_tpu_torch.tools.<name>``) and the reference's
+command line (``python -m parlayann_tpu_torch.cli``).
 Entry points that place data take ``device``; ``None`` means the CUDA
 card, and without one they raise rather than run on the CPU.
 """
 
-from parlayann_tpu_torch.types import BuildParams, QueryParams, Metric
+from parlayann_tpu_torch.types import BuildParams, QueryParams, RangeParams, Metric
 from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.data.graph import GraphIndexData
 from parlayann_tpu_torch.api import (
@@ -47,6 +52,7 @@ __version__ = "0.1.0"
 __all__ = [
     "BuildParams",
     "QueryParams",
+    "RangeParams",
     "Metric",
     "PointSet",
     "GraphIndexData",

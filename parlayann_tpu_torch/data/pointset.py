@@ -53,6 +53,10 @@ class PointSet:
     def device(self) -> torch.device:
         return self.data.device
 
+    def to_numpy(self) -> np.ndarray:
+        """The n valid rows, in the storage dtype, on the host."""
+        return self.data[: self.n].cpu().numpy()
+
     @staticmethod
     def from_numpy(
         arr: np.ndarray,

@@ -1088,3 +1088,35 @@ def test_torch_cuda_draws_on_the_card(cuda):
     assert c2.is_cuda and int(c2.min()) >= 0 and int(c2.max()) < 80
     assert torch.equal(Draws(1, cuda, host=True).tree_bits(0, 0, 1000).cpu(),
                        Draws(1).tree_bits(0, 0, 1000))
+
+
+def test_torch_cuda_range_search_equals_cpu(gen, cuda):
+    """range_search_batch and self_join on integer-valued (uint8) points on
+    the card: every distance is an exact float32 integer, so ids, dists,
+    counts, comparisons and the self-join's lists equal the CPU's."""
+    from parlayann_tpu_torch.search.range import range_search_batch, self_join
+
+    n, d = 3000, 32
+    X = gen.integers(0, 256, (n, d)).astype(np.uint8)
+    X[:1000] = np.clip(X[:1] + gen.integers(-3, 4, (1000, d)), 0, 255)  # a dense clump
+    graph, ps, _ = build_vamana_index(X, R=16, L=32, alpha=1.0, quantize_build=False,
+                                      device="cpu")
+    rad = 150.5  # half-integer: no exact distance lies on it
+    rows = np.arange(0, n, 11, dtype=np.int32)
+    out = {}
+    for dev in ("cpu", cuda):
+        pts, nb, dg = ps.data.to(dev), graph.neighbors.to(dev), graph.degrees.to(dev)
+        st = t(np.where(np.arange(16)[None, :] < graph.degrees.numpy()[rows][:, None],
+                        graph.neighbors.numpy()[rows], -1).astype(np.int32), dev)
+        rr = range_search_batch(pts[t(rows, dev).long()], pts, nb, dg, st, rad,
+                                t(rows, dev), metric=Metric.L2, n_valid=n, cap=64,
+                                exclude_self=True)
+        sj = self_join(pts, nb, dg, rad, rad, metric=Metric.L2, n_valid=n, batch=1024)
+        out[str(dev)] = ([x.cpu() for x in rr], sj)
+    (rc, sc), (rg, sg) = out["cpu"], out[str(cuda)]
+    for a, b in zip(rg, rc):
+        assert torch.equal(a, b)
+    assert int(rc[2].sum()) > 0 and (rc[2] == 64).any()  # some sets reach the cap
+    assert sg[1] == sc[1] and len(sg[0]) == len(sc[0]) == n
+    assert sum(len(r) for r in sc[0]) > 0
+    assert all(np.array_equal(a, b) for a, b in zip(sg[0], sc[0]))

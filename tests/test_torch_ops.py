@@ -28,7 +28,14 @@ REPO = Path(__file__).resolve().parents[1]
 
 def test_torch_port_imports_no_jax():
     code = ("import sys, parlayann_tpu_torch, parlayann_tpu_torch.interop, "
-            "parlayann_tpu_torch.search.exact, parlayann_tpu_torch.build.vamana; "
+            "parlayann_tpu_torch.search.exact, parlayann_tpu_torch.build.vamana, "
+            "parlayann_tpu_torch.cli, parlayann_tpu_torch.search.range, "
+            "parlayann_tpu_torch.harness.sweep, parlayann_tpu_torch.harness.range_sweep, "
+            "parlayann_tpu_torch.harness.csv, parlayann_tpu_torch.defaults, "
+            "parlayann_tpu_torch.tools.compute_groundtruth, "
+            "parlayann_tpu_torch.tools.compute_range_groundtruth, "
+            "parlayann_tpu_torch.tools.vec_to_bin, parlayann_tpu_torch.tools.crop, "
+            "parlayann_tpu_torch.tools.random_sample; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('parlayann_tpu.') or m == 'parlayann_tpu' "
             "for m in sys.modules)")
