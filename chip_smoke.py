@@ -16,7 +16,10 @@ Phases:
      inline array) and 2 (the same six prune shapes on f32 vectors, L2
      and MIPS, with each shape's share of rechecked tests, and integer-valued rows at
      alpha 1), each equal to its plain version, which sums in the serial
-     order (kernel 1's own; kernel 2 rechecks in it).
+     order (kernel 1's own; kernel 2 rechecks in it); then kernel 1's int16
+     mode (B=10,000 over a (100000, 32, 128) int16 inline array, L2 and
+     MIPS, rows and queries at the extreme levels so that an int32 sum
+     would overflow), equal to its plain version (both sum in int64).
   3. the slice through the user entry points: a q8 Vamana build of the
      synthetic clustered 100K x 128 set (R=32, L=64, alpha=1.2, two passes,
      batch_cap_frac=0.16), then q8 ``Index.batch_search`` of 10K queries at
@@ -125,9 +128,28 @@ Phases:
      one profiled BFS of 4,096 self-join rows, and the CLI's ``-range``
      track over all nine beams up to 3000 on a 1,000-query crop made by
      ``tools.crop``; kernel 2's f32 mode must launch.
-  Launch counts are zeroed just before phases 3, 4, 5, 7, 8, 9, 10a, 10b
-  and 6 and read just after each; every kernel of the phase's path must
-  have launched.
+  11. the last tiers and build modes, after phase 6. 11a, on phase 3's set,
+     q8 graph and ground truth: ``enable_quantized(bits=16)`` searched at
+     beams 10-64 (the lock-step search on kernel 1's int16 mode; recall@10
+     at beam 64 at least ``RECALL_BAR``), its walk of 256 queries equal on
+     the card and the CPU, and ``enable_quantized(bits=4)`` (int8 levels,
+     kernel 3) with its recall printed. 11b, on phase 3's set: one steady
+     batch's phase split (``profile_one_batch``), a ``cand_mode="exact"``
+     build with ``profile=True`` (its split printed; recall@10 at beam 10
+     within ``EXACT_GAP`` of phase 3's build; kernels 2 and 4's masked mode
+     must launch) and a ``single_batch=8`` build (recall@10 at beam 64 at
+     least ``SB_BAR``; kernel 1 in its read phase). 11c, MIPS at 1M on
+     scripts/bench_mips_u8.py's construction
+     (``synthetic.sparse_clustered_u8``, normalized): the q8 build (R=32,
+     L=64, alpha 0.98, two passes, batch_cap_frac 0.16), exact ground truth,
+     the q8 sweep on kernel 3 (beams 10-240), the 4-bit (22-160) and 2-bit
+     (33-240) tiers, the trimmed q8 tier (``trim=0.001``) and the f32 walk
+     without and with the q8 tier's running-mean filter at beams 10 and 22;
+     q8 and 4-bit must reach ``MIPS_BAR`` within their beams, the 2-bit tier
+     ``MIPS_2BIT_BAR`` at beam 240.
+  Launch counts are zeroed just before phases 3, 4, 5, 7, 8, 9, 10a, 10b,
+  6, 11a, 11b and 11c and read just after each; every kernel of the
+  phase's path must have launched.
 
 Kernel times are device times from CUDA events over back-to-back launches
 (the stream sleeps while the host queues them). Each kernel's entry in the
@@ -474,6 +496,50 @@ def kernel_expand_f32(dev):
     log(f"kernel 1 expand_distances f32 rows B={B} inline={tuple(inline.shape)}: "
         f"bit-equal (L2, MIPS); {ms:.4f} ms vs plain {plain_ms:.4f} ms; bound "
         f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
+def kernel_expand_i16(dev):
+    """Kernel 1's 16-bit mode at the 16-bit tier's search shape: B=10,000
+    queries over a (100000, 32, 128) int16 inline array (made on the card),
+    under L2 and MIPS, torch.equal to its plain version (both sum exactly in
+    int64 and round once). The first 64 rows and the first 1,000 queries,
+    which expand them, hold only the extreme levels (-32768 and 32767: 16-bit
+    L2 levels 0 and 65535 after the port's shift), so an int32 sum would
+    overflow and show."""
+    from parlayann_tpu_torch.types import Metric
+    from parlayann_tpu_torch.ops.kernels.expand import (
+        expand_distances, expand_distances_plain)
+
+    n_pad, R8, d, B = 100_000, 32, 128, 10_000
+    cg = torch.Generator(device=dev).manual_seed(SEED)
+
+    def levels(shape):
+        return torch.randint(-32768, 32768, shape, generator=cg, device=dev, dtype=torch.int32)
+
+    def extreme(shape):
+        return torch.where(torch.rand(shape, generator=cg, device=dev) < 0.5, -32768, 32767)
+
+    inline = levels((n_pad, R8, d))
+    inline[:64] = extreme((64, R8, d))
+    inline = inline.to(torch.int16)
+    ids = torch.randint(0, n_pad, (B,), generator=cg, device=dev, dtype=torch.int32)
+    ids[:1000] = torch.randint(0, 64, (1000,), generator=cg, device=dev, dtype=torch.int32)
+    q = levels((B, d)).float()
+    q[:1000] = extreme((1000, d)).float()
+    for metric in (Metric.L2, Metric.MIPS):
+        out = expand_distances(inline, ids, q, metric=metric)
+        ref = expand_distances_plain(inline, ids, q, metric=metric)
+        check(torch.equal(out, ref), f"expand_distances int16 rows {metric} not equal")
+        check(float(out.abs().max()) > 2**31,
+              f"expand_distances int16 rows {metric}: no distance passed 2^31")
+    ms = time_ms(lambda: expand_distances(inline, ids, q, metric=Metric.L2), 20)
+    plain_ms = time_ms(lambda: expand_distances_plain(inline, ids, q, metric=Metric.L2), 5)
+    b = bound(unique_rows(ids, n_pad) * R8 * d * 2 + B * d * 4 + B * 4 + B * R8 * 4,
+              3 * B * R8 * d)
+    log(f"kernel 1 expand_distances int16 rows B={B} inline={tuple(inline.shape)}: "
+        f"equal (L2, MIPS; extreme levels past 2^31); {ms:.4f} ms vs plain "
+        f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 
 
@@ -1581,20 +1647,25 @@ def _zero_launches():
     torch.cuda.synchronize()
     for w in _wrappers():
         w.launches = 0
-        if hasattr(w, "launches_f32"):
-            w.launches_f32 = 0
+        for mode in ("launches_f32", "launches_i16"):
+            if hasattr(w, mode):
+                setattr(w, mode, 0)
 
 
 def _launch_counts():
     """{kernel entry of the JSON line: launches since _zero_launches}; the
-    f32 modes of kernels 1 and 2 have entries of their own."""
+    f32 modes of kernels 1 and 2 and kernel 1's int16 mode have entries of
+    their own."""
     torch.cuda.synchronize()
     out = {}
     for w in _wrappers():
         f32 = getattr(w, "launches_f32", None)
-        out[w.__name__] = w.launches - (f32 or 0)
+        i16 = getattr(w, "launches_i16", None)
+        out[w.__name__] = w.launches - (f32 or 0) - (i16 or 0)
         if f32 is not None:
             out[f"{w.__name__} (f32 rows)"] = f32
+        if i16 is not None:
+            out[f"{w.__name__} (int16 rows)"] = i16
     return out
 
 
@@ -1854,6 +1925,251 @@ def range_run(dev):
 
 
 
+# phase 11: the last tiers and build modes
+Q16_CPU = 256  # queries of 11a's card-against-CPU check of the 16-bit tier
+SB_BAR = 0.85  # single-batch build, recall@10 at beam 64 (tests/test_vamana.py:127-146)
+EXACT_GAP = 0.01  # |exact build - phase 3's build| recall@10 at beam 10
+MIPS_N = 1_000_000
+MIPS_BEAMS = {  # scripts/bench_mips_u8.py's sweeps
+    "q8": (10, 15, 22, 33, 50, 75, 110, 160, 240),
+    "4bit": (22, 33, 50, 75, 110, 160),
+    "2bit": (33, 50, 75, 110, 160, 240),
+    "q8_trim": (10, 22, 50),
+}
+MIPS_BAR = 0.95  # q8 and 4-bit: recall@10 reached within their beam lists
+MIPS_2BIT_BAR = 0.80  # the 2-bit tier at beam 240 (the JAX package: 0.865)
+FILTER_BEAMS = (10, 22)  # scripts/bench_tier_filter.py's C
+
+
+def _index_search(idx, q, **kw):
+    """Index.batch_search_timed of ``q`` as a function of the beam, for
+    :func:`_search_rows`."""
+    return lambda beam: idx.batch_search_timed(q, k=K, beam_size=beam, rounds=1, **kw)
+
+
+def _search_rows(search, n, gt, beams, what):
+    """``search(beam) -> (ids, dists, result, seconds)`` at each beam ->
+    {beam: recall@10}, each row checked (shape, ids in [0, n), no
+    duplicates, finite distances) and printed."""
+    from parlayann_tpu_torch.harness.recall import compute_recall
+
+    out = {}
+    for beam in beams:
+        ids, dists, res, dt = search(beam)
+        check(ids.shape == (gt[0].shape[0], K) and bool((ids >= 0).all())
+              and bool((ids < n).all()), f"{what} beam {beam}: malformed ids")
+        check(_no_duplicates(ids), f"{what} beam {beam}: duplicate ids")
+        check(bool(torch.isfinite(dists).all()), f"{what} beam {beam}: distances not finite")
+        out[beam] = compute_recall(ids.cpu().numpy(), gt[0], gt[1], K)
+        log(f"{what} beam={beam}: recall@{K} {out[beam]:.4f}  QPS {ids.shape[0] / dt:.1f}  "
+            f"({dt * 1e3:.3f} ms; visited {float(res.num_visited.float().mean()):.2f} "
+            f"cmps {float(res.dist_cmps.float().mean()):.1f})")
+    return out
+
+
+def _on_cpu(points, graph):
+    import dataclasses
+
+    return (dataclasses.replace(points, data=points.data.cpu()),
+            dataclasses.replace(graph, neighbors=graph.neighbors.cpu(),
+                                degrees=graph.degrees.cpu()))
+
+
+def tiers11_run(points, graph, Q, gt, dev):
+    """Phase 11a: the 16-bit scalar tier (the lock-step search on kernel
+    1's int16 mode) and the 4-bit scalar tier (int8 levels, kernel 3) on
+    phase 3's graph -> {kernel: launches}."""
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.index import _entry_top1
+    from parlayann_tpu_torch.ops import quantize
+    from parlayann_tpu_torch.search.beam import beam_search_batch
+
+    q = torch.from_numpy(Q).to(dev)
+    _zero_launches()
+    idx = pt.Index(points=points, graph=graph).enable_quantized(bits=16)
+    recall = _search_rows(_index_search(idx, q), points.n, gt, BEAMS, "16-bit tier")
+    check(idx.inline is not None and idx.inline.dtype == torch.int16,
+          "the 16-bit tier did not search int16 inline rows")
+    log(f"16-bit tier: inline rows {tuple(idx.inline.shape)} "
+        f"{idx.inline.numel() * 2 / 1e9:.3f} GB; levels {tuple(idx.qpoints.data.shape)} int16")
+    idx4 = pt.Index(points=points, graph=graph).enable_quantized(bits=4)
+    recall4 = _search_rows(_index_search(idx4, q), points.n, gt, BEAMS,
+                           "4-bit scalar tier (kernel 3)")
+    launches = _launch_counts()
+    log("launches during phase 11a:", {k: v for k, v in launches.items() if v})
+
+    # the card against the CPU on Q16_CPU queries from the same starts
+    qs = q[:Q16_CPU]
+    idx.build_entry_cache()
+    starts = _entry_top1(qs, idx.entry_vecs, idx.entry_ids, metric=points.metric)
+    cpu_pts, cpu_graph = _on_cpu(points, graph)
+    cidx = pt.Index(points=cpu_pts, graph=cpu_graph).enable_quantized(bits=16)
+    check(torch.equal(cidx.qpoints.data, idx.qpoints.data.cpu()),
+          "11a: the 16-bit levels differ between the card and the CPU")
+    tq, cq = (quantize.translate_query(x, t.qpoints).float()
+              for x, t in ((qs, idx), (qs.cpu(), cidx)))
+    kw = dict(metric=points.metric, n_valid=points.n, k=K, L=64)
+    got = beam_search_batch(tq, idx.qpoints.data, graph.neighbors, graph.degrees, starts,
+                            None, idx.inline, **kw)
+    want = beam_search_batch(cq, cidx.qpoints.data, cpu_graph.neighbors, cpu_graph.degrees,
+                             starts.cpu(), None, cidx.build_inline_cache(), **kw)
+    for name in ("beam_ids", "beam_dists", "num_visited", "dist_cmps"):
+        check(torch.equal(getattr(got, name).cpu(), getattr(want, name)),
+              f"11a: the 16-bit walk's {name} differ between the card and the CPU")
+    gi, gd, _ = idx.batch_search(qs, k=K, beam_size=64, starts=starts)
+    wi, wd, _ = cidx.batch_search(qs.cpu(), k=K, beam_size=64, starts=starts.cpu())
+    torch.testing.assert_close(gd.cpu(), wd, rtol=1e-5, atol=0)
+    check(bool(((gi.cpu() == wi) | torch.isclose(gd.cpu(), wd, rtol=1e-5)).all()),
+          "11a: the 16-bit tier's reranked ids differ off ties between the card and the CPU")
+    log(f"11a: the 16-bit walk of {Q16_CPU} queries at beam 64 equal on the card and the "
+        f"CPU (beams, distances, visits, comparisons); reranked ids equal but at ties "
+        f"({int((gi.cpu() != wi).sum())} differ)")
+    for name in ("expand_distances (int16 rows)", "beam_search_fused"):
+        check(launches[name] > 0, f"{name} was not launched by phase 11a")
+    check(recall[64] >= RECALL_BAR,
+          f"16-bit tier recall@{K} at beam 64 is {recall[64]:.4f} < {RECALL_BAR}")
+    log(f"phase 11a: 16-bit tier recall@{K} {recall[10]:.4f} / {recall[64]:.4f} at beams "
+        f"10 / 64; 4-bit scalar tier {recall4[10]:.4f} / {recall4[64]:.4f}")
+    return launches
+
+
+def modes11_run(X, Q, gt, points, graph, dev):
+    """Phase 11b: an exact-candidate build with profile=True and a
+    single-batch build at 100K, on phase 3's set -> {kernel: launches}."""
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.build import vamana
+    from parlayann_tpu_torch.ops import quantize
+    from parlayann_tpu_torch.types import BuildParams
+
+    q = torch.from_numpy(Q).to(dev)
+    ref = _search_rows(_index_search(pt.Index(points=points, graph=graph).enable_quantized(
+        bits=8), q), points.n, gt, (10,), "phase 3's graph, q8")[10]
+    split = vamana.profile_one_batch(
+        quantize.quantize_pointset(points, bits=8),
+        BuildParams(R=32, L=64, alpha=1.2, num_passes=2, batch_cap_frac=0.16), graph)
+    log(f"one steady batch of phase 3's build (profile_one_batch, best of 2): beam "
+        f"{split[0]:.4f} s, bidirect {split[1]:.4f} s, prune {split[2]:.4f} s")
+    _zero_launches()
+    out = {}
+    for name, kw in (("exact", dict(cand_mode="exact", profile=True, batch_cap_frac=0.16)),
+                     ("single_batch", dict(single_batch=8))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g, ps, stats = pt.build_vamana_index(X, R=32, L=64, alpha=1.2, device=dev, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        avg, mx = g.stats()
+        log(f"{name} build: {secs:.3f} s ({kw}); degree avg {avg:.3f} max {mx}; visited "
+            f"{stats.total_visited} cmps {stats.total_cmps}; split beam "
+            f"{stats.beam_time:.3f} s, bidirect {stats.bidirect_time:.3f} s, prune "
+            f"{stats.prune_time:.3f} s")
+        if name == "exact":
+            check(stats.beam_time + stats.bidirect_time + stats.prune_time <= stats.build_time,
+                  "11b: the profiled split exceeds the build time")
+        out[name] = _search_rows(_index_search(pt.Index(points=ps, graph=g).enable_quantized(
+            bits=8), q), ps.n, gt, (10, 64), f"{name} build, q8")
+    launches = _launch_counts()
+    log("launches during phase 11b:", {k: v for k, v in launches.items() if v})
+    for name in ("occlusion_rounds", "flat_topk", "expand_distances"):
+        check(launches[name] > 0, f"{name} was not launched by phase 11b")
+    check(abs(out["exact"][10] - ref) <= EXACT_GAP,
+          f"11b: the exact build's recall@{K} at beam 10 {out['exact'][10]:.4f} is not within "
+          f"{EXACT_GAP} of phase 3's build's {ref:.4f}")
+    check(out["single_batch"][64] >= SB_BAR,
+          f"11b: the single-batch build's recall@{K} at beam 64 is "
+          f"{out['single_batch'][64]:.4f} < {SB_BAR}")
+    log(f"phase 11b: exact build recall@{K} at beam 10 {out['exact'][10]:.4f} (phase 3's "
+        f"build {ref:.4f}); single-batch build at beam 64 {out['single_batch'][64]:.4f}")
+    return launches
+
+
+def mips11_run(dev):
+    """Phase 11c: MIPS at 1M on scripts/bench_mips_u8.py's construction:
+    the q8 build, the q8 sweep on kernel 3, the 4-bit and 2-bit tiers, the
+    trimmed q8 tier and the f32 walk with the q8 filter -> {kernel:
+    launches}."""
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.index import _entry_top1
+    from parlayann_tpu_torch.ops import quantize
+    from parlayann_tpu_torch.search import exact
+    from parlayann_tpu_torch.search.beam import beam_search_batch
+    from parlayann_tpu_torch.utils import synthetic
+
+    t0 = time.perf_counter()
+    X, Q = synthetic.sparse_clustered_u8(MIPS_N, 128, n_queries=10_000, seed=SEED)
+    Qm = Q.astype(np.float32)
+    Qm /= np.maximum(np.linalg.norm(Qm, axis=1, keepdims=True), 1e-30)
+    log(f"data: sparse clustered uint8 {X.shape} ({(X == 0).mean():.2f} zeros), "
+        f"{len(Q)} queries, normalized for MIPS ({time.perf_counter() - t0:.2f} s)")
+    _zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    graph, points, stats = pt.build_vamana_index(X, metric="mips", R=32, L=64,
+                                                 batch_cap_frac=0.16, device=dev)
+    torch.cuda.synchronize()
+    avg, mx = graph.stats()
+    log(f"MIPS q8 build: {time.perf_counter() - t0:.3f} s (R=32 L=64, alpha 0.98 for d=128, "
+        f"2 passes, batch_cap_frac=0.16); degree avg {avg:.3f} max {mx}; visited "
+        f"{stats.total_visited} cmps {stats.total_cmps}")
+    q = torch.from_numpy(Qm).to(dev)
+    t0 = time.perf_counter()
+    gt = exact.compute_groundtruth(points, Qm, 2 * K)
+    log(f"ground truth: exact top-{2 * K} on the card, {time.perf_counter() - t0:.3f} s")
+    recall = {}
+    tiers = (("q8", lambda i: i.enable_quantized(bits=8)),
+             ("4bit", lambda i: i.enable_mips_4bit()),
+             ("2bit", lambda i: i.enable_mips_2bit()),
+             ("q8_trim", lambda i: i.enable_quantized(bits=8, trim=0.001)))
+    for name, enable in tiers:
+        t0 = time.perf_counter()
+        idx = enable(pt.Index(points=points, graph=graph))
+        torch.cuda.synchronize()
+        log(f"tier {name}: built in {time.perf_counter() - t0:.3f} s")
+        recall[name] = _search_rows(_index_search(idx, q), points.n, gt, MIPS_BEAMS[name],
+                                    f"MIPS {name}")
+        if name == "q8":
+            q8_idx = idx
+    # the f32 walk, without and with the q8 tier's running-mean filter
+    # (bench_tier_filter.py's B and C), from the entry tier's starts
+    tier = q8_idx.qpoints
+    q8_idx.build_entry_cache()
+    starts = _entry_top1(q, q8_idx.entry_vecs, q8_idx.entry_ids, metric=points.metric)
+    fq = quantize.translate_query(q, tier).float()
+
+    def walk(filt):
+        def search(beam):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = beam_search_batch(
+                q, points.data, graph.neighbors, graph.degrees, starts, metric=points.metric,
+                n_valid=points.n, k=K, L=beam, filter_data=tier.data if filt else None,
+                filter_queries=fq if filt else None)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            return res.beam_ids[:, :K], res.beam_dists[:, :K], res, dt
+        return search
+
+    # each walk twice, in the order B, C, C, B: one timing of a host-bound
+    # loop is not enough to call a QPS difference
+    for filt in (False, True, True, False):
+        _search_rows(walk(filt), points.n, gt, FILTER_BEAMS,
+                     f"f32 walk {'with the q8 filter' if filt else 'unfiltered'}")
+    log(f"peak device memory in phase 11c: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    launches = _launch_counts()
+    log("launches during phase 11c:", {k: v for k, v in launches.items() if v})
+    for name in ("expand_distances", "occlusion_rounds", "beam_search_fused"):
+        check(launches[name] > 0, f"{name} was not launched by phase 11c")
+    for name in ("q8", "4bit"):
+        best = max(recall[name].values())
+        check(best >= MIPS_BAR, f"11c: MIPS {name} reaches recall@{K} {best:.4f} < {MIPS_BAR} "
+              f"within beams {MIPS_BEAMS[name]}")
+    check(recall["2bit"][240] >= MIPS_2BIT_BAR,
+          f"11c: MIPS 2bit recall@{K} at beam 240 is {recall['2bit'][240]:.4f} < {MIPS_2BIT_BAR}")
+    log(f"phase 11c: best recall@{K} q8 {max(recall['q8'].values()):.4f}, 4-bit "
+        f"{max(recall['4bit'].values()):.4f}; 2-bit at beam 240 {recall['2bit'][240]:.4f}")
+    return launches
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -1872,6 +2188,7 @@ def main():
     k1f = kernel_expand_f32(dev)
     k2f = kernel_occlude(gen, dev, f32=True)
     k1h = kernel_expand_hnsw(gen, dev)
+    k1i = kernel_expand_i16(dev)
     kb = bitonic_check(gen, dev)
     k4 = kernel_flat(X, Q, gen, dev)
     phase("phase 3: the slice (q8 Vamana build + q8 fused search)")
@@ -1892,6 +2209,7 @@ def main():
     del indexes
     phase("phase 7: the f32 tier at 100K (f32 build, f32 and q8 lock-step search)")
     launches.update(f32_run(X, Q, gt, idx, dev))
+    p3 = (idx.points, idx.graph)  # phase 11's 100K graph
     del idx
     phase("phase 8: HNSW at 100K (f32 and q8 builds, layered search)")
     hnsw_builds, hnsw_launches, _ = hnsw_run(X, Q, gt, dev)
@@ -1935,6 +2253,13 @@ def main():
     launches["expand_bits_flat"] = tier_launches["expand_bits_flat"]
     phase("phase 2 (continued): kernel 6 on the tiers' inline words")
     k6 = kernel_bits(kept, gen, dev)
+    del kept
+    phase("phase 11a: the 16-bit and 4-bit scalar tiers at 100K (kernel 1's int16 mode)")
+    p11 = {"11a": tiers11_run(*p3, Q, gt, dev)}
+    phase("phase 11b: exact-candidate (profiled) and single-batch Vamana builds at 100K")
+    p11["11b"] = modes11_run(X, Q, gt, *p3, dev)
+    phase("phase 11c: MIPS at 1M (q8 build and sweep, 4-bit, 2-bit and trimmed tiers, filter)")
+    p11["11c"] = mips11_run(dev)
 
     # phase8_launches: each kernel's launches in phase 8 (HNSW); shapes:
     # its times at HNSW's shapes beside the main path's
@@ -1967,6 +2292,11 @@ def main():
              replaces="parlayann_tpu/ops/pallas/expand.py:129",
              launches=launches["expand_distances (f32 rows)"],
              phase8_launches=h["expand_distances (f32 rows)"], **k1f),
+        # the int16 mode, launched by phase 11a's 16-bit tier search
+        dict(name="expand_distances (int16 rows)", route="cuda",
+             source="parlayann_tpu_torch/csrc/expand.cu",
+             replaces="parlayann_tpu/ops/pallas/expand.py:129",
+             launches=p11["11a"]["expand_distances (int16 rows)"], **k1i),
         dict(name="occlusion_rounds (f32 rows)", route="cuda",
              source="parlayann_tpu_torch/csrc/occlude.cu",
              replaces="parlayann_tpu/ops/pallas/occlude.py:91",
@@ -2003,6 +2333,12 @@ def main():
     for k in kernels:
         if p10.get(k["name"]):
             k["phase10_launches"] = p10[k["name"]]
+    # phase11_launches: launches in phases 11a, 11b and 11c, on each kernel
+    # one of them launched
+    for k in kernels:
+        counts = {sub: c[k["name"]] for sub, c in p11.items() if c.get(k["name"])}
+        if counts:
+            k["phase11_launches"] = counts
     phase("done")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

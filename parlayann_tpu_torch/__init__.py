@@ -7,12 +7,15 @@ kernel for Hopper (``csrc/``), built with nvcc at first use and bound through
 ctypes. Nothing here imports jax.
 
 Ported so far: the Vamana build on the q8 tier or on the f32 points
-(:func:`build_vamana_index`, ``quantize_build=False``); the search of
-:class:`Index` on the f32 points, on the q8 tier (the fused beam, or the
-lock-step search at ``expand > 1`` or ``degree_limit < R``), on the packed
-1-bit tier (``enable_bit_tier``) and on the JL tiers (``enable_jl``, 1-bit
-and 8-bit, dense and sparse), the quantized ones with a full-precision
-rerank; the
+(:func:`build_vamana_index`, ``quantize_build=False``), with its
+``single_batch``, ``cand_mode="exact"`` and ``profile`` modes; the search
+of :class:`Index` on the f32 points, on the scalar tiers of 1 to 16 bits
+(the fused beam on int8 levels, or the lock-step search: int16 levels,
+``expand > 1`` or ``degree_limit < R``), on the packed 1-bit tier
+(``enable_bit_tier``), the MIPS 2-bit and 4-bit tiers
+(``enable_mips_2bit``, ``enable_mips_4bit``) and the JL tiers
+(``enable_jl``, any width, dense and sparse), the quantized ones with a
+full-precision rerank; the two-tier filter of ``beam_search_batch``; the
 ClusterIndex build and search (:func:`build_cluster_index`,
 :class:`ClusterIndex`); the flat brute-force search (:class:`FlatIndex`);
 the HNSW build and its layered search (:func:`build_hnsw_index`,

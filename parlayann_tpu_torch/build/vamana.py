@@ -20,8 +20,24 @@ gather rows. Builds run on int8 points (the q8 tier, the default) or on
 the float32 points themselves (``quantize_build=False``; uint8 points on
 an exact float32 copy); distances are float32 either way.
 
-Not ported yet: ``cand_mode="exact"``, the fused read phase
-(``build_beam_fused``), ``single_batch`` and ``profile``.
+The build modes of the JAX package:
+
+- ``single_batch`` (index.h:156-169, :239; JAX vamana.py:500-511): random
+  initial edges, ``min(single_batch, R)`` a row drawn from the build's
+  generator before the pass permutations, then one batch of all n points a
+  pass, each point's search starting at itself;
+- ``cand_mode="exact"`` (JAX ``_exact_phase_impl``, vamana.py:177-266):
+  the read phase's candidates are the exact top-k of the inserted prefix
+  (a mask kept on the device) and of a ladder of uniform samples (drawn
+  from ``seed + 7919``), through kernel 4's masked mode with each point's
+  own id excluded, on the card; samples of up to 2048 rows take the plain
+  scan, as JAX's "sort" select;
+- ``profile=True``: the same build with a device fence after each phase,
+  filling BuildStats' beam, bidirect and prune seconds (index.h:217-222);
+  ``profile_one_batch`` times the three phases of one steady batch.
+
+Not ported: the fused read phase (``build_beam_fused``, ROADMAP A3), which
+the JAX package leaves off by default.
 """
 
 from __future__ import annotations
@@ -40,6 +56,7 @@ from parlayann_tpu_torch.ops.distance import INF
 from parlayann_tpu_torch.ops.kernels.expand import build_inline
 from parlayann_tpu_torch.ops.topk import lexsort
 from parlayann_tpu_torch.search.beam import beam_search_batch
+from parlayann_tpu_torch.search.flat import flat_search_batch
 from parlayann_tpu_torch.build.prune import robust_prune_chunked
 from parlayann_tpu_torch.build.reverse import (
     prepare_reverse_append, prune_reverse_all, scatter_rows,
@@ -54,20 +71,58 @@ INLINE_BUDGET = 6 << 30
 
 
 class BuildStats(NamedTuple):
-    """Wall seconds (fenced on CUDA) and the read phase's total visits
-    and distance computations. The JAX package's t_beam/t_bidirect/t_prune
-    split (its ``profile`` mode) is not ported."""
+    """The JAX package's fields in its order (vamana.py:99-106): wall
+    seconds (fenced on CUDA); the beam, bidirect and prune seconds of a
+    ``profile=True`` build (index.h:217-219; 0 otherwise); the read phase's
+    total visits and distance computations; ``n_fallback`` (always 0, as in
+    JAX)."""
 
     build_time: float
+    beam_time: float
+    bidirect_time: float
+    prune_time: float
     total_visited: int
     total_cmps: int
+    n_fallback: int
+
+
+class _Laps:
+    """The fenced phase split of a profiled build: ``laps(name)`` adds the
+    seconds since the last lap, after a device fence, to ``times[name]``
+    (``None``: restart the clock). Off (``on=False``), it does nothing and
+    the times stay 0."""
+
+    def __init__(self, dev: torch.device, on: bool = True):
+        self.dev, self.on = dev, on
+        self.times = {"beam": 0.0, "bidirect": 0.0, "prune": 0.0}
+        self.t = time.perf_counter()
+
+    def __call__(self, name):
+        if not self.on:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        now = time.perf_counter()
+        if name:
+            self.times[name] += now - self.t
+        self.t = now
+
+
+def _old_candidates(nbrs, degs, points_data, safe_ids, queries, *, R, metric):
+    """The current out-edges of the batch's points and their distances
+    (add = true, index.h:70-76)."""
+    old_row = nbrs[safe_ids]
+    old_ok = torch.arange(R, device=nbrs.device)[None, :] < degs[safe_ids][:, None]
+    old_vecs = points_data[old_row.long().clamp(0, points_data.shape[0] - 1)]
+    return old_row, torch.where(old_ok, distance.gathered(queries, old_vecs, metric), INF)
 
 
 def _read_phase(nbrs, degs, points_data, batch_ids, start, inline, *, R, L,
                 vmax, metric, n_valid):
-    """Beam search from the start point with k = 0 (no cut), recording the
-    visited list; candidates = visited ∪ current out-edges (index.h:70-76,
-    :251-262)."""
+    """Beam search from the start point (or each point from itself, the
+    ``(B, 1)`` starts of a single-batch build) with k = 0 (no cut),
+    recording the visited list; candidates = visited ∪ current out-edges
+    (index.h:70-76, :251-262)."""
     safe_ids = batch_ids.long().clamp(0, points_data.shape[0] - 1)
     queries = points_data[safe_ids]
     res = beam_search_batch(
@@ -75,28 +130,84 @@ def _read_phase(nbrs, degs, points_data, batch_ids, start, inline, *, R, L,
         metric=metric, n_valid=n_valid, k=0, L=L, limit=vmax,
         expand=READ_EXPAND, record_visited=True, exclude_self=True,
     )
-    old_row = nbrs[safe_ids]
-    old_ok = torch.arange(R, device=nbrs.device)[None, :] < degs[safe_ids][:, None]
-    old_vecs = points_data[old_row.long().clamp(0, points_data.shape[0] - 1)]
-    old_d = torch.where(old_ok, distance.gathered(queries, old_vecs, metric), INF)
+    old_row, old_d = _old_candidates(nbrs, degs, points_data, safe_ids, queries,
+                                     R=R, metric=metric)
     cand_ids = torch.cat([res.visited_ids, old_row], dim=1)
     cand_d = torch.cat([res.visited_dists, old_d], dim=1)
     return cand_ids, cand_d, res.num_visited.sum(), res.dist_cmps.sum()
 
 
+def _exact_phase(nbrs, degs, points_data, batch_ids, inserted, samples, *, R,
+                 L, vmax, metric, n_valid):
+    """The multi-scale exact-candidate read phase (JAX vamana.py:177-242):
+    the exact top-kc of the inserted prefix (``inserted``, an (n_pad,)
+    bool mask on the device, without the batch's own points, which are
+    excluded by id), the top-16 (top-8 below 4097 rows) of each waypoint
+    sample, and the current out-edges."""
+    safe_ids = batch_ids.long().clamp(0, points_data.shape[0] - 1)
+    queries = points_data[safe_ids]
+    qf = queries.float()
+    kc = min(vmax, max(L, R + 8))
+    # kernel 4 on the card; elsewhere the plain scan (JAX's "approx" off the TPU)
+    sel = "pallas" if points_data.device.type == "cuda" else "approx"
+    cids, cd = flat_search_batch(qf, points_data, inserted, batch_ids, k=kc,
+                                 metric=metric, n_valid=n_valid, select=sel)
+    scale_ids, scale_d = [cids], [torch.where(cids >= 0, cd, INF)]
+    for sids, sdata in samples:
+        kk = 16 if sdata.shape[0] > 4096 else 8
+        rid, rd = flat_search_batch(
+            qf, sdata, inserted[sids.long()], None, k=kk, metric=metric,
+            n_valid=sdata.shape[0], select=sel if sdata.shape[0] > 2048 else "sort")
+        gid = torch.where(rid >= 0, sids[rid.long().clamp(0, sids.shape[0] - 1)], -1)
+        scale_ids.append(gid)
+        scale_d.append(torch.where((gid >= 0) & (gid != batch_ids[:, None]), rd, INF))
+    old_row, old_d = _old_candidates(nbrs, degs, points_data, safe_ids, queries,
+                                     R=R, metric=metric)
+    active = (batch_ids >= 0).sum()
+    n_ins = inserted.sum()
+    return (torch.cat(scale_ids + [old_row], dim=1), torch.cat(scale_d + [old_d], dim=1),
+            active * kc, active * n_ins)
+
+
+def _scale_samples(n: int, rng: np.random.Generator, points_data: torch.Tensor):
+    """The waypoint sample ladder (JAX vamana.py:245-266): uniform samples
+    at about 4x spacing from n / 4 down to about 512 rows (powers of two, at
+    most 65536), each drawn by ``rng.choice(n, p, replace=False)`` and
+    gathered once -> [(global ids, rows)]. Empty below 8192 points."""
+    if n < 8192:
+        return []
+    sizes = []
+    s = n // 4
+    while s >= 384:
+        p = min(65536, max(512, 1 << (s.bit_length() - 1)))
+        if not sizes or p < sizes[-1]:
+            sizes.append(p)
+        s //= 4
+    out = []
+    for p in sizes:
+        ids = torch.from_numpy(rng.choice(n, p, replace=False).astype(np.int32))
+        ids = ids.to(points_data.device)
+        out.append((ids, points_data[ids.long()]))
+    return out
+
+
 def _write_batch(nbrs, degs, points_data, batch_ids, cand_ids, cand_d, alpha,
-                 *, R, metric, n_valid, chunk=2048, rev_chunk=4096):
-    """Forward robustPrune + row write, reverse append, overflow α-prune."""
+                 laps, *, R, metric, n_valid, chunk=2048, rev_chunk=4096):
+    """Forward robustPrune + row write, reverse append, overflow α-prune,
+    timed by ``laps`` as prune, bidirect, prune."""
     n_pad = nbrs.shape[0]
     pr = robust_prune_chunked(batch_ids, cand_ids, cand_d, points_data, alpha,
                               R=R, metric=metric, n_valid=n_valid, chunk=chunk)
     wt = torch.where(batch_ids >= 0, batch_ids, n_pad)
     nbrs, degs = scatter_rows(nbrs, degs, wt, pr.ids, pr.degree)
+    laps("prune")
     nbrs, degs, ctx = prepare_reverse_append(
         nbrs, degs, batch_ids, pr.ids, pr.dists, R=R, n_valid=n_valid)
+    laps("bidirect")
     nbrs, degs = prune_reverse_all(nbrs, degs, ctx, points_data, alpha, R=R,
                                    metric=metric, n_valid=n_valid,
                                    chunk=rev_chunk)
+    laps("prune")
     return nbrs, degs
 
 
@@ -154,13 +265,17 @@ def _pad_pow2(ids: np.ndarray, cap: int, min_size: int = 256) -> np.ndarray:
     return out
 
 
-def build_vamana_graph(points: PointSet, bp: BuildParams,
-                       verbose: bool = False) -> tuple[GraphIndexData, BuildStats]:
-    """Build a Vamana graph over ``points`` (on ``points.device``)."""
-    if bp.single_batch:
-        raise NotImplementedError(
-            "single_batch builds are not ported; see ROADMAP queue 1, "
-            '"The rest of the Vamana builder"')
+def build_vamana_graph(points: PointSet, bp: BuildParams, verbose: bool = False,
+                       profile: bool = False, cand_mode: str = "beam"
+                       ) -> tuple[GraphIndexData, BuildStats]:
+    """Build a Vamana graph over ``points`` (on ``points.device``).
+
+    ``cand_mode``: "beam" (the reference's insertion search) or "exact"
+    (the multi-scale exact candidates); a ``bp.single_batch`` build always
+    searches ("beam"). ``profile=True`` fences every phase and fills the
+    beam, bidirect and prune seconds: the same graph, a slower build."""
+    if cand_mode not in ("beam", "exact"):
+        raise ValueError(f'cand_mode must be "beam" or "exact", got {cand_mode!r}')
     n = points.n
     R, L = bp.R, bp.L
     dev = points.device
@@ -170,12 +285,28 @@ def build_vamana_graph(points: PointSet, bp: BuildParams,
     degs = torch.zeros((points.n_pad,), dtype=torch.int32, device=dev)
     rng = np.random.default_rng(bp.seed)
     start = torch.zeros((1,), dtype=torch.int32, device=dev)  # index.h:143
-    sched, max_batch = batch_schedule(n, n, bp.batch_cap_frac)
+    if bp.single_batch:
+        # random initial edges (drawn before the pass permutations), one
+        # batch a pass, each point searching from itself (index.h:156-169)
+        deg0 = min(bp.single_batch, R)
+        rnd = rng.integers(0, n, (points.n_pad, deg0)).astype(np.int32)
+        nbrs[:, :deg0] = torch.from_numpy(rnd).to(dev)
+        degs.fill_(deg0)
+        sched, max_batch = [(0, n)], n
+        cand_mode = "beam"
+    else:
+        sched, max_batch = batch_schedule(n, n, bp.batch_cap_frac)
+    inserted, samples = None, []
+    if cand_mode == "exact":
+        inserted = torch.zeros((points.n_pad,), dtype=torch.bool, device=dev)
+        inserted[0] = True
+        samples = _scale_samples(n, np.random.default_rng(bp.seed + 7919), points.data)
     R8 = (R + 7) // 8 * 8
-    inline_ok = (points.n_pad * R8 * points.d * points.data.element_size()
-                 <= INLINE_BUDGET)
+    inline_ok = (cand_mode == "beam" and points.n_pad * R8 * points.d
+                 * points.data.element_size() <= INLINE_BUDGET)
 
     t0 = time.perf_counter()
+    laps = _Laps(dev, on=profile)
     tot_vis = torch.zeros((), dtype=torch.int64, device=dev)
     tot_cmp = torch.zeros((), dtype=torch.int64, device=dev)
     for p in range(bp.num_passes):
@@ -183,15 +314,25 @@ def build_vamana_graph(points: PointSet, bp: BuildParams,
         order = rng.permutation(n).astype(np.int32)
         for bi, (lo, hi) in enumerate(sched):
             batch = torch.from_numpy(_pad_pow2(order[lo:hi], max_batch)).to(dev)
-            inline = (build_inline(points.data, nbrs)
-                      if inline_ok and (hi - lo) >= max(max_batch, 4096) else None)
-            cand_ids, cand_d, v, c = _read_phase(
-                nbrs, degs, points.data, batch, start, inline,
-                R=R, L=L, vmax=vmax, metric=points.metric, n_valid=n)
-            del inline
+            laps(None)
+            if cand_mode == "exact":
+                cand_ids, cand_d, v, c = _exact_phase(
+                    nbrs, degs, points.data, batch, inserted, samples,
+                    R=R, L=L, vmax=vmax, metric=points.metric, n_valid=n)
+            else:
+                inline = (build_inline(points.data, nbrs)
+                          if inline_ok and (hi - lo) >= max(max_batch, 4096) else None)
+                cand_ids, cand_d, v, c = _read_phase(
+                    nbrs, degs, points.data, batch,
+                    batch.clamp(min=0)[:, None] if bp.single_batch else start, inline,
+                    R=R, L=L, vmax=vmax, metric=points.metric, n_valid=n)
+                del inline
+            laps("beam")
             nbrs, degs = _write_batch(
-                nbrs, degs, points.data, batch, cand_ids, cand_d, alpha,
+                nbrs, degs, points.data, batch, cand_ids, cand_d, alpha, laps,
                 R=R, metric=points.metric, n_valid=n)
+            if inserted is not None and p == 0:
+                inserted[batch[batch >= 0].long()] = True
             tot_vis += v
             tot_cmp += c
             if verbose and bi % 8 == 0:
@@ -204,12 +345,53 @@ def build_vamana_graph(points: PointSet, bp: BuildParams,
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     graph = GraphIndexData(neighbors=nbrs, degrees=degs, n=n, max_degree=R)
-    stats = BuildStats(dt, int(tot_vis), int(tot_cmp))
+    t = laps.times
+    stats = BuildStats(dt, t["beam"], t["bidirect"], t["prune"], int(tot_vis),
+                       int(tot_cmp), 0)
     if verbose:
         avg, mx = graph.stats()
         print(f"Vamana build: {dt:.2f}s  avg/max degree {avg:.2f}/{mx}  "
               f"visited {stats.total_visited}  cmps {stats.total_cmps}")
     return graph, stats
+
+
+def profile_one_batch(points: PointSet, bp: BuildParams, graph: GraphIndexData,
+                      repeats: int = 2) -> tuple[float, float, float]:
+    """The (beam, bidirect, prune) seconds of ONE steady batch inserted
+    into copies of ``graph`` (JAX vamana.py:661-735): the batch is the
+    first ``max_batch`` ids of ``default_rng(123).permutation(n)``, each
+    phase fenced, best of ``repeats`` after one warm-up run. ``graph`` is
+    not changed."""
+    n, R, L = points.n, bp.R, bp.L
+    dev = points.device
+    vmax = max(L, R + 16)
+    _, max_batch = batch_schedule(n, n, bp.batch_cap_frac)
+    size = 1
+    while size < max_batch:
+        size *= 2
+    perm = np.random.default_rng(123).permutation(n)[:max_batch].astype(np.int32)
+    batch = torch.from_numpy(_pad_pow2(perm, size)).to(dev)
+    start = torch.zeros((1,), dtype=torch.int32, device=dev)
+    R8 = (R + 7) // 8 * 8
+    use_inline = (max_batch >= 4096 and points.n_pad * R8 * points.d
+                  * points.data.element_size() <= INLINE_BUDGET)
+    best = [float("inf")] * 3
+    for _ in range(repeats + 1):  # the first run warms up
+        nbrs, degs = graph.neighbors.clone(), graph.degrees.clone()
+        laps = _Laps(dev)
+        laps(None)
+        inline = build_inline(points.data, nbrs) if use_inline else None
+        cand_ids, cand_d, _, _ = _read_phase(
+            nbrs, degs, points.data, batch, start, inline, R=R, L=L, vmax=vmax,
+            metric=points.metric, n_valid=n)
+        del inline
+        laps("beam")
+        _write_batch(nbrs, degs, points.data, batch, cand_ids, cand_d, bp.alpha, laps,
+                     R=R, metric=points.metric, n_valid=n)
+        t = laps.times
+        best = [min(best[0], t["beam"]), min(best[1], t["bidirect"]),
+                min(best[2], t["prune"])]
+    return tuple(best)
 
 
 def build_vamana_index(
@@ -224,14 +406,18 @@ def build_vamana_index(
     seed: int = 0,
     batch_cap_frac: float = 0.02,
     device=None,
+    single_batch: int = 0,
+    cand_mode: str = "beam",
+    profile: bool = False,
 ):
     """diskannpy-style wrapper (python/builder.cpp:40-90): MIPS data is
     normalized with a dimension-dependent alpha, and float or uint8 inputs
     build on the q8 tier unless ``quantize_build=False``, which builds on
     the float32 points (uint8: an exact float32 copy); search reranks at
-    full precision. Returns (graph, full-precision PointSet, BuildStats). ``data`` is an array, placed on
-    ``device`` (None: the card), or a PointSet (which keeps its own
-    device)."""
+    full precision. Returns (graph, full-precision PointSet, BuildStats).
+    ``data`` is an array, placed on ``device`` (None: the card), or a
+    PointSet (which keeps its own device). ``single_batch``, ``cand_mode``
+    and ``profile`` are :func:`build_vamana_graph`'s build modes."""
     metric = Metric.coerce(metric)
     ps = data if isinstance(data, PointSet) else PointSet.from_numpy(
         np.asarray(data), metric=metric, normalize=(metric is Metric.MIPS),
@@ -240,6 +426,8 @@ def build_vamana_index(
         alpha = 1.0 if ps.d < 100 else 0.98
     build_ps = quantize.build_tier(ps, quantize_build)
     bp = BuildParams(R=R, L=L, alpha=alpha, num_passes=2 if two_pass else 1,
-                     seed=seed, batch_cap_frac=batch_cap_frac)
-    graph, stats = build_vamana_graph(build_ps, bp, verbose=verbose)
+                     seed=seed, batch_cap_frac=batch_cap_frac,
+                     single_batch=single_batch)
+    graph, stats = build_vamana_graph(build_ps, bp, verbose=verbose,
+                                      profile=profile, cand_mode=cand_mode)
     return graph, ps, stats

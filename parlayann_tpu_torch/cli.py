@@ -5,9 +5,7 @@ Counterpart of parlayann_tpu/cli.py (algorithms/bench/neighborsTime.C:
 the points, build or load a graph, run the recall/QPS sweep
 (search_and_parse), optionally save the graph and append CSV results; or
 run the range modes. One flag more, ``-device``: everything runs on the
-CUDA card unless it names another device (``-device cpu``). Flags that
-reach a piece not ported yet raise NotImplementedError, naming its ROADMAP
-item, before any data is read.
+CUDA card unless it names another device (``-device cpu``).
 
 Usage:
   python -m parlayann_tpu_torch.cli -base_path base.fbin -query_path q.fbin \
@@ -78,22 +76,6 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_ported(args) -> None:
-    """Raise for a flag that reaches a piece the port does not have yet."""
-    from parlayann_tpu_torch.index import _not_ported
-
-    tiers = 'queue 1 item 4, "The remaining tiers"'
-    mips = args.dist_func == "mips"
-    if args.single_batch:
-        _not_ported("-single_batch", 'queue 1 item 6, "The rest of the Vamana builder"')
-    if args.quantize_bits not in (0, 8):
-        _not_ported(f"-quantize_bits {args.quantize_bits} (only 8-bit tiers)", tiers)
-    if mips and args.quantize == 3:
-        _not_ported("-quantize 3 on mips (the MIPS 2-bit tier, enable_mips_2bit)", tiers)
-    if mips and args.trim > 0 and (args.quantize or args.quantize_bits):
-        _not_ported("-trim on mips (the trimmed MIPS scale)", tiers)
-
-
 def main(argv=None):
     from parlayann_tpu_torch.types import BuildParams, Metric
     from parlayann_tpu_torch.data.pointset import PointSet
@@ -106,7 +88,6 @@ def main(argv=None):
     from parlayann_tpu_torch.utils.device import resolve
 
     args = make_parser().parse_args(argv)
-    _check_ported(args)
     dev = resolve(args.device)
     dtype = {"float": np.float32, "uint8": np.uint8, "int8": np.int8}[args.data_type]
     metric = Metric.L2 if args.dist_func == "Euclidian" else Metric.MIPS
@@ -139,8 +120,9 @@ def main(argv=None):
             from parlayann_tpu_torch.build.vamana import build_vamana_graph
 
             # -quantize != 0 also quantizes the BUILD of float points to one
-            # byte (vamana/neighbors.h:118-119); uint8 points build on an
-            # exact float32 copy (the kernels read int8 or float32 rows)
+            # byte (vamana/neighbors.h:118-119), with -trim's MIPS scale;
+            # uint8 points build on an exact float32 copy (the kernels read
+            # int8 or float32 rows)
             build_ps = (quantize.quantize_pointset(ps, bits=8, trim=args.trim)
                         if args.quantize and ps.data.dtype.is_floating_point
                         else quantize.build_tier(ps, False))
@@ -206,8 +188,7 @@ def main(argv=None):
     if args.quantize:
         # two-level tier dispatch (vamana/neighbors.h:117-186): level 1 is
         # always the 1-byte scalar tier; modes >= 2 add the aggressive
-        # search tier (search on it, rerank at full precision); the MIPS
-        # 2-bit tier (mode 3) raised in _check_ported
+        # search tier (search on it, rerank at full precision)
         idx.enable_quantized(bits=8, trim=args.trim)
         if metric is Metric.L2:
             if args.quantize == 2:  # Euclidean_Bit_Point
@@ -217,6 +198,8 @@ def main(argv=None):
         else:
             if args.quantize == 2:  # Mips_Bit_Point
                 idx.enable_bit_tier()
+            elif args.quantize == 3:  # Mips_2Bit_Point
+                idx.enable_mips_2bit()
             elif args.quantize == 4:  # Mips_JL_Bit_Point<512>
                 idx.enable_jl(jl_dims=512, bits=1)
             elif args.quantize == 5:  # Mips_JL_Sparse_Point<1500>

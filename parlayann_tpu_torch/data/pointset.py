@@ -28,10 +28,11 @@ class PointSet:
     """A set of n d-dimensional vectors on ``data.device``.
 
     ``data`` is ``(n_pad, d)`` in the storage dtype (float32, uint8 or
-    int8). ``bits`` is the quantization tier: 32 (full precision), 8
-    (scalar-quantized int8) or 1 (packed sign bits). ``quant_slope`` and
+    int8). ``bits`` is the quantization tier: 32 (full precision), 1 to 16
+    (scalar-quantized: int8 up to 8 bits, int16 above; ops/quantize.py),
+    or the packed 1-bit, MIPS 2-bit and 4-bit tiers. ``quant_slope`` and
     ``quant_offset`` are 0-d float32 tensors on the same device for the
-    8-bit tier. The 1-bit tier's ``data`` is ``(n_pad, W)`` int32 words,
+    scalar tiers. The 1-bit tier's ``data`` is ``(n_pad, W)`` int32 words,
     W = ceil(d / 32), bit j of word w holding coordinate 32 w + j (the JAX
     package's uint32 words with the same bits); its ``quant_offset`` is the
     ``(d,)`` float32 threshold vector and ``quant_slope`` is None.

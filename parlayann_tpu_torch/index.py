@@ -2,22 +2,27 @@
 
 Counterpart of parlayann_tpu/index.py (GraphIndex, python/graph_index.cpp:
 82-305). ``batch_search`` picks the tier by the JAX package's priority,
-1-bit > JL > q8 (index.py:343-367):
+1-bit > JL > MIPS 2-bit > MIPS 4-bit > scalar > full (index.py:343-367):
 
 - the packed 1-bit tier (``enable_bit_tier``) and the JL sign-bit tier
   (``enable_jl(bits=1)``) run the lock-step ``beam_search_batch(bits=1)``
   with ``k=0`` over an inline word array through kernel 6
   (``expand_bits_flat``);
-- the JL 8-bit tier (``enable_jl(bits=8)``) runs the lock-step search with
-  ``k`` over its int8 projections, gathering rows;
-- the q8 tier is the JAX package's fused path (``_fused_search_1d``,
-  index.py:63-93) on kernel 3 when ``use_fused`` holds, ``expand == 1``
-  and ``degree_limit >= R``;
-- everything else on the q8 tier (``expand > 1``, ``degree_limit < R``,
-  ``use_fused=False``) and the full-precision (f32) tier run the
+- the JL scalar tiers (``enable_jl(bits=8)``, or any width) run the
+  lock-step search with ``k`` over their projections, gathering rows;
+- the MIPS 2-bit tier (``enable_mips_2bit``) runs the lock-step search
+  with ``k=0`` and the MIPS 4-bit tier (``enable_mips_4bit``) with ``k``,
+  both gathering rows (ternary words, packed nibbles), as in JAX;
+- a scalar tier stored in int8 (``enable_quantized(bits)`` with bits <= 8)
+  is the JAX package's fused path (``_fused_search_1d``, index.py:63-93)
+  on kernel 3 when ``use_fused`` holds, ``expand == 1`` and ``degree_limit
+  >= R``;
+- everything else on a scalar tier (``expand > 1``, ``degree_limit < R``,
+  ``use_fused=False``, and the int16 tiers of 9 to 16 bits, whose rows
+  kernel 3 does not read) and the full-precision (f32) tier run the
   lock-step ``search/fused.py:fused_search`` (index.py:416-446) over the
-  tier's inline rows (``build_inline_cache``, kernel 1) or, past the
-  cache's byte budget, by gathering rows.
+  tier's inline rows (``build_inline_cache``, kernel 1 on int8, int16 or
+  f32 rows) or, past the cache's byte budget, by gathering rows.
 
 Every tier starts from the entry top-1 over a sampled tier (or the given
 starts, or ``start_point``); the quantized tiers end in the
@@ -75,9 +80,9 @@ class Index:
     points: PointSet
     graph: GraphIndexData
     start_point: int = 0
-    qpoints: Optional[PointSet] = None  # q8 tier (graph_index.cpp:86-101)
+    qpoints: Optional[PointSet] = None  # scalar tier (graph_index.cpp:86-101)
     # (n_pad, R8, d) inline neighbour rows of the lock-step search's tier
-    # (the q8 tier if any, else the points), in its dtype; None past the
+    # (the scalar tier if any, else the points), in its dtype; None past the
     # byte budget of build_inline_cache, which then clears use_inline
     inline: Optional[torch.Tensor] = None
     use_inline: bool = True
@@ -85,6 +90,8 @@ class Index:
     use_fused: bool = True  # the q8 tier's kernel-3 walk where it applies
     bit_points: Optional[PointSet] = None  # packed 1-bit tier
     jl_tier: Optional[quantize.JLTier] = None
+    t2_points: Optional[PointSet] = None  # ternary 2-bit MIPS tier
+    t4_points: Optional[PointSet] = None  # packed 4-bit MIPS tier
     # (n_pad, R8, W) int32 inline words of a 1-bit tier, and that tier
     inline_bits: Optional[torch.Tensor] = None
     _inline_bits_src: Optional[PointSet] = None
@@ -104,11 +111,11 @@ class Index:
              dtype=None, quantize_bits: int = 8, auto_tier: bool = True,
              device=None) -> "Index":
         """An Index over a reference graph file and a data file (JAX
-        index.py:131-154), on ``device`` (None: the card). float32 and
-        uint8 points get the q8 tier (uint8 through its exact affine remap
-        into int8). ``auto_tier`` adds what the reference builds at load
-        (graph_index.cpp:86-101): the JL 1024 sign-bit tier for L2 at
-        d > 800; the MIPS 2-bit tier at d > 200 is not ported yet."""
+        index.py:131-155), on ``device`` (None: the card). float32 and
+        uint8 points get the scalar tier of ``quantize_bits`` (0: none;
+        uint8 through its exact affine remap). ``auto_tier`` adds what the
+        reference builds at load (graph_index.cpp:86-101): the JL 1024
+        sign-bit tier for L2 at d > 800, the MIPS 2-bit tier at d > 200."""
         ps = PointSet.from_file(data_path, dtype=dtype, metric=Metric.coerce(metric),
                                 device=device)
         idx = Index(points=ps, graph=GraphIndexData.load(graph_path, device=ps.device))
@@ -118,16 +125,26 @@ class Index:
             if ps.metric is Metric.L2 and ps.d > 800:
                 idx.enable_jl(jl_dims=1024, bits=1)
             elif ps.metric is Metric.MIPS and ps.d > 200:
-                _not_ported("the MIPS 2-bit tier (auto_tier at d > 200)",
-                            'queue 1, "The remaining tiers"')
+                idx.enable_mips_2bit()
         return idx
 
     def save(self, graph_path: str) -> None:
         self.graph.save(graph_path)
 
     def enable_quantized(self, bits: int = 8, trim: float = 0.0) -> "Index":
-        """Build the scalar-quantized search tier (graph_index.cpp:86-101)."""
+        """Build the scalar-quantized search tier of 1 to 16 bits
+        (graph_index.cpp:86-101); ``trim`` trims the MIPS scale."""
         self.qpoints = quantize.quantize_pointset(self.points, bits=bits, trim=trim)
+        return self
+
+    def enable_mips_2bit(self) -> "Index":
+        """The ternary 2-bit MIPS tier (Mips_2Bit_Point, mips_point.h:495-621)."""
+        self.t2_points = quantize.mips_2bit_quantize(self.points)
+        return self
+
+    def enable_mips_4bit(self, trim: float = 0.0) -> "Index":
+        """The packed 4-bit MIPS tier (Mips_4Bit_Point, mips_point.h:706-849)."""
+        self.t4_points = quantize.mips_4bit_quantize(self.points, trim=trim)
         return self
 
     def enable_bit_tier(self) -> "Index":
@@ -160,12 +177,12 @@ class Index:
 
     def build_inline_cache(self, hbm_budget_bytes: int = 6 << 30) -> Optional[torch.Tensor]:
         """Inline rows (n_pad, R8, d) of the lock-step search's tier (the
-        q8 tier if any, else the full-precision points) for kernel 1, kept
-        for the next search and keyed on that tier, so enabling the q8
-        tier after an f32 search rebuilds it in int8. An array of more than
-        ``hbm_budget_bytes`` is not built: ``use_inline`` turns off and the
-        search gathers rows (JAX index.py:194-213, which budgets R rows a
-        vertex; here the R8 rows the array really holds)."""
+        scalar tier if any, else the full-precision points) for kernel 1,
+        kept for the next search and keyed on that tier, so enabling a
+        scalar tier after an f32 search rebuilds it in the tier's dtype. An
+        array of more than ``hbm_budget_bytes`` is not built: ``use_inline``
+        turns off and the search gathers rows (JAX index.py:194-213, which
+        budgets R rows a vertex; here the R8 rows the array really holds)."""
         if not self.use_inline:
             return None
         src = self.qpoints if self.qpoints is not None else self.points
@@ -197,8 +214,8 @@ class Index:
                      expand_group: int = 1, random_starts: int = 0,
                      seed: int = 0, starts=None):
         """Search all query rows -> (ids (B, k), dists (B, k), result): a
-        FusedResult on the q8 and f32 tiers, the BeamResult of the
-        lock-step search on the 1-bit and JL tiers.
+        FusedResult on the scalar and f32 tiers, the BeamResult of the
+        lock-step search on the 1-bit, JL, 2-bit and 4-bit tiers.
 
         ``starts``: optional per-query start ids, (B,) or (B, S); they take
         precedence over ``random_starts``, which take precedence over the
@@ -236,9 +253,9 @@ class Index:
                                      device=self.device)
         L = max(qp.beamSize, k)
         pool = min(max(k * rerank_factor, k), L)
-        # the coarse 1-bit tiers have huge tie classes, so the metric cut
-        # rule is unusable: they search with k=0 (pure beam) and the rerank
-        # restores precision (beamSearch.h:394-454)
+        # the coarse 1-bit and 2-bit tiers have huge tie classes, so the
+        # metric cut rule is unusable: they search with k=0 (pure beam) and
+        # the rerank restores precision (beamSearch.h:394-454)
         if self.bit_points is not None:
             tier = self.bit_points
             q = quantize.bit_translate_query(qf, tier)
@@ -248,7 +265,16 @@ class Index:
             q = self.jl_tier.translate_query(qf)
             bits = 1 if self.jl_tier.bits == 1 else 32
             search_k = 0 if bits == 1 else k
-        elif (self.qpoints is not None and self.use_fused and expand == 1
+        elif self.t2_points is not None:
+            tier = self.t2_points
+            q = quantize.mips_2bit_translate_query(qf, tier)
+            bits, search_k = 2, 0
+        elif self.t4_points is not None:
+            tier = self.t4_points
+            q = quantize.mips_4bit_translate_query(qf, tier)
+            bits, search_k = 4, k
+        elif (self.qpoints is not None and self.qpoints.data.dtype == torch.int8
+              and self.use_fused and expand == 1
               and qp.degree_limit >= self.graph.max_degree):
             return self._search_q8(qf, start_arr, qp, k, L, pool)
         else:
@@ -271,8 +297,8 @@ class Index:
         return ids, dists, res
 
     def _search_q8(self, qf, start_arr, qp, k, L, pool):
-        """The q8 tier's fused path: kernel 3 walks each query, then the
-        rerank."""
+        """The fused path of a scalar tier stored in int8: kernel 3 walks
+        each query, then the rerank."""
         tier = self.qpoints
         q_t = quantize.translate_query(qf, tier).float()
         fid, _, nv, cmps = beam_search_fused(

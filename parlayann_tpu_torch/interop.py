@@ -36,9 +36,12 @@ def pointset_from_state(data: np.ndarray, n: int, d: int, metric, bits: int = 32
                         quant_slope=None, quant_offset=None,
                         device=None) -> PointSet:
     """A PointSet from ``PointSet.data`` (already padded) and its fields,
-    on ``device`` (None: the card). The 1-bit tier's uint32 words become
-    int32 words with the same bits, and its ``(d,)`` threshold vector stays
-    a vector."""
+    on ``device`` (None: the card). The uint32 words of the 1-bit and MIPS
+    2-bit tiers become int32 words with the same bits; the 1-bit tier's
+    ``(d,)`` threshold vector stays a vector. The uint16 levels of an L2
+    tier of 9 to 16 bits become the port's ``level - 32768`` in int16
+    (ops/quantize.py); every other dtype (int8 tiers, the packed 4-bit
+    tier, MIPS int16 levels, the points) is taken as it is."""
     device = resolve(device)
 
     def f32(v):
@@ -48,6 +51,8 @@ def pointset_from_state(data: np.ndarray, n: int, d: int, metric, bits: int = 32
     arr = np.asarray(data)
     if arr.dtype == np.uint32:
         arr = arr.view(np.int32)
+    elif arr.dtype == np.uint16:
+        arr = (arr.astype(np.int32) - 32768).astype(np.int16)
     return PointSet(
         data=torch.tensor(arr).to(device), n=int(n),
         d=int(d), metric=_metric(metric), bits=int(bits),
@@ -79,14 +84,18 @@ def index_from_state(points: PointSet, graph: GraphIndexData,
                      qpoints: Optional[PointSet] = None,
                      bit_points: Optional[PointSet] = None,
                      jl_tier: Optional[JLTier] = None, use_inline: bool = True,
-                     use_fused: bool = True) -> Index:
+                     use_fused: bool = True,
+                     t2_points: Optional[PointSet] = None,
+                     t4_points: Optional[PointSet] = None) -> Index:
     """An Index over converted points, graph and tiers (with no
-    ``qpoints`` it searches the full-precision tier); ``entry_ids`` (the
-    JAX Index's sampled entry tier) are installed as they are, and the
-    JAX Index's ``use_inline`` and ``use_fused`` switches carried over."""
+    ``qpoints`` it searches the full-precision tier; ``t2_points`` and
+    ``t4_points`` are the JAX Index's MIPS 2-bit and 4-bit tiers);
+    ``entry_ids`` (the JAX Index's sampled entry tier) are installed as
+    they are, and the JAX Index's ``use_inline`` and ``use_fused``
+    switches carried over."""
     idx = Index(points=points, graph=graph, qpoints=qpoints,
                 bit_points=bit_points, jl_tier=jl_tier, use_inline=use_inline,
-                use_fused=use_fused)
+                use_fused=use_fused, t2_points=t2_points, t4_points=t4_points)
     if entry_ids is not None:
         idx.entry_ids = torch.tensor(np.asarray(entry_ids, dtype=np.int32)).to(points.device)
         idx.entry_vecs = points.data[idx.entry_ids.long()]

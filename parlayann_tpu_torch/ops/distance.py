@@ -40,7 +40,18 @@ def all_pairs(queries: torch.Tensor, points: torch.Tensor,
 def gathered(queries: torch.Tensor, cand_vecs: torch.Tensor,
              metric: Metric) -> torch.Tensor:
     """(B, d), (B, K, d) -> (B, K) distances of per-query gathered
-    candidates, as sum((c - q)^2) (L2) or -sum(c * q) (MIPS)."""
+    candidates, as sum((c - q)^2) (L2) or -sum(c * q) (MIPS).
+
+    int16 rows (the 16-bit tiers, whose float32 sums would not be exact: a
+    square of a 16-bit difference passes 2^31) take the queries as integer
+    levels (rounded half to even) and sum each distance exactly in int64,
+    rounded once to float32. Kernel 1's int16 mode computes the same value,
+    so a vertex's distance is one number on every path and device."""
+    if cand_vecs.dtype == torch.int16:
+        c = cand_vecs.long()
+        q = torch.round(queries.float()).long()[:, None, :]
+        s = -(c * q).sum(-1) if metric is Metric.MIPS else ((c - q) ** 2).sum(-1)
+        return s.float()
     q = _to_f32(queries)
     c = _to_f32(cand_vecs)
     if metric is Metric.MIPS:

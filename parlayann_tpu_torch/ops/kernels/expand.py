@@ -8,7 +8,11 @@ Slots at or beyond a vertex's degree hold garbage distances that the
 caller masks.
 
 Kernel 1 (``expand_distances``, ``csrc/expand.cu``) reads int8 vectors
-(the q8 tier) or f32 vectors (the full-precision tier), one kernel each.
+(the q8 tier and the scalar tiers of fewer bits), int16 vectors (the
+scalar tiers of 9 to 16 bits) or f32 vectors (the full-precision tier),
+one kernel each. On int16 rows the distances are summed exactly in int64
+and rounded once to f32: the squares and products of 16-bit levels pass
+2^31.
 Kernel 6 (``expand_bits_flat``, ``csrc/expandbits.cu``) reads the 1-bit
 tier's packed int32 words and returns XOR + popcount hamming distances; it
 also serves ``expand_distances(bits=1)``. Its inline array is
@@ -97,7 +101,9 @@ def expand_distances_plain(inline: torch.Tensor, expand_ids: torch.Tensor,
     """The kernels' function in PyTorch: (B, R8) f32 distances. f32 rows
     sum in the f32 kernel's order (``distance.gathered_lane_order``, 4
     values a 16-byte chunk), so the two agree bit for bit; int8 rows sum
-    exact integers on the build path, in any order."""
+    exact integers on the build path, in any order; int16 rows sum in
+    int64, rounded once to f32 (``distance.gathered``), as the int16
+    kernel does."""
     if bits == 1:
         return expand_bits_flat_plain(inline, expand_ids, queries)
     rows = inline[expand_ids.long().clamp(0, inline.shape[0] - 1)]
@@ -112,16 +118,19 @@ def expand_distances(inline: torch.Tensor, expand_ids: torch.Tensor,
     """-> (B, R8) f32 distances from query b to the inline neighbours of
     ``expand_ids[b]`` (ids are clamped into range). CPU tensors run
     :func:`expand_distances_plain`; CUDA tensors launch kernel 1, which
-    takes an int8 or a float32 inline array (one kernel each; the f32
-    launches are also counted in ``launches_f32``), int32 ids and f32
-    queries. ``bits=1``: the inline array and the queries are packed int32
+    takes an int8, an int16 or a float32 inline array (one kernel each; the
+    f32 and int16 launches are also counted in ``launches_f32`` and
+    ``launches_i16``), int32 ids and f32 queries (integer levels for int16
+    rows). ``bits=1``: the inline array and the queries are packed int32
     words and the call is :func:`expand_bits_flat` (kernel 6)."""
     if bits == 1:
         return expand_bits_flat(inline, expand_ids, queries)
     if not _lib.route(inline, expand_ids, queries):
         return expand_distances_plain(inline, expand_ids, queries, metric=metric)
     f32 = inline.dtype == torch.float32
-    _lib.require(inline, "inline", torch.float32 if f32 else torch.int8, 3)
+    i16 = inline.dtype == torch.int16
+    _lib.require(inline, "inline",
+                 torch.float32 if f32 else torch.int16 if i16 else torch.int8, 3)
     _lib.require(expand_ids, "expand_ids", torch.int32, 1)
     _lib.require(queries, "queries", torch.float32, 2)
     n_pad, R8, d = inline.shape
@@ -133,16 +142,19 @@ def expand_distances(inline: torch.Tensor, expand_ids: torch.Tensor,
     out = torch.empty((B, R8), dtype=torch.float32, device=queries.device)
     if B == 0:
         return out
-    name = "pa_expand_distances_f32" if f32 else "pa_expand_distances"
+    name = ("pa_expand_distances_f32" if f32 else
+            "pa_expand_distances_i16" if i16 else "pa_expand_distances")
     fn = _lib.function(name, [_lib.VP] * 4 + [_lib.INT] * 5 + [_lib.VP])
     rc = fn(inline.data_ptr(), expand_ids.data_ptr(), queries.data_ptr(),
             out.data_ptr(), B, n_pad, R8, d, int(metric is Metric.MIPS),
             _lib.stream())
     expand_distances.launches += 1
     expand_distances.launches_f32 += f32
+    expand_distances.launches_i16 += i16
     _lib.check(rc, "expand_distances")
     return out
 
 
 expand_distances.launches = 0
 expand_distances.launches_f32 = 0
+expand_distances.launches_i16 = 0

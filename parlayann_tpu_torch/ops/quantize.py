@@ -1,22 +1,39 @@
-"""Scalar quantization (q8), the 1-bit tier and the JL tiers.
+"""Scalar quantization (1-16 bits), the 1-bit, MIPS 2-bit and 4-bit tiers
+and the JL tiers.
 
-Counterpart of parlayann_tpu/ops/quantize.py:29-191 and :305-365.
-Euclidean q8: global min/max -> ``slope = 255 / (max - min)``,
-``q = round((x - min) * slope)`` clamped to [0, 255] and stored as
-``q - 128`` in int8. MIPS q8: symmetric ``slope = 127 / max|x|``.
-``torch.round`` rounds half to even, as ``jnp.round`` does, and every step
-is the same float32 operation, so the tier is bit-equal to the JAX
-package's.
+Counterpart of parlayann_tpu/ops/quantize.py. Euclidean scalar tiers: global
+min/max -> ``slope = (2^bits - 1) / (max - min)``, ``q = round((x - min) *
+slope)`` clamped to [0, 2^bits - 1]. MIPS: symmetric ``slope = (2^(bits-1)
+- 1) / max|x|``, where ``max|x|`` may be trimmed to the ``1 - trim``
+quantile of the valid rows' absolute values. ``torch.round`` rounds half to
+even, as ``jnp.round`` does, and every step is the same float32 operation,
+so the tiers are bit-equal to the JAX package's.
+
+Storage. Tiers of up to 8 bits are int8: Euclidean levels as ``level -
+128``, MIPS levels as they are. Wider tiers are int16: MIPS levels as they
+are (the JAX package's int16), Euclidean levels as ``level - 32768``, where
+the JAX package keeps uint16 levels (``torch.uint16`` is a bare dtype with
+few operations). Euclidean distances are differences, so the shift cancels
+exactly, as the 8-bit tier's does; ``interop.pointset_from_state`` shifts
+a JAX uint16 tier the same way.
+
+Quantiles (the trimmed MIPS scale and the 2-bit cut) are ``jnp.quantile``'s
+"linear" interpolation in its float32 arithmetic, from two order statistics
+(``kthvalue``): ``torch.quantile`` refuses inputs of more than 2^24 values,
+and 1M x 128 points hold 2^27.
 
 The 1-bit tier (euclidian_point.h:332-420, mips_point.h:625-700) keeps one
 bit per coordinate: ``x > median`` of that coordinate (L2) or ``x > 0``
 (MIPS), packed little-endian into 32-bit words and compared by XOR +
 popcount. The words are int32 holding the JAX package's uint32 bits: CPU
-torch has no shifts on uint32. The JL tiers (jl_point.h) project onto
-``jl_dims`` random sign directions, dense or with ``sparse_nnz`` nonzeros
-per direction, then take the 1-bit or the q8 tier of the projection. The
-MIPS 2-bit and 4-bit tiers and the trimmed MIPS scale are not ported yet
-(ROADMAP queue 1, "The remaining tiers").
+torch has no shifts on uint32. The MIPS 2-bit tier (mips_point.h:495-621)
+packs a sign plane and a nonzero plane of ternary values {-1, 0, +1} into
+the same words, ``[sign words | nonzero words]``; the MIPS 4-bit tier
+(mips_point.h:706-849) packs levels in [-7, 7] two to an int8 byte,
+coordinate i in the low nibble of byte i and coordinate i + d/2 in its high
+nibble. The JL tiers (jl_point.h) project onto ``jl_dims`` random sign
+directions, dense or with ``sparse_nnz`` nonzeros per direction, then take
+the 1-bit tier or a scalar tier of any width of the projection.
 """
 
 from __future__ import annotations
@@ -31,14 +48,33 @@ from parlayann_tpu_torch.data.pointset import PointSet
 
 
 def _check_bits(bits: int):
-    if bits != 8:
-        raise NotImplementedError(
-            f"only the 8-bit tier is ported (bits={bits}); "
-            'see ROADMAP queue 1, "The remaining tiers"')
+    if not 1 <= bits <= 16:
+        raise ValueError(f"scalar tiers have 1 to 16 bits, not {bits}")
 
 
 def _f32(v) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32)
+
+
+def quantile_linear(x: torch.Tensor, q: float) -> torch.Tensor:
+    """The ``q`` quantile of all values of ``x`` as ``jnp.quantile(x, q)``
+    computes it (method "linear", with float32 positions and weights): the
+    order statistics at floor and ceil of ``q (n - 1)``, weighted. Any
+    number of values; a 0-d float32 tensor on ``x``'s device."""
+    flat = x.reshape(-1).float()
+    f = torch.float32
+    n = torch.tensor(flat.numel(), dtype=f)
+    pos = torch.tensor(q, dtype=f) * (n - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    hw = pos - low
+    lw = 1 - hw
+    # XLA's gather clamps an index past the end (float32 n - 1 can round up)
+    last = flat.numel() - 1
+    lo_i = min(int(torch.clamp(low, 0, n - 1)), last)
+    hi_i = min(int(torch.clamp(high, 0, n - 1)), last)
+    lo_v = torch.kthvalue(flat, lo_i + 1).values
+    hi_v = lo_v if hi_i == lo_i else torch.kthvalue(flat, hi_i + 1).values
+    return lo_v * lw.to(flat.device) + hi_v * hw.to(flat.device)
 
 
 def euclidean_params(data: torch.Tensor, bits: int = 8):
@@ -52,22 +88,23 @@ def euclidean_params(data: torch.Tensor, bits: int = 8):
 
 def euclidean_translate(x: torch.Tensor, slope, offset, bits: int = 8):
     """Scalar-quantize with clamping (euclidian_point.h:183-209); stores
-    ``level - 128`` as int8 (L2 differences cancel the shift)."""
+    ``level - 128`` as int8 (up to 8 bits) or ``level - 32768`` as int16
+    (L2 differences cancel the shift)."""
     _check_bits(bits)
     q = torch.round((x.float() - offset) * slope)
     q = torch.clamp(q, 0.0, 2.0 ** bits - 1.0)
-    return (q - 128.0).to(torch.int8)
+    if bits <= 8:
+        return (q - 128.0).to(torch.int8)
+    return (q - 32768.0).to(torch.int16)
 
 
 def mips_params(data: torch.Tensor, bits: int = 8, trim: float = 0.0):
-    """Symmetric scale from max-abs (mips_point.h:433-489) ->
-    (slope, offset=0)."""
+    """Symmetric scale from the (trimmed) max-abs (mips_point.h:433-489)
+    -> (slope, offset=0). ``trim > 0`` takes the ``1 - trim`` quantile of
+    the absolute values instead of their maximum."""
     _check_bits(bits)
-    if trim > 0.0:
-        raise NotImplementedError(
-            "trimmed MIPS quantization is not ported; see ROADMAP queue 1, "
-            '"The remaining tiers"')
-    max_abs = data.float().abs().max()
+    absd = data.float().abs()
+    max_abs = quantile_linear(absd, 1.0 - trim) if trim > 0.0 else absd.max()
     levels = 2.0 ** (bits - 1) - 1.0
     slope = _f32(levels).to(max_abs.device) / torch.clamp(max_abs, min=1e-30)
     return slope, _f32(0.0).to(max_abs.device)
@@ -77,12 +114,13 @@ def mips_translate(x: torch.Tensor, slope, offset, bits: int = 8):
     _check_bits(bits)
     levels = 2.0 ** (bits - 1) - 1.0
     q = torch.clamp(torch.round(x.float() * slope), -levels, levels)
-    return q.to(torch.int8)
+    return q.to(torch.int8 if bits <= 8 else torch.int16)
 
 
 def quantize_pointset(ps: PointSet, bits: int = 8, trim: float = 0.0) -> PointSet:
-    """The q8 tier of a PointSet (point_range.h:55-66). Parameters come
-    from the valid rows only: zero pad rows would widen the range."""
+    """A scalar tier of a PointSet (point_range.h:55-66). Parameters come
+    from the valid rows only: zero pad rows would widen the range. ``trim``
+    applies to MIPS only, as in the JAX package."""
     valid = ps.data[: ps.n]
     if ps.metric is Metric.L2:
         slope, offset = euclidean_params(valid, bits)
@@ -186,8 +224,90 @@ def hamming_all_pairs(q_bits: torch.Tensor, p_bits: torch.Tensor) -> torch.Tenso
 
 
 # ---------------------------------------------------------------------------
+# The MIPS 2-bit tier (Mips_2Bit_Point, mips_point.h:495-621): ternary values
+# {-1, 0, +1} as two packed planes, sign (x > cut) and nonzero (|x| > cut),
+# ``[sign words | nonzero words]``; the cut is max(|q30|, q70) of the valid
+# rows' values (mips_point.h:601-618). Negated ternary dot:
+#   2 popcount((sign_p ^ sign_q) & nz) - popcount(nz_p & nz_q)
+# ---------------------------------------------------------------------------
+
+
+def mips_2bit_params(data: torch.Tensor) -> torch.Tensor:
+    """The ternary cut max(|q30|, q70) over all values of ``data``."""
+    flat = data.float()
+    return torch.maximum(quantile_linear(flat, 0.7), -quantile_linear(flat, 0.3))
+
+
+def _pack_ternary(x: torch.Tensor, cut) -> torch.Tensor:
+    """(n, d) floats -> (n, 2W) int32 words [sign planes | nonzero planes]."""
+    return torch.cat([_pack_bits(x > cut), _pack_bits(x.abs() > cut)], dim=1)
+
+
+def mips_2bit_quantize(ps: PointSet) -> PointSet:
+    """The 2-bit ternary MIPS tier; the cut lives in ``quant_offset``."""
+    cut = mips_2bit_params(ps.data[: ps.n])
+    return PointSet(data=_pack_ternary(ps.data.float(), cut), n=ps.n, d=ps.d,
+                    metric=Metric.MIPS, bits=2, quant_slope=None, quant_offset=cut)
+
+
+def mips_2bit_translate_query(q: torch.Tensor, tps: PointSet) -> torch.Tensor:
+    return _pack_ternary(q.float(), tps.quant_offset)
+
+
+def mips_2bit_distance(q_words: torch.Tensor, c_words: torch.Tensor) -> torch.Tensor:
+    """(B, 2W) vs (B, K, 2W) words -> (B, K) f32 ternary negated dots
+    (mips_point.h:529-547), formed as integers before the subtraction."""
+    W = q_words.shape[-1] // 2
+    qs, qn = q_words[:, None, :W], q_words[:, None, W:]
+    cs, cn = c_words[..., :W], c_words[..., W:]
+    nz = qn & cn
+    n_neg = popcount((qs ^ cs) & nz).sum(-1)
+    n_nz = popcount(nz).sum(-1)
+    return (2 * n_neg - n_nz).float()
+
+
+# ---------------------------------------------------------------------------
+# The MIPS 4-bit tier (Mips_4Bit_Point, mips_point.h:706-849; distance_4 at
+# :344-354): symmetric levels in [-7, 7], two to an int8 byte. Unpacking is
+# (x << 4) >> 4 (low nibble) and x >> 4 (high), arithmetic shifts of int8.
+# ---------------------------------------------------------------------------
+
+
+def mips_4bit_quantize(ps: PointSet, trim: float = 0.0) -> PointSet:
+    """The packed 4-bit MIPS tier; the scale lives in ``quant_slope``."""
+    slope, _ = mips_params(ps.data[: ps.n], bits=4, trim=trim)
+    q = torch.clamp(torch.round(ps.data.float() * slope), -7, 7).to(torch.int32)
+    if q.shape[1] % 2:
+        q = torch.nn.functional.pad(q, (0, 1))
+    half = q.shape[1] // 2
+    packed = ((q[:, :half] & 0xF) | ((q[:, half:] & 0xF) << 4)).to(torch.int8)
+    return PointSet(data=packed, n=ps.n, d=ps.d, metric=Metric.MIPS, bits=4,
+                    quant_slope=slope, quant_offset=_f32(0.0).to(slope.device))
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(..., d/2) int8 -> (..., d) int8 in [-8, 7] ([low half | high half])."""
+    x = packed.to(torch.int8)
+    return torch.cat([(x << 4) >> 4, x >> 4], dim=-1)
+
+
+def mips_4bit_translate_query(q: torch.Tensor, tps: PointSet) -> torch.Tensor:
+    """(B, d) queries -> (B, d') f32 levels in [-7, 7], unpacked, d' even."""
+    lev = torch.clamp(torch.round(q.float() * tps.quant_slope), -7, 7)
+    if lev.shape[-1] % 2:
+        lev = torch.nn.functional.pad(lev, (0, 1))
+    return lev
+
+
+def mips_4bit_distance(q_levels: torch.Tensor, c_packed: torch.Tensor) -> torch.Tensor:
+    """(B, d') f32 levels vs (B, K, d'/2) packed int8 -> (B, K) negated
+    dots; small integers, exact in any summation order."""
+    return -(unpack_int4(c_packed).float() * q_levels[:, None, :]).sum(-1)
+
+
+# ---------------------------------------------------------------------------
 # Johnson-Lindenstrauss tiers (jl_point.h): a random sign projection to
-# jl_dims, then the 1-bit or the 8-bit tier of the projected points.
+# jl_dims, then the 1-bit tier or a scalar tier of the projected points.
 # ---------------------------------------------------------------------------
 
 
@@ -212,17 +332,14 @@ def jl_projection_matrix(d: int, jl_dims: int, seed: int = 0,
 class JLTier:
     """A JL search tier: the projection matrix and the quantized projected
     points (``bits`` 1: sign bits against the per-dimension median, searched
-    by hamming distance; ``bits`` 8: the q8 tier of the projections, with
-    the source metric). ``proj`` replaces the drawn matrix, and ``points``
-    installs an already quantized tier as it is (interop)."""
+    by hamming distance; ``bits`` 2-16: the scalar tier of that width of the
+    projections, with the source metric). ``proj`` replaces the drawn
+    matrix, and ``points`` installs an already quantized tier as it is
+    (interop)."""
 
     def __init__(self, ps: PointSet, jl_dims: int = 64, bits: int = 8,
                  seed: int = 0, sparse_nnz: int = 0, proj=None,
                  points: PointSet | None = None):
-        if bits not in (1, 8):
-            raise NotImplementedError(
-                f"JL tiers of {bits} bits are not ported; see ROADMAP queue 1, "
-                '"The remaining tiers"')
         if proj is None:
             proj = jl_projection_matrix(ps.d, jl_dims, seed, sparse_nnz)
         self.proj = torch.as_tensor(proj, dtype=torch.float32).to(ps.device)
@@ -240,7 +357,7 @@ class JLTier:
         return x.float() @ self.proj
 
     def translate_query(self, q: torch.Tensor) -> torch.Tensor:
-        """(B, d) queries -> int32 words (bits 1) or f32 levels (bits 8)."""
+        """(B, d) queries -> int32 words (bits 1) or f32 levels."""
         proj = self.project(q)
         if self.bits == 1:
             return bit_translate_query(proj, self.points)

@@ -20,9 +20,16 @@ With ``record_visited`` it runs exactly ceil(limit / E) steps and returns
 the expansion sequence as the visited list (the candidates robustPrune
 reads). ``bits=1`` searches a packed 1-bit tier: queries and points are
 int32 words and distances are XOR + popcount hamming counts, through
-``expand_distances(bits=1)`` (kernel 6) when an inline word array is given. The
-filter mode (``filter_data``) is not ported yet (ROADMAP queue 1,
-"The remaining tiers").
+``expand_distances(bits=1)`` (kernel 6) when an inline word array is given.
+``bits=2`` and ``bits=4`` search the MIPS 2-bit and 4-bit tiers by
+gathering their rows (ternary words, packed nibbles), as the JAX package
+does.
+
+``filter_data``/``filter_queries`` turn on the reference's two-tier filter
+(beamSearch.h:119-146): once the frontier is full, each step adds the
+cheap-tier distance from the query to the frontier's worst entry to a
+running mean, and candidates whose cheap-tier distance is at or beyond that
+mean are dropped before their distance is kept.
 """
 
 from __future__ import annotations
@@ -97,6 +104,8 @@ def beam_search_batch(
     record_visited: bool = False,
     exclude_self: bool = False,
     bits: int = 32,
+    filter_data: Optional[torch.Tensor] = None,  # (n_pad, d) cheap-tier rows
+    filter_queries: Optional[torch.Tensor] = None,  # (B, d) tier-domain queries
 ) -> BeamResult:
     """(See module docstring.)"""
     B = queries.shape[0]
@@ -113,11 +122,14 @@ def beam_search_batch(
         starts = starts[None, :].expand(B, -1)
     S = starts.shape[1]
 
+    tier_distance = {1: quantize.hamming_distance, 2: quantize.mips_2bit_distance,
+                     4: quantize.mips_4bit_distance}.get(
+        bits, lambda q, v: distance.gathered(q, v, metric))
+    use_filter = filter_data is not None and filter_queries is not None
+
     def gather_distances(ids, valid):
         vecs = points_data[ids.long().clamp(0, n_pad - 1)]
-        if bits == 1:
-            return torch.where(valid, quantize.hamming_distance(queries, vecs), INF)
-        return torch.where(valid, distance.gathered(queries, vecs, metric), INF)
+        return torch.where(valid, tier_distance(queries, vecs), INF)
 
     # ---- init: seed the beam with the start points. Self-exclusion applies
     # to neighbour candidates only, never to seeds. ----
@@ -134,6 +146,8 @@ def beam_search_batch(
     num_visited = torch.zeros(B, dtype=torch.int32, device=dev)
     dist_cmps = start_valid.sum(dim=1, dtype=torch.int32)
     done = ~(beam_dists < INF).any(dim=1)
+    f_sum = torch.zeros(B, dtype=torch.float32, device=dev)
+    f_cnt = torch.zeros(B, dtype=torch.int32, device=dev)
 
     slot = torch.arange(rwidth, device=dev)[None, None, :]
     sent_c = n_valid + torch.arange(K, dtype=torch.int32, device=dev)[None, :]
@@ -141,6 +155,7 @@ def beam_search_batch(
 
     def step():
         nonlocal beam_ids, beam_dists, beam_exp, num_visited, dist_cmps, done
+        nonlocal f_sum, f_cnt
         active = ~done
         # -- 1. the first E unexpanded entries in beam order --
         unexp = (beam_exp == 0) & (beam_dists < INF)
@@ -171,6 +186,19 @@ def beam_search_batch(
         if exclude_self and self_ids is not None:
             cand_valid &= cand_ids != self_ids[:, None]
         dist_cmps_new = dist_cmps + cand_valid.sum(dim=1, dtype=torch.int32)
+        if use_filter:
+            # the running mean of the cheap-tier distance to the frontier's
+            # worst entry, updated before this step's candidates are dropped
+            frontier_full = beam_dists[:, L - 1] < INF
+            back = filter_data[beam_ids[:, L - 1].long().clamp(0, filter_data.shape[0] - 1)]
+            cheap_back = distance.gathered(filter_queries, back[:, None, :], metric)[:, 0]
+            upd = active & frontier_full
+            f_sum = f_sum + torch.where(upd, cheap_back, 0.0)
+            f_cnt = f_cnt + upd.to(torch.int32)
+            thr = f_sum / f_cnt.clamp(min=1).float()
+            cvec = filter_data[cand_ids.long().clamp(0, filter_data.shape[0] - 1)]
+            cheap_c = distance.gathered(filter_queries, cvec, metric)
+            cand_valid &= ~((frontier_full & (f_cnt > 0))[:, None] & (cheap_c >= thr[:, None]))
         if inline is not None:
             # packed words stay int32; the int8 kernel takes f32 queries
             qrep = queries if bits == 1 else queries.float()

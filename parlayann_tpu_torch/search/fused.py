@@ -1,17 +1,17 @@
-"""The lock-step search of the q8 and f32 tiers: translate -> beam ->
+"""The lock-step search of the scalar and f32 tiers: translate -> beam ->
 rerank or top-k.
 
 Counterpart of parlayann_tpu/search/fused.py:fused_search, which serves
-the full-precision tier (no rerank: the beam is already exact) and the q8
-tier at ``expand > 1`` or ``degree_limit < R`` (index.py:384-446). The
-steps:
+the full-precision tier (no rerank: the beam is already exact), the
+scalar tiers of 9 to 16 bits (int16 levels) and the q8 tier at ``expand >
+1`` or ``degree_limit < R`` (index.py:384-446). The steps:
 
   1. translate the queries into the tier's domain
-     (``quantize.translate_query``; the points themselves take them as
-     they are),
+     (``quantize.translate_query``, then float32: integer levels for the
+     scalar tiers; the points themselves take them as they are),
   2. one ``beam_search_batch`` with ``expand`` and ``degree_limit``, its
-     candidate distances from kernel 1 over the tier's inline array when
-     one is given, else by gathering rows,
+     candidate distances from kernel 1 over the tier's inline array (int8,
+     int16 or f32 rows) when one is given, else by gathering rows,
   3. ``rerank_topk`` at full precision when the tier is not the points,
      else the first k beam entries (``top_k_from_beam``).
 

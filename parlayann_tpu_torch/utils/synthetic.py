@@ -74,3 +74,35 @@ def heavy_tailed(
             (n_queries, d))
         queries = queries.astype(dtype)
     return base.astype(dtype), queries
+
+
+def sparse_clustered_u8(n: int, d: int, n_queries: int = 0, seed: int = 0):
+    """BIGANN-class sparse clustered uint8 rows -> (base (n, d), queries
+    (nq, d)), the construction of scripts/bench_mips_u8.py drawn with
+    numpy: max(64, n // 100) centres, each coordinate nonzero with
+    probability 0.35 and then Gamma(1.2) x 55; a row is its centre scaled
+    coordinate-wise by Gamma(4) x 0.25, plus 4 x N(0, 1) noise, rounded and
+    clipped to [0, 255]. Sparse rows keep normalized MIPS data spread out
+    (dense positive bytes collapse into a narrow cone, where the alpha
+    rule of robustPrune never fires; bench_mips_u8.py's note). Rows are
+    drawn in chunks of 2^17 (centre ids, then the gammas, then the noise),
+    so the chunk size is part of the construction and stays fixed."""
+    chunk = 1 << 17
+    rng = np.random.default_rng(seed)
+    nc = max(64, n // 100)
+    mask = rng.random((nc, d), dtype=np.float32) < 0.35
+    centers = np.where(mask, rng.standard_gamma(1.2, (nc, d), dtype=np.float32) * 55.0,
+                       0.0).astype(np.float32)
+
+    def rows(m):
+        out = np.empty((m, d), np.uint8)
+        for lo in range(0, m, chunk):
+            k = min(chunk, m - lo)
+            x = centers[rng.integers(0, nc, k)]
+            x *= rng.standard_gamma(4.0, (k, d), dtype=np.float32) * 0.25
+            x += 4.0 * rng.standard_normal((k, d), dtype=np.float32)
+            out[lo:lo + k] = np.clip(np.rint(x), 0, 255)
+        return out
+
+    base = rows(n)
+    return base, (rows(n_queries) if n_queries else None)

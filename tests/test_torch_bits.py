@@ -347,5 +347,6 @@ def test_torch_jl_project_shapes(rng):
     assert jl.d == 32 and jl.data.shape == (ps.n_pad, 32) and jl.data.dtype == torch.int8
     jl1 = quantize.jl_project(ps, jl_dims=64, bits=1, seed=1)
     assert jl1.bits == 1 and jl1.data.shape == (ps.n_pad, 2) and jl1.data.dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize.jl_project(ps, jl_dims=32, bits=4)
+    jl4 = quantize.jl_project(ps, jl_dims=32, bits=4, seed=1)
+    assert jl4.bits == 4 and jl4.data.dtype == torch.int8 and jl4.data.shape == (ps.n_pad, 32)
+    assert int(jl4.data[:ps.n].min()) == -128 and int(jl4.data[:ps.n].max()) == -113

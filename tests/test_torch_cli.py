@@ -266,16 +266,32 @@ def test_torch_cli_quantize_modes_match_jax(files, graphs, monkeypatch, dist, mo
     assert abs(float(trows[4][2]) - float(jrows[4][2])) <= 0.01, (trows[4], jrows[4])
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["-dist_func", "mips", "-quantize", "3"], "item 4"),
-    (["-single_batch", "1"], "item 6"),
-    (["-quantize_bits", "4"], "item 4"),
-    (["-dist_func", "mips", "-quantize", "1", "-trim", "0.01"], "item 4"),
+@pytest.mark.parametrize("flags", [
+    ["-dist_func", "mips", "-quantize", "3"],
+    ["-single_batch", "8"],
+    ["-quantize_bits", "4"],
+    ["-dist_func", "mips", "-quantize", "1", "-trim", "0.01"],
 ], ids=["mips_2bit", "single_batch", "quantize_bits_4", "mips_trim"])
-def test_torch_cli_unported_modes_raise(flags, item):
-    """Before any file is read: the base path does not exist."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 {item}"):
-        tcli.main(["-base_path", "/nonexistent.fbin", "-R", "8", "-L", "16"] + flags + CPU)
+def test_torch_cli_unported_modes_raise(files, graphs, flags):
+    """The four flags this test once saw refused now run in both CLIs. The
+    MIPS 2-bit tier, the 4-bit scalar tier and the trimmed MIPS q8 tier
+    (with the build's trimmed q8 points) search one graph file: recall
+    within 0.01 of the JAX CLI's. A single-batch build replays the JAX
+    build's draws on the q8 points: both CLIs build and search, and write
+    the same CSV but for build time and QPS."""
+    if flags[0] != "-single_batch":
+        jrows, trows = _search_both(files, graphs["vamana"][0], "mode" + "".join(flags), flags)
+        assert abs(float(trows[4][2]) - float(jrows[4][2])) <= 0.01, (trows[4], jrows[4])
+        return
+    out = []
+    for main, dev, who in ((jcli.main, [], "j"), (tcli.main, CPU, "t")):
+        res = str(files["dir"] / f"single_batch.{who}.csv")
+        assert main(["-base_path", files["b.fbin"], "-query_path", files["q.fbin"],
+                     "-gt_path", files["gt.ibin"], "-Q", "32", "-res_path", res]
+                    + BUILDERS["vamana"] + flags + dev) == 0
+        out.append(_without_time_and_qps(_csv_rows(res)))
+    assert out[0] == out[1]
+    assert float(out[1][4][2]) >= 0.9
 
 
 def _lines(out):

@@ -119,6 +119,86 @@ def test_torch_cuda_expand_distances_f32_main_shape(gen, cuda):
                        expand_distances_plain(small, ids, q[:700], metric=Metric.L2))
 
 
+def _int16_rows(gen, shape):
+    """int16 levels with the first rows at the extremes (-32768 and 32767:
+    16-bit L2 levels 0 and 65535 after the port's shift), where an int32
+    sum would overflow."""
+    x = gen.integers(-32768, 32768, shape).astype(np.int16)
+    x[:4] = gen.choice(np.array([-32768, 32767], np.int16), (4,) + tuple(shape[1:]))
+    return x
+
+
+def _int16_queries(gen, B, d, n_pad):
+    """Integer-valued f32 queries over the int16 range, the first ones at
+    the extremes, with ids that send them to the extreme rows."""
+    q = gen.integers(-32768, 32768, (B, d)).astype(np.float32)
+    q[:8] = gen.choice(np.array([-32768.0, 32767.0], np.float32), q[:8].shape)
+    ids = gen.integers(-3, n_pad + 3, B).astype(np.int32)
+    ids[:8] = gen.integers(0, 4, min(B, 8))
+    return q, ids
+
+
+@pytest.mark.parametrize("R8", [13, 16, 32, 40])
+@pytest.mark.parametrize("d", [128, 64, 96, 20, 7])
+def test_torch_cuda_expand_distances_int16_equal(gen, cuda, d, R8):
+    """Kernel 1 on int16 rows (the scalar tiers of 9 to 16 bits) equals its
+    plain version under L2 and MIPS: both sum exactly in int64 and round
+    once. d = 128 and 64 take the 16-byte path, 96 (12 chunks a row), 20
+    and 7 the generic one; R8 = 13 is not a multiple of 8; rows and queries
+    at the extreme levels pass 2^31; int16 launches are counted apart."""
+    inl = t(_int16_rows(gen, (600, R8, d)), cuda)
+    for B in (0, 1, 777):
+        q, ids = _int16_queries(gen, B, d, 600)
+        q, ids = t(q, cuda), t(ids, cuda)
+        for metric in (Metric.L2, Metric.MIPS):
+            before = (expand_distances.launches, expand_distances.launches_i16)
+            got = expand_distances(inl, ids, q, metric=metric)
+            n = int(B > 0)
+            assert (expand_distances.launches, expand_distances.launches_i16) == (
+                before[0] + n, before[1] + n)
+            assert got.shape == (B, R8) and got.dtype == torch.float32
+            assert torch.equal(got, expand_distances_plain(inl, ids, q, metric=metric))
+            if B and d == 128:
+                assert float(got.abs().max()) > 2**31
+
+
+def test_torch_cuda_expand_distances_int16_main_shape(gen, cuda):
+    """The 16-bit tier's search shape: B=10,000 over a (100000, 32, 128)
+    int16 inline array, and a view whose rows start 2 bytes past a 16-byte
+    boundary (the generic path)."""
+    inl = t(_int16_rows(gen, (100_000, 32, 128)), cuda)
+    q, ids = _int16_queries(gen, 10_000, 128, 100_000)
+    q, ids = t(q, cuda), t(ids, cuda)
+    for metric in (Metric.L2, Metric.MIPS):
+        assert torch.equal(expand_distances(inl, ids, q, metric=metric),
+                           expand_distances_plain(inl, ids, q, metric=metric))
+    small = inl[:500]
+    flat = torch.empty(small.numel() + 1, dtype=torch.int16, device=cuda)
+    view = flat[1:1 + small.numel()].view(small.shape)
+    view.copy_(small)
+    ids = ids[:700].clamp(0, 499)
+    assert torch.equal(expand_distances(view, ids, q[:700], metric=Metric.MIPS),
+                       expand_distances_plain(small, ids, q[:700], metric=Metric.MIPS))
+
+
+def test_torch_cuda_expand_distances_int16_rejects_bad_input(cuda):
+    """A CUDA tensor of a dtype kernel 1 does not take raises; nothing
+    falls back to the plain version."""
+    inl = torch.zeros((8, 8, 16), dtype=torch.int16, device=cuda)
+    ids = torch.zeros(4, dtype=torch.int32, device=cuda)
+    q = torch.zeros((4, 16), device=cuda)
+    before = expand_distances.launches
+    with pytest.raises(ValueError, match="int8"):
+        expand_distances(inl.to(torch.int32), ids, q, metric=Metric.L2)
+    with pytest.raises(ValueError, match="float32"):
+        expand_distances(inl, ids, q.double(), metric=Metric.L2)
+    with pytest.raises(ValueError, match="int32"):
+        expand_distances(inl, ids.long(), q, metric=Metric.MIPS)
+    with pytest.raises(ValueError, match="shape"):
+        expand_distances(inl, ids, q[:, :8].contiguous(), metric=Metric.L2)
+    assert expand_distances.launches == before
+
+
 INF32 = np.float32(3.0e38)
 
 

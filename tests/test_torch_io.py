@@ -206,8 +206,8 @@ def test_torch_io_load_index_checks_paths(files):
 def test_torch_io_auto_tier(tmp_path):
     """L2 at d > 800 gets the JL 1024 sign-bit tier, as in the JAX package
     (the port draws its projection from its own generator, so the words
-    equal the port's own ``enable_jl(1024, bits=1)``); MIPS at d > 200
-    raises, naming the ROADMAP item of the 2-bit tier."""
+    equal the port's own ``enable_jl(1024, bits=1)``); MIPS at d > 200 gets
+    the 2-bit tier, equal to the JAX package's."""
     rng = np.random.default_rng(6)
     n = 40
     g = str(tmp_path / "g.bin")
@@ -224,6 +224,10 @@ def test_torch_io_auto_tier(tmp_path):
     assert torch.equal(tidx.jl_tier.points.data, own.jl_tier.points.data)
     assert pt.load_index(g, x, auto_tier=False, device="cpu").jl_tier is None
     jio.write_bin(x, rng.standard_normal((n, 201)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="The remaining tiers"):
-        pt.load_index(g, x, metric="mips", device="cpu")
+    tidx = pt.load_index(g, x, metric="mips", device="cpu")
+    jidx = jpt.load_index(g, x, metric="mips")
+    assert tidx.t2_points.bits == 2 and tidx.t2_points.data.shape == (tidx.points.n_pad, 2 * 7)
+    np.testing.assert_array_equal(tidx.t2_points.data.numpy(),
+                                  np.asarray(jidx.t2_points.data).view(np.int32))
+    assert np.float32(tidx.t2_points.quant_offset) == np.float32(jidx.t2_points.quant_offset)
     assert pt.load_index(g, x, metric="mips", auto_tier=False, device="cpu").qpoints is not None

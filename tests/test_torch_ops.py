@@ -70,13 +70,17 @@ def test_torch_q8_uint8_input_is_exact_affine(rng):
 
 
 def test_torch_unported_tiers_raise():
-    ps = PointSet.from_numpy(np.ones((8, 4), np.float32), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize.quantize_pointset(ps, bits=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize.quantize_pointset(PointSet.from_numpy(
-            np.ones((8, 4), np.float32), metric="mips", device="cpu"), bits=8,
-            trim=0.01)
+    """The tiers this test once saw refused now run: a 4-bit scalar tier
+    and a trimmed MIPS scale, each bit-equal to the JAX package's
+    (tests/test_torch_tiers.py holds every width)."""
+    X = np.arange(32, dtype=np.float32).reshape(8, 4) - 9.5
+    for metric, bits, trim in (("l2", 4, 0.0), ("mips", 8, 0.01)):
+        jps = jquantize.quantize_pointset(JPointSet.from_numpy(X, metric=metric),
+                                          bits=bits, trim=trim)
+        tps = quantize.quantize_pointset(PointSet.from_numpy(X, metric=metric, device="cpu"),
+                                         bits=bits, trim=trim)
+        np.testing.assert_array_equal(tps.data.numpy(), np.asarray(jps.data))
+        assert np.float32(tps.quant_slope) == np.float32(jps.quant_slope)
 
 
 def test_torch_int8_distances_accumulate_in_f32(rng):

@@ -134,12 +134,15 @@ def test_torch_slice_reference_keywords_match_jax(built, kw):
 
 
 def test_torch_slice_unported_configurations_raise(built):
-    """What the port still refuses: ``single_batch`` builds. (The f32
+    """The configurations this test once saw refused all run now. (The f32
     tier, expand > 1, degree_limit < R and ``quantize_build=False`` are
     served and held to the JAX package in tests/test_torch_f32.py;
     ``random_starts`` is served too: here the q8 search from random starts
     returns the JAX package's ids on the JAX graph, and
-    tests/test_torch_pynndescent.py holds the draws.)"""
+    tests/test_torch_pynndescent.py holds the draws. ``single_batch`` builds
+    are held to the JAX builds in tests/test_torch_vamana_modes.py; here one
+    builds on the f32 points and reaches the JAX test's floor, 0.85 at beam
+    40, tests/test_vamana.py:127-146.)"""
     b = built
     jg = b["jg"]
     graph = interop.graph_from_state(np.asarray(jg.neighbors), np.asarray(jg.degrees),
@@ -149,8 +152,11 @@ def test_torch_slice_unported_configurations_raise(built):
     kw = dict(k=K, beam_size=BEAM, random_starts=2, seed=4)
     np.testing.assert_array_equal(idx.batch_search(b["Q"][:16], **kw)[0].numpy(),
                                   np.asarray(jidx.batch_search(b["Q"][:16], **kw)[0]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        vamana.build_vamana_graph(built["tps"], BuildParams(R=8, L=16, single_batch=8))
+    sg, _ = vamana.build_vamana_graph(built["tps"], BuildParams(R=16, L=32, alpha=1.2,
+                                                               num_passes=2, single_batch=8))
+    assert sg.stats()[0] > 4
+    sidx = pt.Index(points=b["tps"], graph=sg).enable_quantized(bits=8)
+    assert _recall(sidx.batch_search(b["Q"], k=K, beam_size=40)[0].numpy(), b) >= 0.85
 
 
 def test_torch_slice_entry_cache_is_not_clobbered(built):
