@@ -147,8 +147,25 @@ Phases:
      without and with the q8 tier's running-mean filter at beams 10 and 22;
      q8 and 4-bit must reach ``MIPS_BAR`` within their beams, the 2-bit tier
      ``MIPS_2BIT_BAR`` at beam 240.
+  12. the hierarchical ClusterIndex at 10M, after phase 11c, on
+     scripts/bench_10m_cluster.py's construction drawn on the card (100,000
+     centres from N(0, 1), each of 10M points and 10K queries a uniformly
+     chosen centre plus 0.35 N(0, 1)), the exact top-20 on kernel 4 as
+     ground truth: ``build_cluster_index(X, m=64, Rc=16, slack=2.0,
+     cand=8, ext_dtype="int8", verbose=True)`` (C = 312,500: the
+     meta-routed rounds on kernel 1's f32 mode, the teleports, the
+     respill, the polish, the routed adjacency and the seed quantizer; the
+     build prints its split), its (Cm, cap) cells, ext size and peak device
+     memory, kernel 1's launches by mode; then 10K queries at
+     ``seed_probes=16``, n_probe 8, 16 and 32 at cut 0 and the adaptive
+     row (32, 4, 1.35), each through the meta seed (kernel 1 on int8
+     blocks), and n_probe 8 with ``seed_mode="stream"``; recall@10 at
+     n_probe 8 through the meta seed at least ``HIER_BAR``. Phase 2 then
+     holds kernel 1 to its plain version on the router's f32 blocks
+     (R8 = 112, B = 8192) and the seed's int8 blocks (R8 = 24, B = 10,000),
+     and kernel 5 over the 10M ext at n_probe 8 from the meta seeds.
   Launch counts are zeroed just before phases 3, 4, 5, 7, 8, 9, 10a, 10b,
-  6, 11a, 11b and 11c and read just after each; every kernel of the
+  6, 11a, 11b, 11c and 12 and read just after each; every kernel of the
   phase's path must have launched.
 
 Kernel times are device times from CUDA events over back-to-back launches
@@ -2170,6 +2187,185 @@ def mips11_run(dev):
         f"{max(recall['4bit'].values()):.4f}; 2-bit at beam 240 {recall['2bit'][240]:.4f}")
     return launches
 
+HIER_N = 10_000_000  # scripts/bench_10m_cluster.py's BENCH_N
+HIER_NQ = 10_000
+HIER_STD = 0.35  # each point a centre plus 0.35 N(0, 1)
+HIER_BUILD = dict(m=64, Rc=16, slack=2.0, cand=8, ext_dtype="int8")  # BENCHES.md:425-450
+HIER_PROBES = (8, 16, 32)  # cut 0
+HIER_ADAPTIVE = (32, 4, 1.35)  # n_probe, min_probe, cut
+HIER_SEED_PROBES = 16  # the JAX run's SEED_PROBES
+HIER_BAR = 0.90  # recall@10 at n_probe 8, meta seed (the JAX package: 0.9617)
+
+
+def hier_data(dev):
+    """scripts/bench_10m_cluster.py:66-91's construction, drawn on the card
+    from the script's seed: HIER_N // 100 centres from N(0, 1), each point
+    and query a uniformly chosen centre plus ``HIER_STD`` N(0, 1) ->
+    (points (HIER_N, 128), queries (HIER_NQ, 128)) f32 on the card."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    centres = torch.randn((HIER_N // 100, 128), generator=g, device=dev)
+
+    def draw(rows):
+        out = torch.empty((rows, 128), device=dev)
+        for lo in range(0, rows, 1 << 20):
+            r = min(1 << 20, rows - lo)
+            a = torch.randint(0, centres.shape[0], (r,), generator=g, device=dev)
+            out[lo:lo + r] = centres[a] + HIER_STD * torch.randn((r, 128), generator=g,
+                                                                 device=dev)
+        return out
+
+    return draw(HIER_N), draw(HIER_NQ)
+
+
+def hier_run(dev):
+    """Phase 12: the hierarchical ClusterIndex at 10M x 128 -> (index,
+    points, queries, {kernel: launches}): the build (its split printed by
+    ``verbose``), the meta-seeded search at ``HIER_PROBES`` and the adaptive
+    row, and the streamed exact seed at n_probe 8."""
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.build import clusterindex as tci
+    from parlayann_tpu_torch.data.pointset import PointSet
+    from parlayann_tpu_torch.harness.recall import compute_recall
+    from parlayann_tpu_torch.ops.distance import INF
+    from parlayann_tpu_torch.search.flat import flat_search_batch
+    from parlayann_tpu_torch.types import Metric
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    X, Q = hier_data(dev)
+    torch.cuda.synchronize()
+    log(f"data: {HIER_N} x 128 clustered ({HIER_N // 100} centres, std {HIER_STD}) and "
+        f"{HIER_NQ} queries drawn on the card in {time.perf_counter() - t0:.2f} s")
+    points = PointSet(data=X, n=HIER_N, d=128, metric=Metric.L2)
+    t0 = time.perf_counter()
+    gi, gd = flat_search_batch(Q, X, k=2 * K, metric=Metric.L2, n_valid=HIER_N,
+                               select="pallas")
+    gt = (gi.cpu().numpy(), gd.cpu().numpy())
+    log(f"ground truth: exact top-{2 * K} on kernel 4, {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ci = pt.build_cluster_index(points, verbose=True, **HIER_BUILD)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    build = _launch_counts()
+    Cm, cap = tci._meta_sizes(ci.C, tci.META_M)
+    check(ci.seed_meta is not None and ci.seed_meta[1].dtype == torch.int8,
+          "phase 12: the index has no int8 seed quantizer")
+    log(f"hierarchical build: {secs:.3f} s fenced; C={ci.C} (n x C = {HIER_N * ci.C:.3g}, "
+        f"C^2 = {ci.C ** 2:.3g}); router cells (Cm, cap) = ({Cm}, {cap}); seed cells "
+        f"{tuple(ci.seed_meta[1].shape[:2])}; ext {tuple(ci.ext.shape)} "
+        f"{ci.ext.numel() / 2**30:.3f} GiB; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("kernel 1 launches in the build:",
+        {"int8 rows": build["expand_distances"], "f32 rows": build["expand_distances (f32 rows)"]})
+    check(build["expand_distances (f32 rows)"] > 0,
+          "expand_distances (f32 rows) was not launched by the hierarchical build")
+    got = ci.members[ci.members >= 0]
+    check(len(got) == HIER_N and len(np.unique(got)) == HIER_N,
+          "phase 12: the membership is not a partition of the points")
+    log(f"{int((ci.members < 0).all(axis=1).sum())} of {ci.C} clusters are empty")
+    rows = [(p, 0, 0.0, "argmin") for p in HIER_PROBES] + [(*HIER_ADAPTIVE, "argmin"),
+                                                          (8, 0, 0.0, "stream")]
+    recall = {}
+    for n_probe, min_probe, cut, mode in rows:
+        ids, dists, (nv, cm), dt = ci.search_timed(
+            Q, k=K, n_probe=n_probe, min_probe=min_probe, cut=cut, seed_mode=mode,
+            seed_probes=HIER_SEED_PROBES, rounds=3)
+        r = compute_recall(ids.cpu().numpy(), *gt, K)
+        recall[(n_probe, cut, mode)] = r
+        seed = "meta seed" if mode == "argmin" else "streamed exact seed"
+        # a query can return -1 (INF) past its last result: an empty
+        # cluster keeps a zero centroid (as in the JAX package), and a walk
+        # seeded among them can find no member
+        short = ids < 0
+        check(ids.shape == (HIER_NQ, K) and bool((ids < HIER_N).all())
+              and bool((dists[short] >= INF).all())
+              and bool((short[:, :-1] <= short[:, 1:]).all()),
+              f"phase 12 n_probe={n_probe} {seed}: malformed ids")
+        check(_no_duplicates(ids), f"phase 12 n_probe={n_probe}: duplicate ids")
+        check(bool(torch.isfinite(dists).all()), f"phase 12 n_probe={n_probe}: distances")
+        check(bool((nv <= n_probe).all()), f"phase 12 n_probe={n_probe}: nv > n_probe")
+        log(f"10M cluster search n_probe={n_probe} min_probe={min_probe} cut={cut} {seed} "
+            f"(seed_probes {HIER_SEED_PROBES}): recall@{K} {r:.4f}  QPS {HIER_NQ / dt:.1f}  "
+            f"({dt * 1e3:.3f} ms; nv {float(nv.float().mean()):.3f} "
+            f"cmps {float(cm.float().mean()):.1f}; {int(short.any(1).sum())} queries with "
+            f"fewer than {K} results)")
+    launches = _launch_counts()
+    log("launches during phase 12:", {k: v for k, v in launches.items() if v})
+    check(launches["cluster_walk"] > 0, "cluster_walk was not launched by phase 12")
+    check(launches["expand_distances"] > build["expand_distances"],
+          "expand_distances (int8 rows) was not launched by the meta-seeded search")
+    r8 = recall[(8, 0.0, "argmin")]
+    check(r8 >= HIER_BAR, f"phase 12: recall@{K} at n_probe 8 with the meta seed is "
+          f"{r8:.4f} < {HIER_BAR}")
+    return ci, X, Q, launches
+
+
+def kernel_hier(ci, X, Q, dev):
+    """Kernel 1 on the hierarchical build's blocks and kernel 5 over the 10M
+    ext, each against its plain version -> {"router": f32 entry, "seed":
+    int8 entry, "walk": kernel 5 entry}. The router's blocks are the
+    build's adjacency quantizer rebuilt over the final centroids, queried
+    by the first 8,192 points (one chunk of ``approx_assign``), each at its
+    nearest cell; the seed's blocks are the index's, queried by the q8
+    queries at their nearest cell. Bound: the distinct blocks read once,
+    the queries and the output."""
+    from parlayann_tpu_torch.build import clusterindex as tci
+    from parlayann_tpu_torch.ops import quantize
+    from parlayann_tpu_torch.ops.kernels.clusterbeam import (
+        cluster_walk, cluster_walk_plain, seed_centroids)
+    from parlayann_tpu_torch.ops.kernels.expand import expand_distances, expand_distances_plain
+    from parlayann_tpu_torch.search.flat import flat_search_batch
+    from parlayann_tpu_torch.types import Metric
+
+    t0 = time.perf_counter()
+    cents = tci._recenter(X, ci.members, ci.C)
+    router = tci._meta_quantizer(cents, ci.C, Metric.L2, meta_m=tci.META_M, seed=101)
+    torch.cuda.synchronize()
+    log(f"the router's quantizer over the final centroids: {time.perf_counter() - t0:.2f} s")
+    q8 = quantize.translate_query(Q, ci.qpoints).float()
+    out = {}
+    for name, (mc, blocks, _), q in (("router", router, X[:8192].contiguous()),
+                                     ("seed", ci.seed_meta, q8)):
+        ids, _ = flat_search_batch(q, mc, k=1, metric=Metric.L2, n_valid=mc.shape[0],
+                                   chunk=min(mc.shape[0], 32768))
+        ids = ids[:, 0].contiguous()
+        got = expand_distances(blocks, ids, q, metric=Metric.L2)
+        want = expand_distances_plain(blocks, ids, q, metric=Metric.L2)
+        check(torch.equal(got, want), f"expand_distances on the {name} blocks: not equal")
+        check(torch.equal(got[:256], expand_distances_plain(blocks, ids[:256], q[:256],
+                                                            metric=Metric.L2)),
+              f"expand_distances on the {name} blocks: the first 256 queries not equal")
+        ms = time_ms(lambda: expand_distances(blocks, ids, q, metric=Metric.L2), 20)
+        plain_ms = time_ms(lambda: expand_distances_plain(blocks, ids, q, metric=Metric.L2), 3)
+        Cm, cap, d = blocks.shape
+        B = q.shape[0]
+        b = bound(unique_rows(ids, Cm) * cap * d * blocks.element_size() + B * d * 4 + B * 4
+                  + B * cap * 4, 3 * B * cap * d)
+        log(f"kernel 1 expand_distances {blocks.dtype} {name} blocks {tuple(blocks.shape)} "
+            f"B={B}: equal (L2); {ms:.4f} ms vs plain {plain_ms:.4f} ms; bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {unique_rows(ids, Cm)} distinct blocks)")
+        out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+    sd, sid = seed_centroids(q8, ci.centroids_q, C=ci.C, S=2, metric=Metric.L2,
+                             meta=ci.seed_meta, seed_probes=HIER_SEED_PROBES)
+    args = (q8.contiguous(), ci.ext, sd.contiguous(), sid.contiguous())
+    kw = dict(metric=Metric.L2, C=ci.C, m=ci.m, Rc=ci.Rc, n_points=ci.points.n, n_probe=8)
+    expanded = []
+    got = cluster_walk(*args, **kw)
+    want = cluster_walk_plain(*args, **kw, expanded=expanded)
+    err = check_walk(got, want, "cluster_walk int8 over the 10M ext at n_probe 8")
+    b, n_dist, n_rows, n_vis = walk_bound(ci, args, expanded)
+    ms = time_ms(lambda: cluster_walk(*args, **kw), 10)
+    plain_ms = time_ms(lambda: cluster_walk_plain(*args, **kw), 2)
+    log(f"kernel 5 cluster_walk int8 over the 10M ext (C={ci.C}) B={HIER_NQ} n_probe 8, "
+        f"meta seeds: pool dists, pool ids and nv equal; {ms:.4f} ms vs plain "
+        f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {n_vis} probes "
+        f"of {n_rows} rows, {n_dist} distances)")
+    out["walk"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2260,14 +2456,23 @@ def main():
     p11["11b"] = modes11_run(X, Q, gt, *p3, dev)
     phase("phase 11c: MIPS at 1M (q8 build and sweep, 4-bit, 2-bit and trimmed tiers, filter)")
     p11["11c"] = mips11_run(dev)
+    phase("phase 12: the hierarchical ClusterIndex at 10M x 128 (router, teleport, polish, meta seed)")
+    ci12, X12, Q12, p12 = hier_run(dev)
+    phase("phase 2 (continued): kernel 1 on the 10M build's blocks, kernel 5 over its ext")
+    k12 = kernel_hier(ci12, X12, Q12, dev)
+    del ci12, X12, Q12
 
     # phase8_launches: each kernel's launches in phase 8 (HNSW); shapes:
     # its times at HNSW's shapes beside the main path's
-    k1["shapes"] = {"hnsw_R8_40_int8_B32000": k1h["int8"]}
-    k1f["shapes"] = {"hnsw_R8_40_f32_B8000": k1h["f32"]}
+    k1["shapes"] = {"hnsw_R8_40_int8_B32000": k1h["int8"],
+                    "hier_seed_blocks_R8_24_int8_B10000": k12["seed"]}
+    k1f["shapes"] = {"hnsw_R8_40_f32_B8000": k1h["f32"],
+                     "hier_router_blocks_R8_112_f32_B8192": k12["router"]}
     k4["shapes"] = {"hnsw_A_level1_masked_f32_B2000_k50": k4h["f32"],
                     "hnsw_B_level1_masked_int8_B2000_k50": k4h["int8"]}
     k3["shapes"].update({f"hnsw_R40_B{B}_L{L}": v for (B, L), v in k3h.items()})
+    # kernel 5's times over phase 12's 10M ext
+    k5["shapes"]["int8_10M_B10000_p8_meta_seed"] = k12["walk"]
     # phase9_launches: launches in phase 9 (HCNNG, pyNNDescent); kernel 3's
     # times on the HCNNG graph (R = 90) and with random starts
     k3["shapes"].update({f"hcnng_R90_B{B}_L{L}": dict(ms=v["ms"], bound_ms=v["bound_ms"])
@@ -2339,6 +2544,12 @@ def main():
         counts = {sub: c[k["name"]] for sub, c in p11.items() if c.get(k["name"])}
         if counts:
             k["phase11_launches"] = counts
+    # phase12_launches: launches in phase 12 (the 10M hierarchical
+    # ClusterIndex), on each kernel it launched; kernel 5's times over the
+    # 10M ext
+    for k in kernels:
+        if p12.get(k["name"]):
+            k["phase12_launches"] = p12[k["name"]]
     phase("done")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,27 +1,40 @@
 """ClusterIndex: the two-level cluster structure (build side).
 
-Counterpart of parlayann_tpu/build/clusterindex.py, the exact build path
-(:1090-1118). The points are partitioned into C = ceil(n * slack / m)
-clusters of at most m: Lloyd k-means over the flat scan, a capacity-
-balanced assignment over each point's ``cand`` nearest centroids, a
-respill of the points it had to place arbitrarily into their nearest
-clusters with free capacity, and centroids recentred on the final
+Counterpart of parlayann_tpu/build/clusterindex.py. The points are
+partitioned into C = ceil(n * slack / m) clusters of at most m: centroids,
+a capacity-balanced assignment over each point's ``cand`` nearest
+centroids, a respill of the points it had to place arbitrarily into their
+nearest clusters with free capacity, and centroids recentred on the final
 membership. Each cluster's Rc nearest clusters form its adjacency, and one
 packed ext row per cluster holds its member vectors and ids and its
 adjacent centroids and ids (layouts in ops/kernels/clusterbeam.py). The
 search walks clusters, not points (kernel 5).
 
+Up to ``EXACT_LIMIT`` point-centroid pairs the centroids come from Lloyd
+k-means over the flat scan and the assignment is exact (JAX :1090-1118).
+Past it the build is hierarchical (JAX :910-1088): the C centroids are
+clustered into balanced meta-cells (:func:`_meta_quantizer`), and a point
+is assigned by scanning the meta-centroids and then, through kernel 1,
+only its top-P cells' packed centroid blocks (:func:`approx_assign`).
+Random seeds go through ``HIER_ROUNDS`` rounds of assign, balance at
+``HIER_ROUND_CAP`` x m, recentre on the locally placed points and (but in
+the last round) a capacity-aware teleport of empty centroids into starved
+regions; the last round's cap tapers to ``HIER_SHAPE_CAP`` x m. A final
+assignment at the true m, the respill and an exact polish of the worst
+``POLISH`` share by assigned distance follow. The centroid adjacency runs
+through ``approx_assign`` too when C^2 passes ``EXACT_LIMIT``. Past
+``clusterbeam.ARGMIN_SEED_CUTOFF`` centroids ``_finish`` adds a query-seed
+quantizer over the tier-domain centroids (``ClusterIndex.seed_meta``).
+
 The partition is always L2 (clustering by inner product is degenerate);
-MIPS indexes score by the true metric at query time. Not ported yet
-(ROADMAP queue 1, "The rest of ClusterIndex"), each raising
-``NotImplementedError``: the hierarchical build past n * C > 4e10
-(approx_assign, the meta quantizer, teleport and polish) and the
-meta-routed query seed past 32768 centroids. ``save``/``load`` write and
-read the JAX package's npz file (the same keys). The JAX package's
-environment knobs are not read; the port ships their defaults. The JAX
-respill pads its free centroids with 1e15 rows to fix compile shapes, a
-sentinel that would win under MIPS; the port has no compile shapes and no
-padding.
+MIPS indexes score by the true metric at query time. Every balance runs
+the host library's ``native.balance_assign``; :func:`balance_assign` is its
+plain numpy version. ``save``/``load`` write and read the JAX package's
+npz file (the same keys). The JAX package's environment knobs are module
+constants here at its defaults. The JAX respill pads its free centroids
+with 1e15 rows and its pending points to powers of two, to fix compile
+shapes; no result depends on the padding under L2, and the port pads
+nothing.
 """
 
 from __future__ import annotations
@@ -33,18 +46,34 @@ from typing import Optional
 import numpy as np
 import torch
 
+from parlayann_tpu_torch import native
 from parlayann_tpu_torch.types import Metric
 from parlayann_tpu_torch.data.pointset import PointSet
-from parlayann_tpu_torch.index import _not_ported
 from parlayann_tpu_torch.ops import quantize
-from parlayann_tpu_torch.ops.kernels.clusterbeam import cluster_search_fused
+from parlayann_tpu_torch.ops.kernels import clusterbeam
+from parlayann_tpu_torch.ops.kernels.clusterbeam import cluster_search_fused, meta_topk
 from parlayann_tpu_torch.search.flat import flat_search_batch
-from parlayann_tpu_torch.utils.timing import timed_rounds
+from parlayann_tpu_torch.utils.timing import fence, timed_rounds
 
-# past this many point-centroid pairs the JAX package switches to its
-# hierarchical (meta-routed) passes
+# past this many point-centroid pairs (n x C) the build runs its
+# hierarchical passes, and past it in C x C the adjacency is routed
 EXACT_LIMIT = 4e10
-ITEM = 'queue 1, "The rest of ClusterIndex"'
+# past this many pending-point x free-centroid pairs in one chunk the
+# respill routes through a meta quantizer (the JAX literal, apart from
+# EXACT_LIMIT), over chunks of RESPILL_CHUNK pending points
+RESPILL_LIMIT = 4e10
+RESPILL_CHUNK = 1 << 21
+# the hierarchical build's settings (the JAX package's defaults of
+# PARLAYANN_META_M, _HIER_ROUNDS, _HIER_P, _HIER_ROUND_CAP,
+# _HIER_SHAPE_CAP, _HIER_TELEPORT, _POLISH and _SEED_META_M)
+META_M = 96
+HIER_ROUNDS = 3
+HIER_P = 16
+HIER_ROUND_CAP = 4
+HIER_SHAPE_CAP = 1.5
+HIER_TELEPORT = True
+POLISH = 0.15
+SEED_META_M = 16
 
 
 def _kmeans_chunk_for(C: int) -> int:
@@ -66,9 +95,9 @@ def _assign_all(data: torch.Tensor, n: int, cents: torch.Tensor, C: int,
         i, d = flat_search_batch(data[lo:min(lo + step, n)], cents, k=k,
                                  metric=metric, n_valid=C,
                                  chunk=min(cents.shape[0], 32768), select="sort")
-        ids.append(i.cpu().numpy())
-        ds.append(d.cpu().numpy())
-    return np.concatenate(ids), np.concatenate(ds)
+        ids.append(i)
+        ds.append(d)
+    return torch.cat(ids).cpu().numpy(), torch.cat(ds).cpu().numpy()
 
 
 def kmeans(data: torch.Tensor, n: int, C: int, *, metric: Metric,
@@ -146,10 +175,11 @@ def balance_assign(nbr_ids: np.ndarray, nbr_d: np.ndarray, C: int,
     """Capacity-balanced assignment -> members (C, m) int32, -1 padded.
 
     The JAX package's vectorised numpy version (clusterindex.py:340-377),
-    which is bit-identical to its native/balance.cpp: points in order of
-    their nearest-centroid distance take part in rank rounds (everyone's
-    first choice before anyone's second); points whose candidates are all
-    full spill to the emptiest clusters."""
+    the plain version of :func:`_balance` (the host library's
+    ``csrc/balance.cpp``, bit-identical): points in order of their
+    nearest-centroid distance take part in rank rounds (everyone's first
+    choice before anyone's second); points whose candidates are all full
+    spill to the emptiest clusters."""
     order = np.argsort(nbr_d[:, 0], kind="stable").astype(np.int64)
     members = np.full((C, m), -1, np.int32)
     fill = np.zeros(C, np.int64)
@@ -159,6 +189,13 @@ def balance_assign(nbr_ids: np.ndarray, nbr_d: np.ndarray, C: int,
     if len(pending):
         _spill_emptiest(members, fill, pending, m)
     return members
+
+
+def _balance(nbr_ids: np.ndarray, nbr_d: np.ndarray, C: int, m: int) -> np.ndarray:
+    """:func:`balance_assign` through the host library (every build path's
+    balance)."""
+    order = np.argsort(nbr_d[:, 0], kind="stable").astype(np.int64)
+    return native.balance_assign(nbr_ids, order, C, m)
 
 
 def _mask_spilled(members: np.ndarray, nbr_ids: np.ndarray) -> np.ndarray:
@@ -173,13 +210,66 @@ def _mask_spilled(members: np.ndarray, nbr_ids: np.ndarray) -> np.ndarray:
     return np.where(inlist.reshape(C, m), members, -1)
 
 
+def _meta_sizes(C: int, meta_m: int) -> tuple[int, int]:
+    """-> (Cm meta-cell count, cap block capacity): cap carries 40%
+    headroom over the mean cell size, a multiple of 8, with room for C."""
+    Cm = max(8, int(-(-C * 1.25 // meta_m)))
+    cap = -(-int(C / Cm * 1.4 + 1) // 8) * 8
+    while Cm * cap < C + Cm:
+        cap += 8
+    return Cm, cap
+
+
+def _meta_quantizer(cents: torch.Tensor, C: int, metric: Metric, *,
+                    meta_m: int = META_M, seed: int = 0, iters: int = 4):
+    """Cluster the C centroids into balanced meta-cells -> (mcents (Cm, d)
+    f32, blocks (Cm, cap, d) f32, idtab (Cm, cap) int32 tensors): exact
+    k-means of the centroids, the balance at cap, the respill (a centroid
+    the balance dumped into an arbitrary cell is one the router never
+    finds) and the cells' means. A cell's block holds its centroids, zero
+    where ``idtab`` is -1."""
+    Cm, cap = _meta_sizes(C, meta_m)
+    cj = cents[:C].float()
+    mcents = kmeans(cj, C, Cm, metric=metric, iters=iters, seed=seed)
+    ids, dd = _assign_all(cj, C, mcents, Cm, min(8, Cm), metric)
+    memm = _balance(ids, dd, Cm, cap)
+    memm = _respill_local(cj, C, memm, ids, mcents, Cm, cap, metric)
+    mcents = _recenter(cj, memm, Cm)
+    idtab = torch.from_numpy(memm).to(cj.device)
+    return mcents, _gather_rows(cj, idtab), idtab
+
+
+def approx_assign(data: torch.Tensor, n: int, cents: torch.Tensor, C: int,
+                  k: int, metric: Metric, *, P: int = 2, meta_m: int = META_M,
+                  seed: int = 0, quantizer=None):
+    """Meta-routed nearest-k centroids -> (ids (n, k), dists (n, k)) numpy,
+    :func:`_assign_all`'s contract with the candidates restricted to each
+    point's top-P meta-cells: the distances are exact, to the true
+    centroids (kernel 1 on the cells' blocks). ``quantizer``: a
+    :func:`_meta_quantizer` result to reuse across calls against the same
+    centroids."""
+    mcents, blocks, idtab = quantizer if quantizer is not None else (
+        _meta_quantizer(cents, C, metric, meta_m=meta_m, seed=seed))
+    step = _kmeans_chunk_for(blocks.shape[0])
+    ids = torch.empty((n, k), dtype=torch.int32, device=data.device)
+    ds = torch.empty((n, k), dtype=torch.float32, device=data.device)
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        ids[lo:hi], ds[lo:hi] = meta_topk(data[lo:hi].float(), mcents, blocks, idtab,
+                                          k=k, P=P, metric=metric)
+    return ids.cpu().numpy(), ds.cpu().numpy()
+
+
 def _respill_local(data: torch.Tensor, n: int, members: np.ndarray,
                    nbr_ids: np.ndarray, cents: torch.Tensor, C: int, m: int,
                    metric: Metric, *, verbose: bool = False) -> np.ndarray:
     """Re-place spilled points into their nearest clusters with free
     capacity -> members (C, m): search them against the free clusters'
     centroids and place them by the same rank rounds, widening the
-    candidate count (8, 32, ..., 1024) until everyone fits."""
+    candidate count (8, 32, ..., 1024) until everyone fits. The pending
+    points go in chunks of ``RESPILL_CHUNK``; past ``RESPILL_LIMIT`` pairs
+    in a chunk the search is :func:`approx_assign` through one meta
+    quantizer of the pass's free centroids."""
     local = _mask_spilled(members, nbr_ids)
     n_spill = int((members >= 0).sum() - (local >= 0).sum())
     if n_spill == 0:
@@ -194,19 +284,29 @@ def _respill_local(data: torch.Tensor, n: int, members: np.ndarray,
         it += 1
         free = np.flatnonzero(fill < m).astype(np.int64)
         kk = int(min(k, len(free)))
-        if float(len(pending)) * len(free) > EXACT_LIMIT:
-            _not_ported("the hierarchical respill (pending x free > 4e10)",
-                        ITEM)
         sub = cents[torch.from_numpy(free).to(cents.device)]
-        pvec = data[torch.from_numpy(pending).to(data.device)]
-        ids, d = _assign_all(pvec, len(pending), sub, len(free), kk, metric)
+        quant = (_meta_quantizer(sub, len(free), metric, seed=it)
+                 if float(min(RESPILL_CHUNK, len(pending))) * len(free) > RESPILL_LIMIT
+                 else None)
+        ids, d = [], []
+        for off in range(0, len(pending), RESPILL_CHUNK):
+            pc = pending[off:off + RESPILL_CHUNK]
+            pvec = data[torch.from_numpy(pc).to(data.device)]
+            if quant is not None and float(len(pc)) * len(free) > RESPILL_LIMIT:
+                i_, d_ = approx_assign(pvec, len(pc), sub, len(free), kk, metric,
+                                       seed=it, quantizer=quant)
+            else:
+                i_, d_ = _assign_all(pvec, len(pc), sub, len(free), kk, metric)
+            ids.append(i_)
+            d.append(d_)
+        ids, d = np.concatenate(ids), np.concatenate(d)
         gids = np.where((ids >= 0) & (ids < len(free)),
                         free[np.clip(ids, 0, len(free) - 1)], -1)
         order = np.argsort(d[:, 0], kind="stable")
         placed = _place_rounds(members, fill, gids, order, pending, m)
         if verbose:
-            print(f"respill pass {it} (k={kk}): {n_spill} -> "
-                  f"{int((~placed).sum())} left", flush=True)
+            print(f"respill pass {it} (k={kk}{', routed' if quant is not None else ''}): "
+                  f"{n_spill} -> {int((~placed).sum())} left", flush=True)
         if not placed.any() and kk >= min(1024, len(free)):
             # no progress at the widest candidate set: the emptiest free
             # slots, termination over locality for a vanishing fraction
@@ -219,12 +319,221 @@ def _respill_local(data: torch.Tensor, n: int, members: np.ndarray,
 
 def _recenter(data: torch.Tensor, members: np.ndarray, C: int) -> torch.Tensor:
     """Exact centroids of a membership -> (C, d) f32 (zero for an empty
-    cluster, as in the JAX package)."""
-    mm = torch.from_numpy(members[:C]).to(data.device)
-    ok = mm >= 0
-    vecs = data[mm.clamp(min=0).long()].float()
-    s = torch.where(ok[:, :, None], vecs, 0.0).sum(dim=1)
-    return s / torch.clamp(ok.sum(dim=1, keepdim=True).float(), min=1.0)
+    cluster, as in the JAX package), over blocks of 8192 clusters (the
+    whole (C, m, d) gather is tens of GB at 10M points)."""
+    block = 8192
+    out = torch.empty((C, data.shape[1]), dtype=torch.float32, device=data.device)
+    for lo in range(0, C, block):
+        mm = torch.from_numpy(members[lo:min(lo + block, C)]).to(data.device)
+        ok = mm >= 0
+        vecs = data[mm.clamp(min=0).long()].float()
+        s = torch.where(ok[:, :, None], vecs, 0.0).sum(dim=1)
+        out[lo:lo + mm.shape[0]] = s / torch.clamp(ok.sum(dim=1, keepdim=True).float(),
+                                                    min=1.0)
+    return out
+
+
+def _teleport_centroids(data: torch.Tensor, cents: torch.Tensor, nbr_ids: np.ndarray,
+                        nbr_d: np.ndarray, C: int, m: int):
+    """Capacity-aware empty-cluster reseeding -> (cents, n_moved).
+
+    A trial balance at the true capacity m finds the mass no centroid
+    region absorbs (its spill-placed points). Each starved region, keyed by
+    its spilled points' nearest centroid, asks for ceil(spill / m) more
+    centroids; donors are the clusters the trial left empty in regions
+    with no spill; the k-th donation to a region lands on an evenly spread
+    k-th spilled point of it."""
+    trial = _balance(nbr_ids, nbr_d, C, m)
+    local = _mask_spilled(trial, nbr_ids)
+    sp_pts = trial[(trial >= 0) & (local < 0)].astype(np.int64)
+    if not len(sp_pts):
+        return cents, 0
+    region = nbr_ids[sp_pts, 0].astype(np.int64)
+    ok = region >= 0
+    sp_pts, region = sp_pts[ok], region[ok]
+    spill_mass = np.bincount(region, minlength=C)
+    need = -(-spill_mass // m)  # extra centroids per starved region
+    fill = (local >= 0).sum(axis=1).astype(np.int64)
+    donors = np.flatnonzero((fill == 0) & (need == 0))
+    if not len(donors) or not need.any():
+        return cents, 0
+    reg_ids = np.flatnonzero(need > 0)
+    reg_ids = reg_ids[np.argsort(-spill_mass[reg_ids], kind="stable")]
+    lens = need[reg_ids]
+    receivers = np.repeat(reg_ids, lens)
+    ends = np.cumsum(lens)
+    occ = np.arange(len(receivers)) - np.repeat(ends - lens, lens)
+    order = np.argsort(region, kind="stable")
+    sp_sorted = sp_pts[order]
+    starts = np.searchsorted(region[order], np.arange(C))
+    nmove = int(min(len(donors), len(receivers)))
+    recv, occ = receivers[:nmove], occ[:nmove]
+    don = donors[:nmove].astype(np.int64)
+    nrep = np.repeat(lens, lens)[:nmove]
+    pts = sp_sorted[starts[recv] + (occ * spill_mass[recv]) // np.maximum(nrep, 1)]
+    dev = cents.device
+    cents = cents.clone()
+    cents[torch.from_numpy(don).to(dev)] = data[torch.from_numpy(pts).to(dev)].float()
+    return cents, int(len(don))
+
+
+def _assigned_dist(data: torch.Tensor, cents: torch.Tensor, pt2c: np.ndarray) -> np.ndarray:
+    """||x_i - c_assign(i)||^2 for every row of ``data`` -> (rows,) f32
+    numpy (a row assigned nowhere measures against centroid 0), over blocks
+    of 65,536 rows."""
+    block = 1 << 16
+    dev = data.device
+    out = torch.empty(data.shape[0], dtype=torch.float32, device=dev)
+    for lo in range(0, data.shape[0], block):
+        c = torch.from_numpy(pt2c[lo:lo + block]).to(dev).clamp(min=0).long()
+        diff = data[lo:lo + block].float() - cents[c]
+        out[lo:lo + block] = (diff * diff).sum(dim=1)
+    return out.cpu().numpy()
+
+
+def _polish_misassigned(data: torch.Tensor, n: int, members: np.ndarray,
+                        cents: torch.Tensor, C: int, m: int, metric: Metric, *,
+                        frac: float = POLISH, kc: int = 8,
+                        verbose: bool = False) -> np.ndarray:
+    """Exact reassignment of the router's error tail -> members.
+
+    A point the meta router missed sits far from its assigned centroid.
+    The worst ``frac`` by assigned distance are scanned exactly against all
+    C centroids (the flat scan, ``select="sort"``, in batches), and each
+    whose exact nearest centroid is not its own moves by the balancer's
+    rank rounds into its nearest cluster with free capacity; its current
+    (vacated) cluster is a last-priority candidate, and only a mover whose
+    slot a sibling took lands in the emptiest free cluster."""
+    rows = data.shape[0]
+    pt2c = np.full(rows, -1, np.int32)
+    rowsc = np.repeat(np.arange(C, dtype=np.int32), members.shape[1])
+    vmask = members.reshape(-1) >= 0
+    pt2c[members.reshape(-1)[vmask]] = rowsc[vmask]
+    ad = _assigned_dist(data, cents, pt2c)[:n]
+    qidx = int(n * (1 - frac))
+    thr = np.partition(ad, qidx)[qidx]
+    flagged = np.flatnonzero((ad >= thr) & (pt2c[:n] >= 0)).astype(np.int64)
+    if not len(flagged):
+        return members
+    eb = 16384
+    ids, ds = [], []
+    for off in range(0, len(flagged), eb):
+        fv = data[torch.from_numpy(flagged[off:off + eb]).to(data.device)].float()
+        i_, d_ = flat_search_batch(fv, cents, k=kc, metric=metric, n_valid=C,
+                                   chunk=min(cents.shape[0], 8192), select="sort")
+        ids.append(i_)
+        ds.append(d_)
+    eids, ed = torch.cat(ids).cpu().numpy(), torch.cat(ds).cpu().numpy()
+    movers = eids[:, 0] != pt2c[flagged]
+    flagged, eids, ed = flagged[movers], eids[movers], ed[movers]
+    if not len(flagged):
+        return members
+    eids = np.concatenate([eids, pt2c[flagged][:, None].astype(eids.dtype)], axis=1)
+    is_mover = np.zeros(rows, bool)
+    is_mover[flagged] = True
+    keep = ~((members >= 0) & is_mover[np.clip(members, 0, None)])
+    members = np.where(keep, members, -1)
+    ordr = np.argsort(members < 0, axis=1, kind="stable")
+    members = np.take_along_axis(members, ordr, axis=1)
+    fill = (members >= 0).sum(axis=1).astype(np.int64)
+    order = np.argsort(ed[:, 0], kind="stable")
+    placed = _place_rounds(members, fill, eids, order, flagged, m)
+    if not placed.all():
+        _spill_emptiest(members, fill, flagged[~placed], m)
+    if verbose:
+        print(f"polish: flagged {int((ad >= thr).sum())} moved {int(placed.sum())} "
+              f"fallback {int((~placed).sum())}", flush=True)
+    return members
+
+
+def _hier_partition(data: torch.Tensor, n: int, C: int, m: int, cand: int,
+                    seed: int, verbose: bool):
+    """The hierarchical build's partition -> (members (C, m), cents (C, d)),
+    JAX clusterindex.py:942-1088: random centroid seeds, ``HIER_ROUNDS``
+    rounds of routed assign, balance at a relaxed cap, recentre on the
+    locally placed points and teleport (but in the last round); then the
+    final routed assign, the balance at m, the respill, and the polish."""
+    cmetric = Metric.L2
+    dev = data.device
+    rng = np.random.default_rng(seed)
+    cents = data[torch.from_numpy(rng.choice(n, C, replace=False)).to(dev)].float()
+    m_round = m * HIER_ROUND_CAP
+    caps = [m_round] * HIER_ROUNDS
+    if HIER_ROUNDS > 1 and HIER_SHAPE_CAP > 0:
+        # the taper never raises the cap
+        caps[-1] = min(m_round, max(m, int(m * HIER_SHAPE_CAP)))
+    for r in range(HIER_ROUNDS):
+        t0 = time.perf_counter()
+        cents_in = cents
+        nbr_ids, nbr_d = approx_assign(data, n, cents, C, cand, cmetric, P=HIER_P,
+                                       meta_m=META_M, seed=seed + r)
+        members = _balance(nbr_ids, nbr_d, C, caps[r])
+        # recentre on the locally placed points; keep the centroid of a
+        # cluster left with none
+        local = _mask_spilled(members, nbr_ids)
+        nonempty = torch.from_numpy((local >= 0).any(axis=1)).to(dev)
+        cents = torch.where(nonempty[:, None], _recenter(data, local, C), cents)
+        moved = 0
+        if HIER_TELEPORT and r < HIER_ROUNDS - 1:
+            cents, moved = _teleport_centroids(data, cents, nbr_ids, nbr_d, C, m)
+        if verbose:
+            fence(dev)
+            secs = time.perf_counter() - t0
+            spilled = int((members >= 0).sum() - (local >= 0).sum())
+            # the router's fidelity on a sample: top-1 agreement with the
+            # exact scan, and the true top-1 among the candidates
+            srng = np.random.default_rng(123 + r)
+            sidx = srng.choice(n, min(4096, n), replace=False)
+            sv = data[torch.from_numpy(sidx).to(dev)]
+            eids, _ = _assign_all(sv, len(sidx), cents_in, C, 1, cmetric)
+            agree = float((nbr_ids[sidx, 0] == eids[:, 0]).mean())
+            incand = float((nbr_ids[sidx, :cand] == eids[:, :1]).any(1).mean())
+            print(f"hier round {r + 1}/{HIER_ROUNDS}: {secs:.1f}s spilled {spilled} "
+                  f"({spilled / n:.3f})" + (f" teleported {moved}" if moved else "")
+                  + f" router top1-agree {agree:.3f} true-top1-in-cand {incand:.3f}",
+                  flush=True)
+    t0 = time.perf_counter()
+    nbr_ids, nbr_d = approx_assign(data, n, cents, C, cand, cmetric, P=HIER_P,
+                                   meta_m=META_M, seed=seed + HIER_ROUNDS)
+    members = _balance(nbr_ids, nbr_d, C, m)
+    if verbose:
+        spilled = int((members >= 0).sum() - (_mask_spilled(members, nbr_ids) >= 0).sum())
+        print(f"final assign: {time.perf_counter() - t0:.1f}s spilled {spilled} "
+              f"({spilled / n:.3f})", flush=True)
+    t1 = time.perf_counter()
+    members = _respill_local(data, n, members, nbr_ids, cents, C, m, cmetric,
+                             verbose=verbose)
+    cents = _recenter(data, members, C)
+    if verbose:
+        fence(dev)
+        print(f"respill: {time.perf_counter() - t1:.1f}s", flush=True)
+    if POLISH > 0:
+        t1 = time.perf_counter()
+        members = _polish_misassigned(data, n, members, cents, C, m, cmetric,
+                                      frac=POLISH, verbose=verbose)
+        cents = _recenter(data, members, C)
+        if verbose:
+            fence(dev)
+            print(f"polish: {time.perf_counter() - t1:.1f}s", flush=True)
+    if verbose:
+        fence(dev)
+        print(f"hier final: {time.perf_counter() - t0:.1f}s", flush=True)
+    return members, cents
+
+
+def _seed_quantizer(cents_tier: torch.Tensor, C: int, blocks_dtype=None):
+    """The query seed's meta router over the (C, d) ext-domain centroids
+    (JAX clusterindex.py:1131-1161) -> (mcents, blocks, idtab), or None up
+    to ``clusterbeam.ARGMIN_SEED_CUTOFF`` centroids. Fine cells
+    (``SEED_META_M``) keep the seed accurate. On the int8 layout the blocks
+    hold q8-domain integers, so their int8 cast is exact."""
+    if C <= clusterbeam.ARGMIN_SEED_CUTOFF:
+        return None
+    mc, blocks, idtab = _meta_quantizer(cents_tier, C, Metric.L2, meta_m=SEED_META_M,
+                                        seed=1009, iters=3)
+    if blocks_dtype is not None:
+        blocks = blocks.to(blocks_dtype)
+    return mc, blocks, idtab
 
 
 def _c_pad(C: int) -> int:
@@ -315,6 +624,9 @@ class ClusterIndex:
     m: int
     Rc: int
     ext_dtype: str = "int8"
+    # (mcents, blocks, idtab) over the ext-domain centroids: the query
+    # seed's meta router past clusterbeam.ARGMIN_SEED_CUTOFF centroids
+    seed_meta: Optional[tuple] = None
 
     @property
     def device(self) -> torch.device:
@@ -328,34 +640,50 @@ class ClusterIndex:
         with none, the balancer must fill every cluster and displaces
         boundary points into far ones. ``ext_dtype``: "f32" (exact pool
         scores, no rerank), "int8" (q8 rows plus an f32 rerank) or "auto"
-        (f32 when n < 2^24 and the f32 rows fit 6 GiB)."""
+        (f32 when n < 2^24 and the f32 rows fit 6 GiB). Past
+        ``EXACT_LIMIT`` point-centroid pairs the build is hierarchical
+        (``iters`` is then unused: the rounds are ``HIER_ROUNDS``);
+        ``verbose`` prints each round's seconds, spill share, teleports and
+        router agreement, the respill passes, the polish and the build's
+        split."""
         n = points.n
         C = max(8, int(-(-n * slack // m)))
-        if float(n) * C > EXACT_LIMIT:
-            _not_ported(f"the hierarchical build (n x C = {float(n) * C:.3g}"
-                        " > 4e10)", ITEM)
         t0 = time.perf_counter()
-        step = _kmeans_chunk_for(C)
         data = points.data[:n].float()
         cmetric = Metric.L2
-        cents = kmeans(data, n, C, metric=cmetric, iters=iters, seed=seed,
-                       step=step)
-        nbr_ids, nbr_d = _assign_all(data, n, cents, C, cand, cmetric, step=step)
-        members = balance_assign(nbr_ids, nbr_d, C, m)
-        members = _respill_local(data, n, members, nbr_ids, cents, C, m,
-                                 cmetric, verbose=verbose)
-        cents = _recenter(data, members, C)
-        aid, _ = _assign_all(cents, C, cents, C, Rc + 1, cmetric, step=8192)
+        if float(n) * C > EXACT_LIMIT:
+            members, cents = _hier_partition(data, n, C, m, cand, seed, verbose)
+        else:
+            step = _kmeans_chunk_for(C)
+            cents = kmeans(data, n, C, metric=cmetric, iters=iters, seed=seed,
+                           step=step)
+            nbr_ids, nbr_d = _assign_all(data, n, cents, C, cand, cmetric, step=step)
+            members = _balance(nbr_ids, nbr_d, C, m)
+            members = _respill_local(data, n, members, nbr_ids, cents, C, m,
+                                     cmetric, verbose=verbose)
+            del nbr_ids, nbr_d
+            cents = _recenter(data, members, C)
+        t1 = time.perf_counter()
+        if float(C) * C > EXACT_LIMIT:
+            aid, _ = approx_assign(cents, C, cents, C, Rc + 1, cmetric, meta_m=META_M,
+                                   seed=seed + 101)
+        else:
+            aid, _ = _assign_all(cents, C, cents, C, Rc + 1, cmetric, step=8192)
         # drop self (always the nearest) and compact each row left
         adj = np.where(aid == np.arange(C, dtype=aid.dtype)[:, None], -1, aid)
         ordr = np.argsort(adj < 0, axis=1, kind="stable")
         adj = np.ascontiguousarray(
             np.take_along_axis(adj, ordr, axis=1)[:, :Rc]).astype(np.int32)
+        t2 = time.perf_counter()
+        out = ClusterIndex._finish(points, members, adj, cents, C, m, Rc,
+                                   ext_dtype=ext_dtype)
         if verbose:
-            print(f"cluster build: C={C} in {time.perf_counter() - t0:.2f} s",
-                  flush=True)
-        return ClusterIndex._finish(points, members, adj, cents, C, m, Rc,
-                                    ext_dtype=ext_dtype)
+            fence(data.device)
+            print(f"cluster build: C={C} in {time.perf_counter() - t0:.2f} s "
+                  f"(adjacency {t2 - t1:.2f} s"
+                  f"{', routed' if float(C) * C > EXACT_LIMIT else ''}, "
+                  f"finish {time.perf_counter() - t2:.2f} s)", flush=True)
+        return out
 
     @staticmethod
     def _finish(points: PointSet, members: np.ndarray, adj: np.ndarray,
@@ -363,7 +691,8 @@ class ClusterIndex:
                 ext_dtype: str = "auto") -> "ClusterIndex":
         """Pack the ext rows. int8 mode quantizes points and centroids into
         one q8 domain (one query translation serves both); f32 mode packs
-        the raw vectors."""
+        the raw vectors. Past ``ARGMIN_SEED_CUTOFF`` centroids the query
+        seed's quantizer is built over the ext-domain centroids."""
         n, d = points.n, points.d
         C_pad = _c_pad(C)
         if ext_dtype == "auto":
@@ -379,7 +708,8 @@ class ClusterIndex:
             return ClusterIndex(points=points, qpoints=None,
                                 centroids_q=torch.nn.functional.pad(cents[:C], pad),
                                 members=members, adj=adj, ext=ext, C=C, m=m,
-                                Rc=Rc, ext_dtype="f32")
+                                Rc=Rc, ext_dtype="f32",
+                                seed_meta=_seed_quantizer(cents[:C], C))
         qps = quantize.quantize_pointset(points, bits=8)
         if points.metric is Metric.L2:
             cq = quantize.euclidean_translate(cents, qps.quant_slope,
@@ -391,7 +721,8 @@ class ClusterIndex:
         return ClusterIndex(points=points, qpoints=qps,
                             centroids_q=torch.nn.functional.pad(cq[:C], pad),
                             members=members, adj=adj, ext=ext, C=C, m=m, Rc=Rc,
-                            ext_dtype="int8")
+                            ext_dtype="int8",
+                            seed_meta=_seed_quantizer(cq[:C].float(), C, torch.int8))
 
     def save(self, path: str) -> None:
         """Persist the structure, members and adjacency (JAX
@@ -422,10 +753,13 @@ class ClusterIndex:
     def search(self, queries, k: int = 10, *, n_probe: int = 8,
                min_probe: int = 3, cut: float = 1.35, starts: int = 2,
                rerank_factor: int = 2, rerank: str = "auto",
-               seed_mode: str = "argmin", select_mode: str = "sort"):
+               seed_mode: str = "argmin", select_mode: str = "sort",
+               seed_probes: int = 8):
         """-> (ids (B, k), dists (B, k), (probes (B,), distance
         computations (B,))). ``n_probe`` bounds expansions; ``starts``
-        seeds the beam with the exact top-S centroids; the adaptive default
+        seeds the beam with the top-S centroids (exact, or through
+        ``seed_meta``'s ``seed_probes`` nearest cells past the argmin
+        cutoff; ``seed_mode="stream"``: always exact); the adaptive default
         (cut 1.35 with a min_probe 3 floor) stops a query once its best
         remaining centroid is beyond cut x its best seen, and cut=0
         always runs n_probe probes. ``rerank="auto"`` is "tier" on the f32
@@ -435,14 +769,16 @@ class ClusterIndex:
         if rerank == "auto":
             rerank = "tier" if self.ext_dtype == "f32" else "full"
         qp = self.qpoints
+        meta = self.seed_meta if seed_mode != "stream" else None
         return cluster_search_fused(
             q_full, self.centroids_q, self.ext, self.points.data,
             None if qp is None else qp.quant_slope,
-            None if qp is None else qp.quant_offset,
+            None if qp is None else qp.quant_offset, *(meta or (None,) * 3),
             metric=self.points.metric, C=self.C, m=self.m, Rc=self.Rc,
             n_points=self.points.n, k=k, n_probe=n_probe, min_probe=min_probe,
             cut=cut, S=starts, pool=pool, tier_bits=32 if qp is None else qp.bits,
-            rerank=rerank, seed_mode=seed_mode, select_mode=select_mode)
+            rerank=rerank, seed_mode=seed_mode, select_mode=select_mode,
+            seed_probes=seed_probes)
 
     def search_timed(self, queries, *, rounds: int = 1, warmup: bool = True,
                      **kw):

@@ -71,10 +71,6 @@ def _entry_top1(q: torch.Tensor, evecs: torch.Tensor, eids: torch.Tensor, *,
     return eids[dist.argmin(dim=1)][:, None]
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet; see ROADMAP {item}")
-
-
 @dataclasses.dataclass
 class Index:
     points: PointSet

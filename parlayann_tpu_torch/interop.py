@@ -105,20 +105,23 @@ def index_from_state(points: PointSet, graph: GraphIndexData,
 def cluster_index_from_state(points: PointSet, members: np.ndarray,
                              adj: np.ndarray, centroids_q: np.ndarray,
                              ext: np.ndarray, C: int, m: int, Rc: int,
-                             ext_dtype: str, qpoints: Optional[PointSet] = None
-                             ) -> ClusterIndex:
+                             ext_dtype: str, qpoints: Optional[PointSet] = None,
+                             seed_meta=None) -> ClusterIndex:
     """A ClusterIndex over the JAX ``ClusterIndex`` state: ``members``,
     ``adj``, ``centroids_q`` and the packed ``ext`` rows (byte-compatible
     layouts), with ``points`` and, for the int8 layout, the q8 tier
-    ``qpoints`` already converted."""
+    ``qpoints`` already converted; ``seed_meta`` the JAX index's seed
+    quantizer (mcents, blocks, idtab) as numpy arrays, or None."""
     dev = points.device
+    if seed_meta is not None:
+        seed_meta = tuple(torch.tensor(np.asarray(a)).to(dev) for a in seed_meta)
     return ClusterIndex(
         points=points, qpoints=qpoints,
         centroids_q=torch.tensor(np.asarray(centroids_q)).to(dev),
         members=np.asarray(members, dtype=np.int32),
         adj=np.asarray(adj, dtype=np.int32),
         ext=torch.tensor(np.asarray(ext)).to(dev), C=int(C), m=int(m),
-        Rc=int(Rc), ext_dtype=str(ext_dtype))
+        Rc=int(Rc), ext_dtype=str(ext_dtype), seed_meta=seed_meta)
 
 
 def flat_index_from_state(points: PointSet,

@@ -1,12 +1,16 @@
-"""The host C++ library of the port: per-leaf Kruskal for HCNNG.
+"""The host C++ library of the port: per-leaf Kruskal for HCNNG and the
+capacity balancer of the ClusterIndex build.
 
-Counterpart of parlayann_tpu/native.py's ``kruskal_leaves``. The source is
-the port's own copy, ``csrc/kruskal.cpp``; at first use g++ builds it with
-OpenMP into ``_build/`` under a name hashed from the source and the flags
-(as ``ops/kernels/_lib.py`` does for the CUDA library), and ctypes loads it.
-A failed build raises: there is no fallback to the Python loop, which
-would hide a broken build behind a slow one. ``kruskal_leaves_plain`` is
-that loop (JAX native.py:98-128), kept for the tests.
+Counterpart of parlayann_tpu/native.py's ``kruskal_leaves`` and
+``balance_assign``. The sources are the port's own copies,
+``csrc/kruskal.cpp`` and ``csrc/balance.cpp``; at first use g++ builds both
+with OpenMP into one library in ``_build/`` under a name hashed from the
+sources and the flags (as ``ops/kernels/_lib.py`` does for the CUDA
+library), and ctypes loads it. A failed build raises: there is no fallback
+to Python, which would hide a broken build behind a slow one.
+``kruskal_leaves_plain`` is the Python loop (JAX native.py:98-128), kept
+for the tests; the balancer's plain version is the numpy
+``build/clusterindex.py:balance_assign``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent
 SOURCE = _PKG / "csrc" / "kruskal.cpp"
+BALANCE_SOURCE = _PKG / "csrc" / "balance.cpp"
 BUILD_DIR = _PKG / "_build"
 FLAGS = ("-O3", "-shared", "-fPIC", "-fopenmp")
 
@@ -30,18 +35,21 @@ _loaded: dict = {}
 
 
 def build() -> Path:
-    """Compile the source unless a library of the same hash exists."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(FLAGS).encode())
+    """Compile the sources unless a library of the same hash exists."""
+    sources = (SOURCE, BALANCE_SOURCE)
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
+                            + " ".join(FLAGS).encode())
     out = BUILD_DIR / f"libparlayann_host_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(["g++", *FLAGS, str(SOURCE), "-o", str(tmp)],
+    proc = subprocess.run(["g++", *FLAGS, *map(str, sources), "-o", str(tmp)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed on {SOURCE.name} ({proc.returncode}):\n"
+        names = ", ".join(p.name for p in sources)
+        raise RuntimeError(f"g++ failed on {names} ({proc.returncode}):\n"
                            f"{proc.stderr}")
     os.replace(tmp, out)
     return out
@@ -57,6 +65,10 @@ def library() -> ctypes.CDLL:
                 i32p, i32p, i32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
                 ctypes.c_int32, i32p, i32p, i32p]
             lib.kruskal_leaves.restype = None
+            lib.balance_assign.argtypes = [
+                i32p, ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_int32,
+                ctypes.c_int32, ctypes.c_int32, i32p]
+            lib.balance_assign.restype = ctypes.c_int32
             _loaded["lib"] = lib
         return _loaded["lib"]
 
@@ -128,3 +140,21 @@ def kruskal_leaves_plain(edges_u: np.ndarray, edges_v: np.ndarray,
             if comps == 1:
                 break
     return out_u, out_v, counts
+
+
+def balance_assign(nbr_ids: np.ndarray, order: np.ndarray, C: int, m: int) -> np.ndarray:
+    """Capacity-balanced assignment of (n, k) candidate centroids, points
+    taken in the priority ``order`` -> members (C, m) int32, -1 padded;
+    the same function as the numpy ``build/clusterindex.py:balance_assign``
+    (rank rounds, then the emptiest clusters' free slots). Raises
+    ``ValueError`` when C * m < n."""
+    nbr_ids = np.ascontiguousarray(nbr_ids, dtype=np.int32)
+    order = np.ascontiguousarray(order, dtype=np.int64)
+    n, k = nbr_ids.shape
+    members = np.full((C, m), -1, dtype=np.int32)
+    rc = library().balance_assign(
+        _i32p(nbr_ids), order.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), n, k, C,
+        m, _i32p(members))
+    if rc != 0:
+        raise ValueError("capacity < n: raise slack")
+    return members

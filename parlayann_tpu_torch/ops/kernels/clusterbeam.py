@@ -5,8 +5,12 @@ Counterpart of parlayann_tpu/ops/pallas/clusterbeam.py (``cluster_step``
 :419). The CUDA kernel (``csrc/clusterbeam.cu``) runs each query's whole
 walk in one warp, all queries in one launch; :func:`cluster_walk_plain` is
 the same function in PyTorch, all queries in lock-step. :func:`cluster_search_fused`
-is the whole search: the exact top-S centroid seed, the walk, the pool
-sort and the rerank.
+is the whole search: the top-S centroid seed, the walk, the pool sort and
+the rerank. The seed is exact up to ``ARGMIN_SEED_CUTOFF`` centroid rows;
+past it an index with a seed quantizer (``ClusterIndex.seed_meta``) routes
+it through :func:`meta_topk`: a scan of the meta-centroids, then kernel 1
+(``expand_distances``) on the nearest cells' packed centroid blocks, the
+build's ``approx_assign`` on the query side.
 
 A query keeps two structures. The cluster beam (Wc = pow2(max(Lc, S, 8))
 lanes of (distance, packed id), pack = id * 2 + unexpanded bit, live lanes
@@ -47,13 +51,14 @@ from parlayann_tpu_torch.types import Metric
 from parlayann_tpu_torch.ops import distance, quantize
 from parlayann_tpu_torch.ops.distance import INF
 from parlayann_tpu_torch.ops.kernels import _lib
-from parlayann_tpu_torch.ops.topk import lexsort
+from parlayann_tpu_torch.ops.kernels.expand import expand_distances
+from parlayann_tpu_torch.ops.topk import lexsort, smallest_k
 from parlayann_tpu_torch.search.flat import flat_search_batch
 from parlayann_tpu_torch.search.rerank import rerank_topk
 from parlayann_tpu_torch.utils.arrays import pow2
 
-# past this many centroid rows the JAX package seeds through a meta router
-# (ClusterIndex.seed_meta), which is not ported
+# past this many centroid rows the "argmin" seed (one (B, C_pad) matmul)
+# gives way to the meta router (ClusterIndex.seed_meta) or the streamed scan
 ARGMIN_SEED_CUTOFF = 32768
 # the widest cluster beam the kernel takes (past 32 lanes it runs the
 # beam in shared memory)
@@ -249,31 +254,59 @@ def cluster_walk(queries, ext, seed_d, seed_i, *, metric: Metric, C: int,
 cluster_walk.launches = 0
 
 
-def seed_centroids(q: torch.Tensor, centroids_q: torch.Tensor, *, C: int,
-                   S: int, metric: Metric, seed_mode: str = "argmin"):
-    """Exact top-S centroids per query -> (dists (B, S) f32 ascending, in
-    the walk's domain: true squared L2 or -dot; ids (B, S) int32).
+def meta_topk(q: torch.Tensor, mcents: torch.Tensor, blocks: torch.Tensor,
+              idtab: torch.Tensor, *, k: int, P: int, metric: Metric):
+    """Meta-routed top-k centroids -> (ids (B, k) int32, dists (B, k) f32
+    ascending): the top-P of the (Cm, d) meta-centroids by the flat scan,
+    then one kernel 1 launch per probe over the (Cm, cap, d) cell blocks,
+    whose ``idtab`` (Cm, cap) holds each slot's centroid id (-1 empty), and
+    the k smallest of the B x P * cap candidates (equal distances keep
+    probe order). Distances are exact, in the blocks' domain. JAX
+    clusterindex.py:208-236 and clusterbeam.py:522-556."""
+    Cm = blocks.shape[0]
+    mt_i, _ = flat_search_batch(q, mcents, k=P, metric=metric, n_valid=Cm,
+                                chunk=min(Cm, 32768), select="sort")
+    ds, ids = [], []
+    for p in range(P):
+        mi = mt_i[:, p].clamp(0, Cm - 1)
+        dp = expand_distances(blocks, mi, q, metric=metric)
+        ip = idtab[mi.long()]
+        ds.append(torch.where((ip >= 0) & (mt_i[:, p:p + 1] >= 0), dp, INF))
+        ids.append(ip)
+    d, i = smallest_k(torch.cat(ds, dim=1), torch.cat(ids, dim=1), k)
+    return i, d
 
-    "argmin" (S <= 4): one (B, C_pad) matmul and S argmin passes, the
-    JAX package's ``cn - 2 q.c + qn`` algebra; "stream" (and "argmin" with
-    S > 4): the chunked exact flat scan. Past ``ARGMIN_SEED_CUTOFF``
-    centroid rows the JAX package routes "argmin" through its meta seed,
-    which is not ported."""
-    C_pad = centroids_q.shape[0]
-    if seed_mode == "meta" or (seed_mode == "argmin"
-                               and C_pad > ARGMIN_SEED_CUTOFF):
-        raise NotImplementedError(
-            "the meta-routed query seed (more than "
-            f"{ARGMIN_SEED_CUTOFF} centroids) is not ported yet; use "
-            "seed_mode='stream' or see ROADMAP queue 1, "
-            '"The rest of ClusterIndex"')
-    if seed_mode not in ("argmin", "stream"):
+
+def seed_centroids(q: torch.Tensor, centroids_q: torch.Tensor, *, C: int,
+                   S: int, metric: Metric, seed_mode: str = "argmin",
+                   meta=None, seed_probes: int = 8):
+    """Top-S centroids per query -> (dists (B, S) f32 ascending, in the
+    walk's domain: true squared L2 or -dot; ids (B, S) int32).
+
+    "argmin" with S <= 4 and at most ``ARGMIN_SEED_CUTOFF`` centroid rows:
+    one (B, C_pad) matmul and S argmin passes, the JAX package's ``cn - 2
+    q.c + qn`` algebra. Otherwise, "argmin" or "meta" with a seed quantizer
+    ``meta`` = (mcents, blocks, idtab): :func:`meta_topk` over
+    ``min(seed_probes, Cm)`` cells. Otherwise ("stream", or no quantizer):
+    the chunked exact flat scan."""
+    if seed_mode not in ("argmin", "stream", "meta"):
         raise ValueError(f"unknown seed_mode {seed_mode!r}")
-    if seed_mode == "stream" or S > 4:
-        sid, sd = flat_search_batch(q, centroids_q, k=S, metric=metric,
-                                    n_valid=C, chunk=min(C_pad, 8192),
-                                    select="sort")
+    C_pad = centroids_q.shape[0]
+    if seed_mode == "argmin" and S <= 4 and C_pad <= ARGMIN_SEED_CUTOFF:
+        return _argmin_seed(q, centroids_q, C=C, S=S, metric=metric)
+    if meta is not None and seed_mode != "stream":
+        mcents, blocks, idtab = meta
+        sid, sd = meta_topk(q, mcents, blocks, idtab, k=S,
+                            P=max(1, min(seed_probes, blocks.shape[0])), metric=metric)
         return sd, sid
+    sid, sd = flat_search_batch(q, centroids_q, k=S, metric=metric,
+                                n_valid=C, chunk=min(C_pad, 8192), select="sort")
+    return sd, sid
+
+
+def _argmin_seed(q, centroids_q, *, C: int, S: int, metric: Metric):
+    """The exact top-S seed by one (B, C_pad) matmul and S argmin passes."""
+    C_pad = centroids_q.shape[0]
     cf = centroids_q.float()
     dot = q @ cf.T
     if metric is Metric.MIPS:
@@ -297,17 +330,20 @@ def seed_centroids(q: torch.Tensor, centroids_q: torch.Tensor, *, C: int,
 
 
 def cluster_search_fused(q_full, centroids_q, ext, points_full, slope=None,
-                         offset=None, *, metric: Metric, C: int, m: int,
+                         offset=None, meta_cents=None, meta_blocks=None,
+                         meta_idtab=None, *, metric: Metric, C: int, m: int,
                          Rc: int, n_points: int, k: int = 10, n_probe: int = 8,
                          min_probe: int = 0, cut: float = 0.0, S: int = 2,
                          pool: int = 20, tier_bits: int = 8, rerank: str = "full",
-                         seed_mode: str = "argmin", select_mode: str = "sort"):
+                         seed_mode: str = "argmin", select_mode: str = "sort",
+                         seed_probes: int = 8):
     """Cluster search -> (ids (B, k) int32, -1 where empty; dists (B, k);
     (probes (B,), distance computations (B,))).
 
     The queries are translated into the q8 domain when ``tier_bits`` < 32
-    and ``slope`` is given (the int8 layout), seeded with the exact top-S
-    centroids, and walked (:func:`cluster_walk`). The pool is then sorted
+    and ``slope`` is given (the int8 layout), seeded with the top-S
+    centroids (:func:`seed_centroids`; ``meta_*`` the index's seed
+    quantizer, in the ext's domain), and walked (:func:`cluster_walk`). The pool is then sorted
     by (distance, id) ("sort" and "group" are the same exact selection
     here), and ``rerank="full"`` re-scores its ``pool`` best at full
     precision while ``"tier"`` returns its k best as they are (exact f32
@@ -325,8 +361,9 @@ def cluster_search_fused(q_full, centroids_q, ext, points_full, slope=None,
         q = q.float()
     else:
         q = q_full
+    meta = None if meta_cents is None else (meta_cents, meta_blocks, meta_idtab)
     sd, sid = seed_centroids(q, centroids_q, C=C, S=S, metric=metric,
-                             seed_mode=seed_mode)
+                             seed_mode=seed_mode, meta=meta, seed_probes=seed_probes)
     pd, pi, nv = cluster_walk(q.contiguous(), ext, sd.contiguous(),
                               sid.contiguous(), metric=metric, C=C, m=m, Rc=Rc,
                               n_points=n_points, n_probe=n_probe,

@@ -103,15 +103,28 @@ def merge_split_topk(dists: torch.Tensor, ids: torch.Tensor, k: int):
     return d[:, :k], torch.gather(ids.reshape(B, -1), 1, order[:, :k])
 
 
+def smallest_by_key(d: torch.Tensor, k: int):
+    """The k smallest of each row of ``d`` in (distance, position) order ->
+    (dists (B, k), positions (B, k) int64): the first k of a stable sort,
+    through one ``torch.topk`` over int64 keys that hold the distance's
+    order-preserving bits above the position (a selection, where the sort
+    orders every entry). -0.0 counts as +0.0, as in the float order."""
+    b = (d + 0.0).view(torch.int32).long()
+    key = ((b ^ ((b >> 31) & 0x7FFFFFFF)) << 32) | torch.arange(
+        d.shape[1], device=d.device)
+    pos = torch.topk(key, k, dim=1, largest=False, sorted=True).values & 0xFFFFFFFF
+    return d.gather(1, pos), pos
+
+
 def flat_topk_plain(queries: torch.Tensor, points: torch.Tensor,
                     valid_mask: Optional[torch.Tensor] = None,
                     exclude_ids: Optional[torch.Tensor] = None, *, k: int,
                     metric: Metric, n_valid: int, precision: str = "fast",
                     chunk: int = 32768):
     """The kernel's function in PyTorch: one float32 matmul per chunk of
-    points, then an exact selection. A stable sort by distance orders ties
-    by id, because ids grow along each chunk and every earlier chunk's
-    survivors precede the current one's."""
+    points, then an exact selection (:func:`smallest_by_key`) and a stable
+    merge with the earlier chunks' survivors. Ties go by id: ids grow along each chunk, and every
+    earlier chunk's survivors precede the current one's."""
     _check_args(k, precision)
     qf = queries.float()
     B = qf.shape[0]
@@ -133,8 +146,7 @@ def flat_topk_plain(queries: torch.Tensor, points: torch.Tensor,
         if k == 1:  # argmin keeps the first (lowest-id) minimum
             cd, pos = d.min(dim=1, keepdim=True)
         else:
-            cd, pos = torch.sort(d, dim=1, stable=True)
-            cd, pos = cd[:, :k], pos[:, :k]
+            cd, pos = smallest_by_key(d, min(k, d.shape[1]))
         md = torch.cat([run_d, cd], dim=1)
         mi = torch.cat([run_i, pos + lo], dim=1)
         md, order = torch.sort(md, dim=1, stable=True)

@@ -240,15 +240,23 @@ def test_torch_cluster_save_load_round_trip(built, layout, tmp_path):
 
 
 def test_torch_cluster_unported_paths_raise(built, monkeypatch):
+    """The two calls that raised until the hierarchical build and the meta
+    seed were ported now run: the argmin seed past the cutoff, on an index
+    with no seed quantizer, takes the streamed exact seed (as the JAX
+    package does), and a build past ``EXACT_LIMIT`` builds hierarchically
+    (tests/test_torch_cluster_hier.py holds both to the JAX package)."""
     ci = built["port_view"]["int8"]
     monkeypatch.setattr(clusterbeam, "ARGMIN_SEED_CUTOFF", 8)
-    with pytest.raises(NotImplementedError, match="The rest of ClusterIndex"):
-        ci.search(built["Q"][:4], k=K)
-    ids, _, _ = ci.search(built["Q"][:4], k=K, seed_mode="stream")
+    ids, dists, _ = ci.search(built["Q"][:4], k=K)
+    sids, sdists, _ = ci.search(built["Q"][:4], k=K, seed_mode="stream")
     assert (ids.numpy() >= 0).all()
+    assert torch.equal(ids, sids) and torch.equal(dists, sdists)
     monkeypatch.setattr(tci, "EXACT_LIMIT", 1e3)
-    with pytest.raises(NotImplementedError, match="The rest of ClusterIndex"):
-        tci.ClusterIndex.build(built["tps"], m=M_, Rc=RC)
+    hier = tci.ClusterIndex.build(built["tps"], m=M_, Rc=RC)
+    mem = hier.members[hier.members >= 0]
+    assert hier.C == built["jax"]["int8"].C
+    assert len(mem) == built["tps"].n and len(np.unique(mem)) == built["tps"].n
+    assert ((hier.members >= 0).sum(1) <= M_).all()
 
 
 def test_torch_cluster_api_validation():

@@ -1200,3 +1200,89 @@ def test_torch_cuda_range_search_equals_cpu(gen, cuda):
     assert sg[1] == sc[1] and len(sg[0]) == len(sc[0]) == n
     assert sum(len(r) for r in sc[0]) > 0
     assert all(np.array_equal(a, b) for a, b in zip(sg[0], sc[0]))
+
+
+@pytest.mark.parametrize("dtype,Cm,cap,B", [("f32", 4070, 112, 8192), ("int8", 24415, 24, 10000)])
+def test_torch_cuda_expand_distances_meta_blocks(gen, cuda, dtype, Cm, cap, B):
+    """Kernel 1 on the meta quantizers' cell blocks at the 10M shapes: the
+    build router's f32 blocks (R8 = 112: the f32 mode's last pass of 32
+    rows is partial) and the query seed's int8 blocks (R8 = 24)."""
+    if dtype == "f32":
+        blocks = t(gen.standard_normal((Cm, cap, 128)).astype(np.float32), cuda)
+        q = t(gen.standard_normal((B, 128)).astype(np.float32), cuda)
+    else:
+        blocks = t(gen.integers(-128, 128, (Cm, cap, 128)).astype(np.int8), cuda)
+        q = t(gen.integers(-128, 128, (B, 128)).astype(np.float32), cuda)
+    ids = t(gen.integers(0, Cm, B).astype(np.int32), cuda)
+    for metric in (Metric.L2, Metric.MIPS):
+        got = expand_distances(blocks, ids, q, metric=metric)
+        assert got.shape == (B, cap)
+        assert torch.equal(got, expand_distances_plain(blocks, ids, q, metric=metric))
+
+
+def test_torch_cuda_approx_assign_equals_cpu(cluster_data, cuda):
+    """``approx_assign`` on the card against the CPU with one meta quantizer
+    (built on the CPU: the card's k-means sums with atomics): distances
+    equal where the ids are (kernel 1's f32 order is replayed), and ids
+    equal but where the meta-centroid scan's P-th and (P + 1)-th cells or
+    the k-th candidates tie within rtol 1e-5."""
+    from parlayann_tpu_torch.build import clusterindex as tci
+
+    X, _ = cluster_data
+    xc = torch.from_numpy(X)
+    cents = tci.kmeans(xc, 6000, 300, metric=Metric.L2, iters=2, seed=0)
+    quant = tci._meta_quantizer(cents, 300, Metric.L2, meta_m=24, seed=0)
+    P, k = 3, 8
+    ci, cd = tci.approx_assign(xc, 6000, cents, 300, k, Metric.L2, P=P, quantizer=quant)
+    before = expand_distances.launches_f32
+    gi, gd = tci.approx_assign(xc.to(cuda), 6000, cents.to(cuda), 300, k, Metric.L2, P=P,
+                               quantizer=tuple(a.to(cuda) for a in quant))
+    assert expand_distances.launches_f32 > before
+    same = (gi == ci).all(axis=1)
+    np.testing.assert_array_equal(gd[same], cd[same])
+    mc = quant[0].double().numpy()
+    md = np.sort(((X[~same][:, None, :].astype(np.float64) - mc[None]) ** 2).sum(-1), axis=1)
+    cell_tie = md[:, P] - md[:, P - 1] <= 1e-5 * md[:, P]
+    s = np.sort(cd[~same], axis=1)
+    cand_tie = (np.diff(s, axis=1) <= 1e-5 * np.abs(s[:, 1:])).any(axis=1)
+    assert (cell_tie | cand_tie).all(), np.flatnonzero(~same)
+
+
+def test_torch_cuda_hier_build_and_meta_seed(cluster_data, cuda, monkeypatch):
+    """A hierarchical build on the card (``EXACT_LIMIT`` lowered) with the
+    meta-routed query seed (``ARGMIN_SEED_CUTOFF`` lowered): kernel 1 runs
+    on f32 router blocks and on int8 seed blocks, the partition is whole,
+    and recall@10 at n_probe 8 is at least 0.9."""
+    from parlayann_tpu_torch.build import clusterindex as tci
+    from parlayann_tpu_torch.ops.kernels import clusterbeam as tcb
+
+    X, Q = cluster_data
+    monkeypatch.setattr(tci, "EXACT_LIMIT", 1.0)
+    monkeypatch.setattr(tcb, "ARGMIN_SEED_CUTOFF", 8)
+    f32, i8 = expand_distances.launches_f32, expand_distances.launches
+    ci = build_cluster_index(X, m=32, Rc=16, ext_dtype="int8", device=cuda)
+    assert expand_distances.launches_f32 > f32 and ci.seed_meta is not None
+    assert ci.seed_meta[1].dtype == torch.int8
+    got = ci.members[ci.members >= 0]
+    assert len(got) == 6000 and len(np.unique(got)) == 6000
+    i8 = expand_distances.launches - expand_distances.launches_f32
+    ids, _, _ = ci.search(t(Q, cuda), k=10, n_probe=8, cut=0.0, seed_probes=4)
+    assert expand_distances.launches - expand_distances.launches_f32 > i8
+    gt_i, gt_d = compute_groundtruth(PointSet.from_numpy(X, device="cpu"), Q, 20)
+    assert compute_recall(ids.cpu().numpy(), gt_i, gt_d, 10) >= 0.9
+
+
+def test_torch_cuda_native_balance_matches_numpy(cuda):
+    """The host library's balancer, built by this machine's g++, against the
+    numpy ``balance_assign`` (tests/test_cluster.py:232-253's inputs)."""
+    from parlayann_tpu_torch import native
+    from parlayann_tpu_torch.build import clusterindex as tci
+
+    rng = np.random.default_rng(3)
+    n, C, m, k = 20000, 400, 64, 8
+    ids = rng.integers(0, C, (n, k)).astype(np.int32)
+    ids[rng.random((n, k)) < 0.05] = -1
+    d = rng.random((n, k)).astype(np.float32)
+    order = np.argsort(d[:, 0], kind="stable").astype(np.int64)
+    np.testing.assert_array_equal(native.balance_assign(ids, order, C, m),
+                                  tci.balance_assign(ids, d, C, m))

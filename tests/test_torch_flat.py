@@ -354,3 +354,19 @@ def test_torch_flat_3xtf32_int8_integer_queries_equal(data, metric):
                            n_valid=len(X))
     got = topk_3xtf32(Q, X, K, tm)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("k", [2, 7, 64])
+def test_torch_flat_smallest_by_key_equals_stable_sort(rng, k):
+    """The keyed selection of ``flat_topk_plain`` equals the first k of a
+    stable sort: ties (many equal values, -0.0 beside +0.0), negative
+    distances (MIPS), INF sentinels."""
+    from parlayann_tpu_torch.ops.kernels.flatscan import smallest_by_key
+
+    d = torch.from_numpy(rng.integers(-5, 6, (50, 300)).astype(np.float32)) * 0.5
+    d[:, ::7] = 3.0e38
+    d[:5, :40] = -0.0
+    d[5:10, :40] = 0.0
+    got_d, got_p = smallest_by_key(d, k)
+    want_d, want_p = torch.sort(d, dim=1, stable=True)
+    assert torch.equal(got_p, want_p[:, :k]) and torch.equal(got_d, want_d[:, :k])
