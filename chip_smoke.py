@@ -9,11 +9,11 @@ Phases:
      the CUDA kernels from ``parlayann_tpu_torch/csrc``.
   2. each kernel against its plain PyTorch version on the card, at the main
      path's shapes, with both times (CUDA events, after a warm-up); kernel
-     2 at the builds' six prune shapes, (C, R) = (96, 32), (64, 32),
-     (40, 32), (192, 64), (50, 20) and (80, 40) over B=2048 rows of d=128,
+     2 at the builds' seven prune shapes, (C, R) = (96, 32), (64, 32),
+     (40, 32), (128, 32), (192, 64), (50, 20) and (80, 40) over B=2048 rows of d=128,
      under L2 and MIPS, each on rows of its own metric's distances; then
      the f32 modes of kernels 1 (B=10,000 over a (100000, 32, 128) f32
-     inline array) and 2 (the same six prune shapes on f32 vectors, L2
+     inline array) and 2 (the same seven prune shapes on f32 vectors, L2
      and MIPS, with each shape's share of rechecked tests, and integer-valued rows at
      alpha 1), each equal to its plain version, which sums in the serial
      order (kernel 1's own; kernel 2 rechecks in it); then kernel 1's int16
@@ -164,9 +164,27 @@ Phases:
      holds kernel 1 to its plain version on the router's f32 blocks
      (R8 = 112, B = 8192) and the seed's int8 blocks (R8 = 24, B = 10,000),
      and kernel 5 over the 10M ext at n_probe 8 from the meta seeds.
+  13. the multi-device modes (``parlayann_tpu_torch.parallel``), after
+     phase 12, on phase 6's set (synthetic clustered 1M x 128, 10K
+     queries) with exact ground truth from kernel 4, in a process group of
+     one rank on NCCL (``init_process_group("nccl", init_method="file://...",
+     rank=0, world_size=1, device_id=cuda:0)``; the NCCL version printed):
+     ``build_sharded_vamana`` and ``build_global_vamana`` on the f32 points
+     (R=32, L=64, alpha=1.2, two passes, batch_cap_frac=0.04; kernel 2's
+     f32 mode must launch in each), each searched at beams 10-128 from
+     point 0 as the JAX package searches (recall@10 at beam 128 at least
+     ``RECALL_BAR``), beside a single-card f32 ``build_vamana_index`` of the
+     same data and parameters searched at beam 64 from its entry tier and
+     from point 0; ``build_sharded_cluster`` (m=64, Rc=16, slack 1.5,
+     iters 6, cand 8) searched at n_probe 4/8/16, its recall@10 at n_probe
+     8 within ``PAR_GAP`` of a single-card int8 ``build_cluster_index`` on
+     the same data; each mode's search of ``PAR_CHECK`` queries on the card
+     equal to the same search on the CPU through a gloo sub-group of the
+     same world; each build's fenced seconds, each search's QPS and the
+     peak device memory; the group is destroyed at the end.
   Launch counts are zeroed just before phases 3, 4, 5, 7, 8, 9, 10a, 10b,
-  6, 11a, 11b, 11c and 12 and read just after each; every kernel of the
-  phase's path must have launched.
+  6, 11a, 11b, 11c and 12, and before each build of phase 13, and read
+  just after each; every kernel of the phase's path must have launched.
 
 Kernel times are device times from CUDA events over back-to-back launches
 (the stream sleeps while the host queues them). Each kernel's entry in the
@@ -408,13 +426,14 @@ def _prune_rows(gen, dev, B, C, d, mips=False, f32=False, u8=False):
     return dist.to(dev), vecs.to(torch.float32 if f32 else torch.int8).to(dev)
 
 
-# (C, R) of the Vamana build's prunes, HNSW's forward prune and
-# pyNNDescent's undirect prune
-OCCLUDE_SHAPES = ((96, 32), (64, 32), (40, 32), (192, 64), (50, 20), (80, 40))
+# (C, R) of the Vamana build's prunes, the sharded builds' forward prunes
+# (vmax 96 visited + 32 old edges), HNSW's forward prune and pyNNDescent's
+# undirect prune
+OCCLUDE_SHAPES = ((96, 32), (64, 32), (40, 32), (128, 32), (192, 64), (50, 20), (80, 40))
 
 
 def kernel_occlude(gen, dev, f32=False):
-    """Kernel 2 at the builds' six prune shapes under L2 and MIPS, on int8
+    """Kernel 2 at the builds' seven prune shapes under L2 and MIPS, on int8
     or (``f32``) f32 vectors: rounds equal to the plain version (on f32
     vectors it forms the pair distances in the serial order that the
     kernel rechecks in) -> the kernels entry at (96, 32), L2, with every
@@ -2366,6 +2385,186 @@ def kernel_hier(ci, X, Q, dev):
     return out
 
 
+# phase 13: the multi-device modes at world size 1 on NCCL
+PAR_N = 1_000_000  # phase 6's set
+PAR_PASSES = 2
+PAR_BUILD = dict(R=32, L=64, alpha=1.2, num_passes=PAR_PASSES, batch_cap_frac=0.04)
+PAR_CLUSTER = dict(m=64, Rc=16, slack=1.5, iters=6, cand=8)
+# beams of the replica and global searches; both start every query at
+# point 0, as the JAX package's do, and on this set reach recall@10 0.8940
+# at beam 64 and 0.9704 at 128 (the phase prints the single-card f32
+# build's recall at 64 beside them), so RECALL_BAR is held at beam 128
+PAR_BEAMS = (10, 16, 32, 64, 128)
+PAR_BAR_BEAM = 128
+PAR_PROBES = (4, 8, 16)  # cut 0
+PAR_GAP = 0.03  # cluster-sharded against single-card recall@10 at n_probe 8
+PAR_CHECK = 256  # queries searched on the card and on the CPU
+
+
+def _same_search(card, host, what):
+    """One search's results on the card and on the CPU (numpy ids and
+    distances of the same queries): distances within rtol 1e-5, so ids
+    differ only where two points lie at one distance (a tie)."""
+    (ids, d), (hids, hd) = card, host
+    check(np.array_equal(ids < 0, hids < 0), f"{what}: empty slots differ")
+    ok = hids >= 0
+    check(bool(np.allclose(d[ok], hd[ok], rtol=1e-5, atol=0)),
+          f"{what}: distances differ between the card and the CPU")
+    log(f"{what}: the card's {len(ids)} rows equal the CPU's ({int((ids != hids).sum())} "
+        f"ids differ, all at tied distances)")
+
+
+def _check_ids(ids, n, what):
+    ids = torch.as_tensor(ids)
+    check(ids.shape[1] == K and bool((ids >= 0).all()) and bool((ids < n).all()),
+          f"{what}: malformed ids")
+    check(_no_duplicates(ids), f"{what}: duplicate ids")
+
+
+def parallel_run(dev):
+    """Phase 13: the multi-device modes at world size 1 on NCCL over phase
+    6's 1M set -> {mode: {kernel: launches}}: the replica and global
+    builds (kernel 2's f32 mode) and their searches, the cluster-sharded
+    build and search against a single-card ClusterIndex, and each mode's
+    search of ``PAR_CHECK`` queries on the card held to the same search on
+    the CPU through a gloo sub-group."""
+    import os
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.harness.recall import compute_recall
+    from parlayann_tpu_torch.parallel.cluster_sharded import build_sharded_cluster
+    from parlayann_tpu_torch.parallel.global_build import build_global_vamana, global_search
+    from parlayann_tpu_torch.parallel.mesh import make_mesh, make_mesh_1d
+    from parlayann_tpu_torch.parallel.sharded import build_sharded_vamana, sharded_search
+    from parlayann_tpu_torch.search import exact
+    from parlayann_tpu_torch.types import BuildParams
+    from parlayann_tpu_torch.utils import synthetic
+
+    t0 = time.perf_counter()
+    X, Q = synthetic.clustered(PAR_N, 128, n_queries=10_000, n_clusters=10_000,
+                               cluster_std=0.35, seed=SEED)
+    points = pt.PointSet.from_numpy(X, device=dev)
+    gt_ids, gt_d = exact.compute_groundtruth(points, Q, 2 * K)
+    log(f"data: synthetic clustered {X.shape}, {len(Q)} queries, 10000 clusters; exact "
+        f"top-{2 * K} on the card ({time.perf_counter() - t0:.2f} s)")
+    store = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(store, 'store')}",
+                            rank=0, world_size=1, device_id=dev)
+    out = {}
+    try:
+        v = torch.cuda.nccl.version()
+        log(f"process group: NCCL {'.'.join(map(str, v)) if isinstance(v, tuple) else v}, "
+            f"world size {dist.get_world_size()}: one process on one card, every collective a "
+            f"real NCCL call over a group of one; no cross-card traffic is measured")
+        log("card:", card_line())
+        meshes = {"replica": (make_mesh(device=dev), make_mesh(device="cpu")),
+                  "global": (make_mesh_1d(device=dev), make_mesh_1d(device="cpu"))}
+        log("meshes:", {k: (m.backend, str(m.device), c.backend)
+                        for k, (m, c) in meshes.items()})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bp = BuildParams(**PAR_BUILD)
+        qc = Q[:PAR_CHECK]
+        modes = (("replica", build_sharded_vamana, sharded_search),
+                 ("global", build_global_vamana, global_search))
+        for name, build, search in modes:
+            mesh, cpu = meshes[name]
+            _zero_launches()
+            t0 = time.perf_counter()
+            idx = build(X, mesh, bp)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            out[name] = _launch_counts()
+            degs = idx.degs[:PAR_N].float()
+            log(f"{name} build: {secs:.3f} s fenced (f32 points, R=32 L=64 alpha=1.2, "
+                f"{PAR_PASSES} passes, batch_cap_frac=0.04); degree avg {float(degs.mean()):.3f} "
+                f"max {int(degs.max())}; launches {out[name]}")
+            check(out[name]["occlusion_rounds (f32 rows)"] > 0,
+                  f"kernel 2's f32 mode was not launched by the {name} build")
+            rec = {}
+            for beam in PAR_BEAMS:
+                t0 = time.perf_counter()
+                ids, dists = search(idx, Q, k=K, beam_size=beam)
+                dt = time.perf_counter() - t0
+                _check_ids(ids, PAR_N, f"{name} beam {beam}")
+                check(bool(np.isfinite(dists).all()), f"{name} beam {beam}: distances not finite")
+                rec[beam] = compute_recall(ids, gt_ids, gt_d, K)
+                log(f"{name} search beam={beam}: recall@{K} {rec[beam]:.4f}  QPS {len(Q) / dt:.1f}"
+                    f"  ({dt * 1e3:.3f} ms for {len(Q)} queries, host copies included)")
+            check(rec[PAR_BAR_BEAM] >= RECALL_BAR, f"{name}: recall@{K} at beam "
+                  f"{PAR_BAR_BEAM} is {rec[PAR_BAR_BEAM]:.4f} < {RECALL_BAR}")
+            if name == "replica":  # one shard: the whole graph, seeded by an entry tier
+                graph = pt.GraphIndexData(neighbors=idx.nbrs, degrees=idx.degs, n=PAR_N,
+                                          max_degree=bp.R)
+                ids, _, _ = pt.Index(points=points, graph=graph).batch_search(
+                    Q, k=K, beam_size=64)
+                log(f"the replica graph through the single-card Index (entry top-1 of a "
+                    f"sample, f32 search) at beam 64: recall@{K} "
+                    f"{compute_recall(ids.cpu().numpy(), gt_ids, gt_d, K):.4f}")
+                # the single-card f32 build on the same data and parameters:
+                # what the set allows at beam 64 without the modes' start
+                t0 = time.perf_counter()
+                g1, p1, _ = pt.build_vamana_index(
+                    X, R=bp.R, L=bp.L, alpha=bp.alpha, quantize_build=False, device=dev,
+                    batch_cap_frac=bp.batch_cap_frac)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                one = pt.Index(points=p1, graph=g1)
+                r1 = [compute_recall(one.batch_search(Q, k=K, beam_size=64, starts=s)[0]
+                                     .cpu().numpy(), gt_ids, gt_d, K)
+                      for s in (None, np.zeros(len(Q), np.int32))]
+                log(f"single-card f32 build on the same data: {secs:.3f} s fenced; recall@{K} "
+                    f"at beam 64 {r1[0]:.4f} from its entry tier, {r1[1]:.4f} from point 0")
+                del g1, p1, one
+            _same_search(search(idx, qc, k=K, beam_size=64),
+                         search(idx.to(cpu), qc, k=K, beam_size=64),
+                         f"{name} search at beam 64")
+            del idx
+
+        mesh, cpu = meshes["replica"]
+        _zero_launches()
+        t0 = time.perf_counter()
+        sci = build_sharded_cluster(X, mesh, **PAR_CLUSTER)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"cluster-sharded build: {secs:.3f} s fenced (m=64 Rc=16 slack 1.5, iters 6, "
+            f"cand 8; C={sci.C}, int8 payload {sci.mvecs.numel() / 1e6:.1f} MB)")
+        rec = {}
+        for n_probe in PAR_PROBES:
+            t0 = time.perf_counter()
+            ids, dists, nv = sci.search(Q, k=K, n_probe=n_probe, cut=0.0)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            _check_ids(ids, PAR_N, f"cluster-sharded n_probe {n_probe}")
+            rec[n_probe] = compute_recall(ids.cpu().numpy(), gt_ids, gt_d, K)
+            log(f"cluster-sharded search n_probe={n_probe}: recall@{K} {rec[n_probe]:.4f}  "
+                f"QPS {len(Q) / dt:.1f}  ({dt * 1e3:.3f} ms; probes {float(nv.float().mean()):.2f})")
+        out["cluster"] = _launch_counts()
+        t0 = time.perf_counter()
+        ci = pt.build_cluster_index(X, ext_dtype="int8", device=dev, **PAR_CLUSTER)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ids1, _, _ = ci.search(torch.from_numpy(Q).to(dev), k=K, n_probe=8, cut=0.0)
+        rec1 = compute_recall(ids1.cpu().numpy(), gt_ids, gt_d, K)
+        log(f"single-card ClusterIndex on the same data (int8 ext): build {secs:.3f} s, "
+            f"recall@{K} at n_probe 8 {rec1:.4f}; cluster-sharded {rec[8]:.4f}")
+        check(abs(rec[8] - rec1) <= PAR_GAP, f"cluster-sharded recall@{K} at n_probe 8 "
+              f"{rec[8]:.4f} is not within {PAR_GAP} of the single card's {rec1:.4f}")
+        card = sci.search(qc, k=K, n_probe=8, cut=0.0)
+        host = sci.to(cpu).search(qc, k=K, n_probe=8, cut=0.0)
+        _same_search((card[0].cpu().numpy(), card[1].cpu().numpy()),
+                     (host[0].numpy(), host[1].numpy()), "cluster-sharded search at n_probe 8")
+        del sci, ci
+        log(f"peak device memory in phase 13: "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -2461,6 +2660,8 @@ def main():
     phase("phase 2 (continued): kernel 1 on the 10M build's blocks, kernel 5 over its ext")
     k12 = kernel_hier(ci12, X12, Q12, dev)
     del ci12, X12, Q12
+    phase("phase 13: the multi-device modes at world size 1 on NCCL (replica, global, cluster-sharded)")
+    p13 = parallel_run(dev)
 
     # phase8_launches: each kernel's launches in phase 8 (HNSW); shapes:
     # its times at HNSW's shapes beside the main path's
@@ -2550,6 +2751,12 @@ def main():
     for k in kernels:
         if p12.get(k["name"]):
             k["phase12_launches"] = p12[k["name"]]
+    # phase13_launches: launches in phase 13 (the multi-device modes), by
+    # mode, on each kernel one of them launched
+    for k in kernels:
+        counts = {mode: c[k["name"]] for mode, c in p13.items() if c.get(k["name"])}
+        if counts:
+            k["phase13_launches"] = counts
     phase("done")
     log(card_line())
     print(json.dumps({"kernels": kernels}), flush=True)

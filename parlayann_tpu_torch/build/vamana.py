@@ -118,17 +118,18 @@ def _old_candidates(nbrs, degs, points_data, safe_ids, queries, *, R, metric):
 
 
 def _read_phase(nbrs, degs, points_data, batch_ids, start, inline, *, R, L,
-                vmax, metric, n_valid):
+                vmax, metric, n_valid, expand=READ_EXPAND):
     """Beam search from the start point (or each point from itself, the
     ``(B, 1)`` starts of a single-batch build) with k = 0 (no cut),
-    recording the visited list; candidates = visited ∪ current out-edges
-    (index.h:70-76, :251-262)."""
+    expanding ``expand`` vertices a step and recording the visited list;
+    candidates = visited ∪ current out-edges (index.h:70-76, :251-262).
+    The sharded replica build reads at ``expand=1`` (JAX sharded.py:109)."""
     safe_ids = batch_ids.long().clamp(0, points_data.shape[0] - 1)
     queries = points_data[safe_ids]
     res = beam_search_batch(
         queries, points_data, nbrs, degs, start, batch_ids, inline,
         metric=metric, n_valid=n_valid, k=0, L=L, limit=vmax,
-        expand=READ_EXPAND, record_visited=True, exclude_self=True,
+        expand=expand, record_visited=True, exclude_self=True,
     )
     old_row, old_d = _old_candidates(nbrs, degs, points_data, safe_ids, queries,
                                      R=R, metric=metric)

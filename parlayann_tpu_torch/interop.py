@@ -1,8 +1,9 @@
 """Carry state between the JAX package and the port, as numpy arrays.
 
 The JAX package's ``PointSet`` (every tier), ``GraphIndexData``,
-``Index.entry_ids``, ``JLTier``, ``ClusterIndex``, ``FlatIndex`` and
-``HNSWIndex`` are plain arrays plus metadata; these
+``Index.entry_ids``, ``JLTier``, ``ClusterIndex``, ``FlatIndex``,
+``HNSWIndex``, ``ShardedIndex`` and ``GlobalIndex`` are plain arrays plus
+metadata; these
 functions build the port's objects from those arrays (given as numpy), so
 both packages can search one graph or one cluster index.
 The other direction needs nothing here: the port's tensors convert with
@@ -24,6 +25,9 @@ from parlayann_tpu_torch.ops.quantize import JLTier
 from parlayann_tpu_torch.build.clusterindex import ClusterIndex
 from parlayann_tpu_torch.build.hnsw import HNSWIndex, _make_level
 from parlayann_tpu_torch.search.flat import FlatIndex
+from parlayann_tpu_torch.parallel.global_build import GlobalIndex
+from parlayann_tpu_torch.parallel.mesh import Mesh
+from parlayann_tpu_torch.parallel.sharded import ShardedIndex
 from parlayann_tpu_torch.utils.device import resolve
 
 
@@ -146,3 +150,39 @@ def hnsw_index_from_state(points: PointSet, levels, entrances: np.ndarray,
                 for mem, nb, dg, cap in levels],
         entrances=np.asarray(entrances, dtype=np.int32), m=int(m), efc=int(efc),
         alpha=float(alpha), m_l=float(m_l))
+
+
+def _shard_fields(points, nbrs, degs, mesh: Mesh):
+    """This rank's slices of (D, nl, ...) arrays, on the mesh's device."""
+    s = mesh.index("d")
+
+    def part(a, dtype=None):
+        a = np.asarray(a)
+        if a.shape[0] != mesh.shape["d"]:
+            raise ValueError(f"state has {a.shape[0]} shards, the mesh's d axis "
+                             f"{mesh.shape['d']}")
+        return torch.from_numpy(np.ascontiguousarray(a[s], dtype=dtype)).to(mesh.device)
+
+    pts = part(points)
+    return dict(points=pts, nbrs=part(nbrs, np.int32), degs=part(degs, np.int32),
+                rows_per_shard=int(pts.shape[0]))
+
+
+def sharded_index_from_state(points: np.ndarray, nbrs: np.ndarray, degs: np.ndarray,
+                             n: int, max_degree: int, metric, mesh: Mesh,
+                             start_point: int = 0) -> ShardedIndex:
+    """This rank's ShardedIndex from the JAX ``ShardedIndex``'s (D, nl, ...)
+    ``points``, ``nbrs`` and ``degs`` (local ids), as numpy."""
+    return ShardedIndex(mesh=mesh, n=int(n), max_degree=int(max_degree),
+                        metric=_metric(metric), start_point=int(start_point),
+                        **_shard_fields(points, nbrs, degs, mesh))
+
+
+def global_index_from_state(points: np.ndarray, nbrs: np.ndarray, degs: np.ndarray,
+                            n: int, max_degree: int, metric, mesh: Mesh,
+                            start_point: int = 0) -> GlobalIndex:
+    """This rank's GlobalIndex from the JAX ``GlobalIndex``'s (D, nl, ...)
+    ``points``, ``nbrs`` (global ids) and ``degs``, as numpy."""
+    return GlobalIndex(mesh=mesh, n=int(n), max_degree=int(max_degree),
+                       metric=_metric(metric), start_point=int(start_point),
+                       **_shard_fields(points, nbrs, degs, mesh))

@@ -239,7 +239,7 @@ def test_torch_cluster_save_load_round_trip(built, layout, tmp_path):
             built["X"][:100], device="cpu"))
 
 
-def test_torch_cluster_unported_paths_raise(built, monkeypatch):
+def test_torch_cluster_stream_seed_and_hier_build_run(built, monkeypatch):
     """The two calls that raised until the hierarchical build and the meta
     seed were ported now run: the argmin seed past the cutoff, on an index
     with no seed quantizer, takes the streamed exact seed (as the JAX

@@ -1286,3 +1286,123 @@ def test_torch_cuda_native_balance_matches_numpy(cuda):
     order = np.argsort(d[:, 0], kind="stable").astype(np.int64)
     np.testing.assert_array_equal(native.balance_assign(ids, order, C, m),
                                   tci.balance_assign(ids, d, C, m))
+
+
+_NCCL_MODES = r'''
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+out_dir = sys.argv[1]
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method=f"file://{out_dir}/store", rank=0, world_size=1,
+                        device_id=torch.device("cuda", 0))
+from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
+from parlayann_tpu_torch.parallel.mesh import make_mesh, make_mesh_1d
+from parlayann_tpu_torch.parallel.sharded import build_sharded_vamana, sharded_search
+from parlayann_tpu_torch.parallel.global_build import build_global_vamana, global_search
+from parlayann_tpu_torch.types import BuildParams
+
+rng = np.random.default_rng(5)
+X = rng.standard_normal((3000, 32)).astype(np.float32)
+XI = rng.integers(-40, 41, (3000, 32)).astype(np.int8)
+Q = rng.standard_normal((200, 32)).astype(np.float32)
+bp = BuildParams(R=16, L=32, alpha=1.2, num_passes=2, batch_cap_frac=0.1)
+mesh, mesh1, cpu = make_mesh(), make_mesh_1d(), make_mesh(device="cpu")
+res = {"backends": [mesh.backend, mesh1.backend, cpu.backend]}
+arrays = {}
+for name, build, search, m in (("replica", build_sharded_vamana, sharded_search, mesh),
+                               ("global", build_global_vamana, global_search, mesh1)):
+    occlusion_rounds.launches_f32 = 0
+    idx = build(X, m, bp)
+    res[name + "_f32_launches"] = occlusion_rounds.launches_f32
+    arrays[name + "_ids"] = search(idx, Q, k=10, beam_size=32)[0]
+card, host = build_sharded_vamana(XI, mesh, bp), build_sharded_vamana(XI, cpu, bp)
+for name, idx in (("card", card), ("host", host)):
+    arrays[name + "_nbrs"], arrays[name + "_degs"] = idx.nbrs.cpu().numpy(), idx.degs.cpu().numpy()
+dist.destroy_process_group()
+np.savez(f"{out_dir}/out.npz", X=X, Q=Q, **arrays)
+print(json.dumps(res))
+'''
+
+
+def test_torch_cuda_nccl_world_of_one_modes(cuda, tmp_path):
+    """The replica and global builds at world size 1 on NCCL, in a
+    subprocess so that no process group outlives the test: kernel 2's f32
+    mode launches in both, both searches reach recall@10 0.8 at beam 32
+    (the CPU's builds reach 0.8525 on this standard-normal set),
+    the int8 replica graph built on the card equals the one built on the
+    CPU through a gloo sub-group row for row."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    proc = subprocess.run([sys.executable, "-c", _NCCL_MODES, str(tmp_path)],
+                          cwd=Path(__file__).resolve().parents[1], capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["backends"] == ["nccl", "nccl", "gloo"]
+    assert res["replica_f32_launches"] > 0 and res["global_f32_launches"] > 0, res
+    a = np.load(tmp_path / "out.npz")
+    d = ((a["Q"][:, None, :].astype(np.float64) - a["X"][None]) ** 2).sum(-1)
+    gt = np.argsort(d, axis=1)[:, :20]
+    gt_d = np.take_along_axis(d, gt, 1)
+    for name in ("replica", "global"):
+        assert compute_recall(a[name + "_ids"], gt, gt_d, 10) >= 0.8, name
+    np.testing.assert_array_equal(a["card_degs"], a["host_degs"])
+    for i, deg in enumerate(a["card_degs"].reshape(-1)):
+        np.testing.assert_array_equal(a["card_nbrs"].reshape(-1, 16)[i, :deg],
+                                      a["host_nbrs"].reshape(-1, 16)[i, :deg])
+
+
+def test_torch_cuda_nccl_four_ranks_match_gloo(cuda, tmp_path):
+    """Every multi-device mode on four NCCL ranks, one card each, against
+    the same job on four gloo ranks on the CPU: the int8 replica graphs
+    (over the (4, 1) and the (2, 2) mesh) and the int8 global graph equal
+    row for row, with their searches equal; the f32 replica and global
+    builds meet the builder bar (average degree within 0.5, recall@10 at
+    beam 32 within 0.01) and launch kernel 2's f32 mode on the cards; the
+    cluster-sharded build has the same C and recall@10 at n_probe 8 within
+    0.03; the dryrun's three modes run. Skips on a machine with fewer than
+    four cards."""
+    import torch_ranks
+    from parlayann_tpu_torch.ops.kernels import _lib
+    from parlayann_tpu_torch.utils import synthetic
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs")
+    _lib.build()  # once, before the ranks load it
+    rng = np.random.default_rng(8)
+    n, d = 4000, 32
+    st = dict(bp=dict(R=16, L=32, alpha=1.2, num_passes=2, batch_cap_frac=0.1), n_u=1997,
+              X_f32=rng.standard_normal((n, d)).astype(np.float32),
+              Q_f32=rng.standard_normal((200, d)).astype(np.float32),
+              X_int8=rng.integers(-40, 41, (n, d)).astype(np.int8),
+              Q_int8=rng.integers(-40, 41, (200, d)).astype(np.float32))
+    st["c_X"], st["c_Q"] = synthetic.clustered(4000, 64, n_queries=64, n_clusters=40,
+                                               cluster_std=0.1, seed=6)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        (tmp_path / device).mkdir()
+        runs[device] = torch_ranks.spawn(tmp_path / device, 4, "four_rank_job",
+                                         dict(st, device=device))
+    card, host = runs["cuda"], runs["cpu"]
+    for tag in ("a_int8", "u_int8", "g_int8"):
+        assert torch_ranks.rows_equal(host[tag + "_nbrs"], host[tag + "_degs"],
+                                      card[tag + "_nbrs"], card[tag + "_degs"]).all(), tag
+        torch_ranks.assert_same_search(card[tag + "_ids"], card[tag + "_dists"],
+                                       host[tag + "_ids"], host[tag + "_dists"], tag)
+    gt, gtd = torch_ranks.exact_knn(st["X_f32"], st["Q_f32"], 10)
+    for tag in ("a_f32", "g_f32"):
+        assert card[tag + "_f32_launches"] > 0, tag
+        torch_ranks.builder_bar(host[tag + "_nbrs"], host[tag + "_degs"],
+                                card[tag + "_nbrs"], card[tag + "_degs"], n,
+                                compute_recall(host[tag + "_ids"], gt, gtd, 10),
+                                compute_recall(card[tag + "_ids"], gt, gtd, 10), tag,
+                                names=("gloo", "nccl"))
+    assert card["c_C"] == host["c_C"]
+    gt, gtd = torch_ranks.exact_knn(st["c_X"], st["c_Q"], 10)
+    r_host, r_card = (compute_recall(r["c_ids"], gt, gtd, 10) for r in (host, card))
+    assert abs(r_host - r_card) <= 0.03, (r_host, r_card)
+    for mode in ("global", "sharded", "cluster"):
+        assert card[f"dry_{mode}_ids"].shape == host[f"dry_{mode}_ids"].shape, mode

@@ -35,7 +35,9 @@ def test_torch_port_imports_no_jax():
             "parlayann_tpu_torch.tools.compute_groundtruth, "
             "parlayann_tpu_torch.tools.compute_range_groundtruth, "
             "parlayann_tpu_torch.tools.vec_to_bin, parlayann_tpu_torch.tools.crop, "
-            "parlayann_tpu_torch.tools.random_sample; "
+            "parlayann_tpu_torch.tools.random_sample, parlayann_tpu_torch.parallel.mesh, "
+            "parlayann_tpu_torch.parallel.sharded, parlayann_tpu_torch.parallel.cluster_sharded, "
+            "parlayann_tpu_torch.parallel.global_build, dryrun_multichip_torch; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('parlayann_tpu.') or m == 'parlayann_tpu' "
             "for m in sys.modules)")
