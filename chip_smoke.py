@@ -31,7 +31,22 @@ Phases:
      launches and the build's idle share. Kernel 3 is then checked
      against its plain version on the built graph, all four outputs
      equal, at B = 1024 and 10,000 queries x L = 10 and 64, and timed at
-     each.
+     each; then kernel 3's build mode (``build_beam_fused``) at a steady
+     batch of the build, B = 16,000 of the q8 tier's rows walking from
+     point 0 for vmax = 64 expansions, all four outputs equal to its plain
+     version, timed with its bound.
+  3b. the fused read phase at 100K, on phase 3's set and ground truth: at
+     bench.py's two configurations (R=32 L=64 alpha 1.2 and R=64 L=128
+     alpha 1.15, two passes at 0.16), a lock-step build (phase 3's at
+     R=32) and a ``fused_read=True`` build, each timed (fenced), built
+     again with ``profile=True`` for its beam / bidirect / prune split, and
+     searched on the q8 tier at beams 10/16/32/64; kernel 3's build mode
+     is held to its plain version and timed at R=64 L=128 (vmax 128, the
+     shared-memory walk) as phase 2 does at R=32. Each fused build reaches
+     recall@10 ``RECALL_BAR`` at beam 64 and lies within ``FUSED_GAP`` of
+     the lock-step build's at beams 10 and 64; it launches
+     ``build_beam_fused`` once a steady batch a pass (10), and kernel 1
+     exactly the lock-step read's steady steps fewer (320 at R=32).
   4. the ClusterIndex slice on the same set: ``build_cluster_index`` (m=64,
      Rc=16, slack 1.5) with the f32 and the int8 ext layout, each searched
      by 10K queries at n_probe 3/4/6/8/12/16 with cut=0 and at the adaptive
@@ -59,8 +74,11 @@ Phases:
      (rerank_factor 20), and on the sparse JL 8-bit tier of 1024 dims at
      beam 100. One more search of each tier at its first beam runs under
      torch.profiler, which prints the device's busy time, idle share and
-     top kernels. Kernel 6 is then checked against its plain version on the
-     tiers' inline words (W = 4 and W = 16).
+     top kernels. Then the same q8 build with ``fused_read=True`` (46
+     ``build_beam_fused`` launches), timed, with recall@10 at beams 10 and
+     64 within ``FUSED_GAP`` of phase 6's graph on the q8 tier. Kernel 6 is
+     then checked against its plain version on the tiers' inline words (W
+     = 4 and W = 16).
   8. HNSW at 100K, on phase 3's set and ground truth: build A, the JAX
      package's default and ParlayANN's SIFT-100K configuration
      (``build_hnsw_index(X, m=20, efc=50, alpha=0.9, m_l=0.34)``, f32,
@@ -183,8 +201,9 @@ Phases:
      same world; each build's fenced seconds, each search's QPS and the
      peak device memory; the group is destroyed at the end.
   Launch counts are zeroed just before phases 3, 4, 5, 7, 8, 9, 10a, 10b,
-  6, 11a, 11b, 11c and 12, and before each build of phase 13, and read
-  just after each; every kernel of the phase's path must have launched.
+  6, 11a, 11b, 11c and 12, and before each build of phases 3b, 6 (the
+  fused build) and 13, and read just after each; every kernel of the
+  phase's path must have launched.
 
 Kernel times are device times from CUDA events over back-to-back launches
 (the stream sleeps while the host queues them). Each kernel's entry in the
@@ -800,7 +819,7 @@ def slice_run(X, Q, dev):
           f"recall@{K} at beam 64 is {recall[64]:.4f} < {RECALL_BAR}")
     for name, n in launches.items():
         check(n > 0, f"{name} was not launched by the slice")
-    return idx, launches, (gt_ids, gt_d)
+    return idx, launches, (gt_ids, gt_d), build_s
 
 
 def profiled_build(X, dev):
@@ -893,6 +912,141 @@ def kernel_fusedbeam(idx, Q, dev, shapes=FUSED_SHAPES, plain_at=(1024, 64),
             f"vertices, {n_cmp} distances to {n_rows} rows); visits mean "
             f"{float(nv.float().mean()):.2f} max {int(nv.max())}{step}")
     return out
+
+
+BUILD_FUSED_B = 16_000  # a steady batch of phase 3's build: 0.16 x 100K inserts
+
+
+def kernel_build_fused(idx, dev, B=BUILD_FUSED_B, R=32, L=64, what="phase 3's graph"):
+    """Kernel 3's build mode against its plain version at a steady batch
+    of phase 3's build: B of the q8 tier's rows (a draw of SEED) as
+    queries, each walking ``idx``'s graph (phase 3's by default) from
+    point 0 at k = 0 for vmax = max(L, R + 16) expansions (64 at R = 32,
+    L = 64); all four outputs equal -> times and bound."""
+    from parlayann_tpu_torch.ops.kernels.fusedbeam import (
+        build_beam_fused, build_beam_fused_plain)
+
+    tier, g = idx.qpoints, idx.graph
+    vmax = max(L, R + 16)
+    ids = torch.from_numpy(np.random.default_rng(SEED).permutation(tier.n)[:B]
+                           .astype(np.int64)).to(dev)
+    args = (tier.data[ids].float(), tier.data, g.neighbors, g.degrees,
+            torch.zeros((B, 1), dtype=torch.int32, device=dev))
+    kw = dict(metric=tier.metric, n_valid=tier.n, L=L, vmax=vmax)
+    got = build_beam_fused(*args, **kw)
+    want = build_beam_fused_plain(*args, **kw)
+    for name, a, b in zip(("visited ids", "visited dists", "num_visited", "dist_cmps"),
+                          got, want):
+        check(torch.equal(a, b), f"build_beam_fused B={B} vmax={vmax}: {name} differ")
+    ms = time_ms(lambda: build_beam_fused(*args, **kw), 10)
+    plain_ms = time_ms(lambda: build_beam_fused_plain(*args, **kw), 2)
+    nv, cm = got[2], got[3]
+    n_rows, n_adj = fused_rows(args, tier.n, [got[0].reshape(-1)])
+    # each input byte once: the distinct tier rows scored, the visited
+    # vertices' adjacency rows and degrees, the queries and starts; the
+    # visited rows, nv and cmps written. Each distance is d int8 products
+    # and d additions.
+    d = tier.d
+    b = bound(n_rows * d + n_adj * (R + 1) * 4 + B * d * 4 + B * 4 + B * vmax * 8 + B * 8,
+              2 * int(cm.sum()) * d, INT8_OPS)
+    log(f"kernel 3 build mode build_beam_fused B={B} L={L} vmax={vmax} R={R} on {what}: "
+        f"visited ids, dists, nv, cmps equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms; "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {int(nv.sum())} visits of {n_adj} "
+        f"vertices, {int(cm.sum())} distances to {n_rows} rows); visits mean "
+        f"{float(nv.float().mean()):.2f} max {int(nv.max())}")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+
+# phase 3b: the fused read phase (kernel 3's build mode) beside the lock-step
+# read, at bench.py:434-436's two configurations, two passes at 0.16
+FUSED_CONFIGS = (dict(R=32, L=64, alpha=1.2), dict(R=64, L=128, alpha=1.15))
+FUSED_GAP = 0.01  # |fused - lock-step| recall@10 at beams 10 and 64
+
+
+def steady_batches(n, frac):
+    """Batches a pass of at least max(max_batch, 4096) inserts: the ones
+    that read fused under fused_read=True."""
+    from parlayann_tpu_torch.build.vamana import batch_schedule
+
+    sched, max_batch = batch_schedule(n, n, frac)
+    return sum(hi - lo >= max(max_batch, 4096) for lo, hi in sched)
+
+
+def counted_build(X, dev, **kw):
+    """pt.build_vamana_index with every launch count zeroed just before and
+    read just after -> (graph, points, stats, fenced seconds, launches)."""
+    import parlayann_tpu_torch as pt
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    g, ps, st = pt.build_vamana_index(X, device=dev, **kw)
+    torch.cuda.synchronize()
+    return g, ps, st, time.perf_counter() - t0, _launch_counts()
+
+
+def fused_read_run(X, Q, gt, idx3, secs3, dev):
+    """Phase 3b: at each of FUSED_CONFIGS, a lock-step build (phase 3's for
+    R = 32) and a fused_read=True build, each timed, run again with
+    profile=True for its split, and searched on the q8 tier at BEAMS; past
+    R = 32, kernel 3's build mode is held to its plain version and timed
+    on the lock-step graph at the configuration's (R, L), as phase 2 does
+    at R = 32 -> ({config: {"lock-step" / "fused": launches of the counted
+    build}}, {shape: the build mode's times and bound})."""
+    import parlayann_tpu_torch as pt
+
+    q = torch.from_numpy(Q).to(dev)
+    steady = 2 * steady_batches(len(X), 0.16)
+    out, shapes = {}, {}
+    for cfg in FUSED_CONFIGS:
+        R, L = cfg["R"], cfg["L"]
+        vmax = max(L, R + 16)
+        rows = {}
+        for mode in ("lock-step", "fused"):
+            kw = dict(cfg, batch_cap_frac=0.16, fused_read=mode == "fused")
+            what = f"R={R} L={L} alpha={cfg['alpha']} {mode} build"
+            reuse = mode == "lock-step" and R == 32
+            # the split: the same build with profile=True (fenced phases)
+            pg, _, ps_, secs_p, launches = counted_build(X, dev, profile=True, **kw)
+            if reuse:
+                g, ps, secs = idx3.graph, idx3.points, secs3
+            else:
+                g, ps, st, secs, launches = counted_build(X, dev, **kw)
+            same = (torch.equal(pg.neighbors, g.neighbors)
+                    and torch.equal(pg.degrees, g.degrees))
+            avg, mx = g.stats()
+            log(f"{what}: {secs:.3f} s fenced{' (phase 3)' if reuse else ''}; profiled "
+                f"{secs_p:.3f} s: beam {ps_.beam_time:.3f} s, bidirect "
+                f"{ps_.bidirect_time:.3f} s, prune {ps_.prune_time:.3f} s; degree avg "
+                f"{avg:.3f} max {mx}; visited {ps_.total_visited} cmps {ps_.total_cmps}; "
+                f"the profiled graph {'equals' if same else 'differs from'} the timed one; "
+                f"launches {dict((k, v) for k, v in launches.items() if v)}")
+            qidx = pt.Index(points=ps, graph=g).enable_quantized(bits=8)
+            recall = _search_rows(_index_search(qidx, q), ps.n, gt, BEAMS, f"{what}, q8")
+            rows[mode] = dict(recall=recall, launches=launches)
+            if mode == "lock-step" and R != 32:
+                shapes[f"R{R}_L{L}_vmax{vmax}_B{BUILD_FUSED_B}"] = kernel_build_fused(
+                    qidx, dev, R=R, L=L, what=f"the R={R} L={L} lock-step graph")
+            del qidx
+        lock, fused = rows["lock-step"], rows["fused"]
+        check(fused["recall"][64] >= RECALL_BAR, f"3b R={R}: the fused build's recall@{K} at "
+              f"beam 64 is {fused['recall'][64]:.4f} < {RECALL_BAR}")
+        for beam in (10, 64):
+            gap = fused["recall"][beam] - lock["recall"][beam]
+            check(abs(gap) <= FUSED_GAP, f"3b R={R}: the fused build's recall@{K} at beam "
+                  f"{beam} is {gap:+.4f} off the lock-step build's")
+        n_fused = fused["launches"]["build_beam_fused"]
+        check(n_fused == steady, f"3b R={R}: build_beam_fused launched {n_fused} times, not "
+              f"{steady} (2 passes x {steady // 2} steady batches)")
+        drop = lock["launches"]["expand_distances"] - fused["launches"]["expand_distances"]
+        steps = steady * -(-vmax // 2)
+        check(drop == steps, f"3b R={R}: kernel 1's launches fell by {drop}, not by the "
+              f"lock-step read's {steps} steady steps")
+        log(f"phase 3b R={R}: recall@{K} fused {fused['recall'][10]:.4f} / "
+            f"{fused['recall'][64]:.4f}, lock-step {lock['recall'][10]:.4f} / "
+            f"{lock['recall'][64]:.4f} at beams 10 / 64; build_beam_fused {n_fused} launches; "
+            f"kernel 1 {drop} fewer")
+        out[f"R{R}_L{L}"] = {m: r["launches"] for m, r in rows.items()}
+    return out, shapes
 
 
 def _no_duplicates(ids):
@@ -1587,7 +1741,36 @@ def tier_run(dev):
     for (name, beam), floor in TIER_BARS.items():
         check(recall[(name, beam)] >= floor, f"tier {name} recall@{K} at beam {beam} "
               f"is {recall[(name, beam)]:.4f} < {floor}")
-    return launches, kept
+    del idx
+    fused_launches = fused_1m(X, q, points, graph, (gt_ids, gt_d), dev)
+    return launches, kept, fused_launches
+
+
+def fused_1m(X, q, points, graph, gt, dev):
+    """Phase 6's q8 build once more with fused_read=True, beside phase 6's
+    graph: recall@10 at beams 10 and 64 within FUSED_GAP of it on the q8
+    tier -> the fused build's launches."""
+    import parlayann_tpu_torch as pt
+
+    steady = 2 * steady_batches(TIER_N, 0.04)
+    g, ps, st, secs, launches = counted_build(X, dev, R=32, L=64, alpha=1.2,
+                                              batch_cap_frac=0.04, fused_read=True)
+    avg, mx = g.stats()
+    log(f"fused_read=True build: {secs:.3f} s (q8, R=32 L=64 alpha=1.2, 2 passes, "
+        f"batch_cap_frac=0.04); degree avg {avg:.3f} max {mx}; visited {st.total_visited} "
+        f"cmps {st.total_cmps}; launches {dict((k, v) for k, v in launches.items() if v)}")
+    rec = {}
+    for name, (p, gr) in (("phase 6's graph", (points, graph)), ("fused build", (ps, g))):
+        rec[name] = _search_rows(_index_search(
+            pt.Index(points=p, graph=gr).enable_quantized(bits=8), q), TIER_N, gt, (10, 64),
+            f"1M {name}, q8")
+    check(launches["build_beam_fused"] == steady, f"6: build_beam_fused launched "
+          f"{launches['build_beam_fused']} times, not {steady}")
+    for beam in (10, 64):
+        gap = rec["fused build"][beam] - rec["phase 6's graph"][beam]
+        check(abs(gap) <= FUSED_GAP, f"6: the fused build's recall@{K} at beam {beam} is "
+              f"{gap:+.4f} off phase 6's graph's")
+    return launches
 
 
 def kernel_bits(kept, gen, dev):
@@ -1672,11 +1855,11 @@ def _wrappers():
     from parlayann_tpu_torch.ops.kernels.clusterbeam import cluster_walk
     from parlayann_tpu_torch.ops.kernels.expand import expand_bits_flat, expand_distances
     from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk
-    from parlayann_tpu_torch.ops.kernels.fusedbeam import beam_search_fused
+    from parlayann_tpu_torch.ops.kernels.fusedbeam import beam_search_fused, build_beam_fused
     from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
 
-    return (expand_distances, occlusion_rounds, beam_search_fused, flat_topk,
-            cluster_walk, expand_bits_flat)
+    return (expand_distances, occlusion_rounds, beam_search_fused, build_beam_fused,
+            flat_topk, cluster_walk, expand_bits_flat)
 
 
 def _zero_launches():
@@ -2587,14 +2770,17 @@ def main():
     kb = bitonic_check(gen, dev)
     k4 = kernel_flat(X, Q, gen, dev)
     phase("phase 3: the slice (q8 Vamana build + q8 fused search)")
-    idx, launches, gt = slice_run(X, Q, dev)
+    idx, launches, gt, build_s = slice_run(X, Q, dev)
     phase("phase 3 (continued): the 100K build once more under torch.profiler")
     profiled_build(X, dev)
-    phase("phase 2 (continued): kernel 3 on the built graph")
+    phase("phase 2 (continued): kernel 3 on the built graph, and its build mode")
     k3s = kernel_fusedbeam(idx, Q, dev)
     k3 = dict(max_abs_err=0.0, library_ms=None, **k3s[(1024, 64)],
               shapes={f"B{B}_L{L}": dict(ms=v["ms"], bound_ms=v["bound_ms"])
                       for (B, L), v in k3s.items()})
+    k3b = kernel_build_fused(idx, dev)
+    phase("phase 3b: the fused read phase (fused_read=True) beside the lock-step read at 100K")
+    p3b, k3b["shapes"] = fused_read_run(X, Q, gt, idx, build_s, dev)
     phase("phase 4: the ClusterIndex slice (build + cluster-beam search)")
     indexes, launches["cluster_walk"] = cluster_run(X, Q, gt, dev)
     phase("phase 2 (continued): kernel 5 on the built indexes")
@@ -2644,7 +2830,7 @@ def main():
     for name, n in range_run(dev).items():
         p10[name] += n
     phase("phase 6: the capacity tiers at 1M (q8 build, 1-bit and JL search)")
-    tier_launches, kept = tier_run(dev)
+    tier_launches, kept, p6_fused = tier_run(dev)
     launches["expand_bits_flat"] = tier_launches["expand_bits_flat"]
     phase("phase 2 (continued): kernel 6 on the tiers' inline words")
     k6 = kernel_bits(kept, gen, dev)
@@ -2715,6 +2901,15 @@ def main():
              launches=launches["beam_search_fused"],
              phase8_launches=h["beam_search_fused"],
              phase9_launches=p9["beam_search_fused"], **k3),
+        # kernel 3's build mode: launched by phase 3b's fused_read=True build
+        # at R = 32 (the main path; phase3b_launches: both configurations)
+        # and by phase 6's 1M fused build
+        dict(name="build_beam_fused", route="cuda",
+             source="parlayann_tpu_torch/csrc/fusedbeam.cu",
+             replaces="parlayann_tpu/ops/pallas/fusedbeam.py:952",
+             launches=p3b["R32_L64"]["fused"]["build_beam_fused"],
+             phase3b_launches={c: r["fused"]["build_beam_fused"] for c, r in p3b.items()},
+             phase6_launches=p6_fused["build_beam_fused"], **k3b),
         dict(name="flat_topk", route="cuda",
              source="parlayann_tpu_torch/csrc/flatscan.cu",
              replaces="parlayann_tpu/ops/pallas/flatscan.py:121",

@@ -60,7 +60,8 @@ def build_vamana_index(data, metric="Euclidian", R: int = 64, L: int = 128,
     stats): on the q8 tier, or on the float32 points with
     ``quantize_build=False``. Other keyword arguments go to
     :func:`build.vamana.build_vamana_index` (``device``,
-    ``batch_cap_frac``, ``seed``, ...)."""
+    ``batch_cap_frac``, ``seed``, the build modes ``single_batch``,
+    ``cand_mode``, ``profile`` and ``fused_read``, ...)."""
     from parlayann_tpu_torch.build import vamana
 
     data = _valid_data(data)

@@ -34,10 +34,14 @@ The build modes of the JAX package:
   scan, as JAX's "sort" select;
 - ``profile=True``: the same build with a device fence after each phase,
   filling BuildStats' beam, bidirect and prune seconds (index.h:217-222);
-  ``profile_one_batch`` times the three phases of one steady batch.
-
-Not ported: the fused read phase (``build_beam_fused``, ROADMAP A3), which
-the JAX package leaves off by default.
+  ``profile_one_batch`` times the three phases of one steady batch;
+- ``fused_read=True`` (JAX ``PARLAYANN_BUILD_FUSED=1``, vamana.py:536-577;
+  off by default there and here): steady batches read through
+  ``_fused_read_phase``, one launch of kernel 3's build mode
+  (``build_beam_fused``) a batch, walking each insert for up to vmax
+  single expansions, in place of the lock-step read's kernel 1 launch a
+  step. Ramp batches and the partial last batch keep the lock-step read,
+  as in JAX.
 """
 
 from __future__ import annotations
@@ -54,6 +58,7 @@ from parlayann_tpu_torch.data.graph import GraphIndexData
 from parlayann_tpu_torch.ops import distance, quantize
 from parlayann_tpu_torch.ops.distance import INF
 from parlayann_tpu_torch.ops.kernels.expand import build_inline
+from parlayann_tpu_torch.ops.kernels.fusedbeam import build_beam_fused
 from parlayann_tpu_torch.ops.topk import lexsort
 from parlayann_tpu_torch.search.beam import beam_search_batch
 from parlayann_tpu_torch.search.flat import flat_search_batch
@@ -136,6 +141,30 @@ def _read_phase(nbrs, degs, points_data, batch_ids, start, inline, *, R, L,
     cand_ids = torch.cat([res.visited_ids, old_row], dim=1)
     cand_d = torch.cat([res.visited_dists, old_d], dim=1)
     return cand_ids, cand_d, res.num_visited.sum(), res.dist_cmps.sum()
+
+
+def _fused_read_phase(nbrs, degs, points_data, batch_ids, *, R, L, vmax, metric,
+                      n_valid):
+    """The read phase on kernel 3's build mode (JAX vamana.py:59-93): each
+    insert walks from point 0 at k = 0 for min(vmax, n_valid) single
+    expansions over the int8 tier, its queries the batch's own rows. Self
+    stays in the beam (a re-inserted point is expanded and costs one
+    visit) and only its recorded distance is masked to INF on the way out,
+    unlike the lock-step read's ``exclude_self``. Padded rows (batch id -1)
+    get no valid start and do no work. Candidates = visited ∪ current
+    out-edges; the visit and distance counts are the active rows'."""
+    safe_ids = batch_ids.long().clamp(0, points_data.shape[0] - 1)
+    queries = points_data[safe_ids]
+    active = batch_ids >= 0
+    starts = torch.where(active, 0, -1).to(torch.int32)[:, None]
+    vis_ids, vis_d, nv, cmps = build_beam_fused(
+        queries.float(), points_data, nbrs, degs, starts, metric=metric,
+        n_valid=n_valid, L=L, vmax=vmax)
+    vis_d = torch.where(vis_ids == batch_ids[:, None], INF, vis_d)
+    old_row, old_d = _old_candidates(nbrs, degs, points_data, safe_ids, queries,
+                                     R=R, metric=metric)
+    return (torch.cat([vis_ids, old_row], dim=1), torch.cat([vis_d, old_d], dim=1),
+            torch.where(active, nv, 0).sum(), torch.where(active, cmps, 0).sum())
 
 
 def _exact_phase(nbrs, degs, points_data, batch_ids, inserted, samples, *, R,
@@ -267,18 +296,33 @@ def _pad_pow2(ids: np.ndarray, cap: int, min_size: int = 256) -> np.ndarray:
 
 
 def build_vamana_graph(points: PointSet, bp: BuildParams, verbose: bool = False,
-                       profile: bool = False, cand_mode: str = "beam"
-                       ) -> tuple[GraphIndexData, BuildStats]:
+                       profile: bool = False, cand_mode: str = "beam",
+                       fused_read: bool = False) -> tuple[GraphIndexData, BuildStats]:
     """Build a Vamana graph over ``points`` (on ``points.device``).
 
     ``cand_mode``: "beam" (the reference's insertion search) or "exact"
     (the multi-scale exact candidates); a ``bp.single_batch`` build always
     searches ("beam"). ``profile=True`` fences every phase and fills the
-    beam, bidirect and prune seconds: the same graph, a slower build."""
+    beam, bidirect and prune seconds: the same graph, a slower build.
+    ``fused_read=True`` reads steady batches through kernel 3's build mode
+    (``_fused_read_phase``); it raises ``ValueError`` wherever the JAX
+    package never reads fused: points that are not int8, d < R rounded up
+    to 8, ``cand_mode="exact"`` or ``single_batch``."""
     if cand_mode not in ("beam", "exact"):
         raise ValueError(f'cand_mode must be "beam" or "exact", got {cand_mode!r}')
     n = points.n
     R, L = bp.R, bp.L
+    R8 = (R + 7) // 8 * 8
+    if fused_read:
+        why = [w for w, bad in (
+            ("the build tier is not int8 (quantize_build=False)",
+             points.data.dtype != torch.int8),
+            (f"d = {points.d} < {R8} (R rounded up to 8)", points.d < R8),
+            ('cand_mode="exact"', cand_mode == "exact"),
+            ("single_batch", bool(bp.single_batch))) if bad]
+        if why:
+            raise ValueError("fused_read=True needs an int8 beam build with d >= R8 "
+                             "and no single_batch: " + "; ".join(why))
     dev = points.device
     # visit budget of the insertion search (vamana.py:477)
     vmax = max(L, R + 16)
@@ -302,7 +346,6 @@ def build_vamana_graph(points: PointSet, bp: BuildParams, verbose: bool = False,
         inserted = torch.zeros((points.n_pad,), dtype=torch.bool, device=dev)
         inserted[0] = True
         samples = _scale_samples(n, np.random.default_rng(bp.seed + 7919), points.data)
-    R8 = (R + 7) // 8 * 8
     inline_ok = (cand_mode == "beam" and points.n_pad * R8 * points.d
                  * points.data.element_size() <= INLINE_BUDGET)
 
@@ -316,13 +359,17 @@ def build_vamana_graph(points: PointSet, bp: BuildParams, verbose: bool = False,
         for bi, (lo, hi) in enumerate(sched):
             batch = torch.from_numpy(_pad_pow2(order[lo:hi], max_batch)).to(dev)
             laps(None)
+            steady = (hi - lo) >= max(max_batch, 4096)
             if cand_mode == "exact":
                 cand_ids, cand_d, v, c = _exact_phase(
                     nbrs, degs, points.data, batch, inserted, samples,
                     R=R, L=L, vmax=vmax, metric=points.metric, n_valid=n)
+            elif fused_read and steady:
+                cand_ids, cand_d, v, c = _fused_read_phase(
+                    nbrs, degs, points.data, batch, R=R, L=L, vmax=vmax,
+                    metric=points.metric, n_valid=n)
             else:
-                inline = (build_inline(points.data, nbrs)
-                          if inline_ok and (hi - lo) >= max(max_batch, 4096) else None)
+                inline = build_inline(points.data, nbrs) if inline_ok and steady else None
                 cand_ids, cand_d, v, c = _read_phase(
                     nbrs, degs, points.data, batch,
                     batch.clamp(min=0)[:, None] if bp.single_batch else start, inline,
@@ -410,6 +457,7 @@ def build_vamana_index(
     single_batch: int = 0,
     cand_mode: str = "beam",
     profile: bool = False,
+    fused_read: bool = False,
 ):
     """diskannpy-style wrapper (python/builder.cpp:40-90): MIPS data is
     normalized with a dimension-dependent alpha, and float or uint8 inputs
@@ -417,8 +465,9 @@ def build_vamana_index(
     the float32 points (uint8: an exact float32 copy); search reranks at
     full precision. Returns (graph, full-precision PointSet, BuildStats).
     ``data`` is an array, placed on ``device`` (None: the card), or a
-    PointSet (which keeps its own device). ``single_batch``, ``cand_mode``
-    and ``profile`` are :func:`build_vamana_graph`'s build modes."""
+    PointSet (which keeps its own device). ``single_batch``, ``cand_mode``,
+    ``profile`` and ``fused_read`` are :func:`build_vamana_graph`'s build
+    modes."""
     metric = Metric.coerce(metric)
     ps = data if isinstance(data, PointSet) else PointSet.from_numpy(
         np.asarray(data), metric=metric, normalize=(metric is Metric.MIPS),
@@ -430,5 +479,6 @@ def build_vamana_index(
                      seed=seed, batch_cap_frac=batch_cap_frac,
                      single_batch=single_batch)
     graph, stats = build_vamana_graph(build_ps, bp, verbose=verbose,
-                                      profile=profile, cand_mode=cand_mode)
+                                      profile=profile, cand_mode=cand_mode,
+                                      fused_read=fused_read)
     return graph, ps, stats

@@ -11,6 +11,18 @@
 // id*2+unexpanded), and stop when no unexpanded entry lies within
 // cut * d_k (L2 with 0 < k < L) or after `limit` expansions.
 //
+// It also replaces parlayann_tpu/ops/pallas/fusedbeam.py:952
+// build_beam_fused, the fused read phase of the Vamana build, as a mode of
+// the same walk: given the two visited outputs (Params::vis_ids, vis_dist),
+// the lane that owns each selected entry writes (its id, its beam
+// distance) to slot nv of the query's row as it clears the entry's bit,
+// and the warp pads the row past the walk's nv expansions with (-1, INF).
+// The build calls it at k = 0 (no cut) with limit = min(vmax, n_valid).
+// The JAX function runs exactly vmax steps and lets stopped rows emit
+// (-1, INF): the same rows as stopping at the limit and padding. A search
+// passes null pointers, a uniform branch, so the four register-walk
+// instantiations stay four.
+//
 // What bounds it on the H100: the dependent chain of steps. A query's step
 // reads the expanded vertex's degree and adjacency row, then its
 // neighbours' int8 rows, then sorts and merges a few dozen (distance, id)
@@ -22,7 +34,11 @@
 // card could finish in about 0.005 ms if the chains were not in the way.
 // A step's memory round trips are L2 hits (the 12.8 MB int8 tier of 100K x
 // 128 sits in the 50 MB L2); what a design can shorten is the work between
-// them and how many chains each SM runs.
+// them and how many chains each SM runs. The build mode's walks are the
+// same chains, each exactly min(vmax, converged) steps long (64 at R = 32,
+// L = 64): one launch walks a steady batch of 16,000 (100K) or 40,000
+// (1M) inserts, where the lock-step read launches kernel 1 once for every
+// two of those steps. Its added stores are 8 bytes a visit.
 //
 // Design:
 //  1. One warp walks one query; a CTA holds kWarps independent warps and
@@ -106,11 +122,44 @@ struct Params {
   int slice;  // shared-memory bytes a warp
   float cut;
   int* counter;     // (1,) int32, zero at launch: the next query to take
-  int* out_ids;     // (B, L)
-  float* out_dist;  // (B, L)
+  int* out_ids;     // (B, L), or null: the beam is not written
+  float* out_dist;  // (B, L), or null
   int* out_nv;      // (B,)
   int* out_cmps;    // (B,)
+  // the build mode: each expansion's (id, beam distance) in expansion
+  // order, rows of vstride (-1, INF)-padded; null for a search
+  int* vis_ids;     // (B, vstride)
+  float* vis_dist;  // (B, vstride)
+  int vstride;
 };
+
+// Record expansion nv of query b: its id and its beam distance (the build
+// mode only; called by the one lane that owns the entry).
+__device__ __forceinline__ void record_visit(const Params& p, int b, int nv, int e,
+                                             float dist) {
+  if (p.vis_ids == nullptr) return;
+  const size_t at = static_cast<size_t>(b) * p.vstride + nv;
+  p.vis_ids[at] = e;
+  p.vis_dist[at] = dist;
+}
+
+// Finish query b past its walk: pad its visited row from slot nv with
+// (-1, INF) in the build mode, then write nv and the distance count.
+__device__ __forceinline__ void finish_query(const Params& p, int b, int nv, int cmps,
+                                             int lane) {
+  if (p.vis_ids != nullptr) {
+    int* vi = p.vis_ids + static_cast<size_t>(b) * p.vstride;
+    float* vd = p.vis_dist + static_cast<size_t>(b) * p.vstride;
+    for (int i = nv + lane; i < p.vstride; i += 32) {
+      vi[i] = -1;
+      vd[i] = pa::kInf;
+    }
+  }
+  if (lane == 0) {
+    p.out_nv[b] = nv;
+    p.out_cmps[b] = cmps;
+  }
+}
 
 // The distances from the warp's query to 32 N tier rows: lane l gives
 // ids[c] of row 32 c + l (id < 0: none, INF) and receives its distance in
@@ -218,7 +267,7 @@ __global__ void __launch_bounds__(32 * kWarps) walk_regs(Params p) {
   };
   // the nearest workable lane's id, its bit cleared; -1 if none or the
   // visit budget is spent
-  auto select = [&](int nv) {
+  auto select = [&](int b, int nv) {
     int e = -1;
     if (nv >= p.limit) return e;
     const float thr = p.use_cut ? fminf(p.cut * md[p.k], pa::kInf) : pa::kInf;
@@ -229,7 +278,10 @@ __global__ void __launch_bounds__(32 * kWarps) walk_regs(Params p) {
       if (m != 0 && e < 0) {
         const int src = __ffs(static_cast<int>(m)) - 1;
         e = __shfl_sync(pa::kFullMask, bp[r], src) >> 1;
-        if (lane == src) bp[r] -= 1;
+        if (lane == src) {
+          bp[r] -= 1;
+          record_visit(p, b, nv, e, bd[r]);
+        }
       }
     }
     return e;
@@ -250,7 +302,7 @@ __global__ void __launch_bounds__(32 * kWarps) walk_regs(Params p) {
 
     // ---- the walk ----
     int nv = 0;
-    for (int e = select(0); e >= 0; e = select(nv)) {
+    for (int e = select(b, 0); e >= 0; e = select(b, nv)) {
       const int deg = __ldg(p.degs + e);
       const int* row = p.nbrs + static_cast<size_t>(e) * p.R;
       int cid[CP];
@@ -304,20 +356,19 @@ __global__ void __launch_bounds__(32 * kWarps) walk_regs(Params p) {
       publish();
     }
 
-    int* oi = p.out_ids + static_cast<size_t>(b) * p.L;
-    float* od = p.out_dist + static_cast<size_t>(b) * p.L;
+    if (p.out_ids != nullptr) {
+      int* oi = p.out_ids + static_cast<size_t>(b) * p.L;
+      float* od = p.out_dist + static_cast<size_t>(b) * p.L;
 #pragma unroll
-    for (int r = 0; r < P; ++r) {
-      const int i = 32 * r + lane;
-      if (i < p.L) {
-        oi[i] = bd[r] < pa::kInf ? bp[r] >> 1 : -1;
-        od[i] = bd[r];
+      for (int r = 0; r < P; ++r) {
+        const int i = 32 * r + lane;
+        if (i < p.L) {
+          oi[i] = bd[r] < pa::kInf ? bp[r] >> 1 : -1;
+          od[i] = bd[r];
+        }
       }
     }
-    if (lane == 0) {
-      p.out_nv[b] = nv;
-      p.out_cmps[b] = cmps;
-    }
+    finish_query(p, b, nv, cmps, lane);
   }
 }
 
@@ -335,7 +386,7 @@ __global__ void __launch_bounds__(32) walk_smem(Params p) {
   const int sent = 2 * p.n_valid + 1;
   const int W = p.W;
 
-  auto select = [&](int nv) {
+  auto select = [&](int b, int nv) {
     if (nv >= p.limit) return -1;
     const float thr = p.use_cut ? fminf(p.cut * sd[p.k], pa::kInf) : pa::kInf;
     for (int base = 0; base < p.L; base += 32) {
@@ -346,7 +397,10 @@ __global__ void __launch_bounds__(32) walk_smem(Params p) {
         const int first = base + __ffs(static_cast<int>(m)) - 1;
         const int e = sp[first] >> 1;
         __syncwarp();
-        if (lane == 0) sp[first] -= 1;
+        if (lane == 0) {
+          sp[first] -= 1;
+          record_visit(p, b, nv, e, sd[first]);
+        }
         __syncwarp();
         return e;
       }
@@ -363,7 +417,7 @@ __global__ void __launch_bounds__(32) walk_smem(Params p) {
 
     // ---- the walk ----
     int nv = 0;
-    for (int e = select(0); e >= 0; e = select(nv)) {
+    for (int e = select(b, 0); e >= 0; e = select(b, nv)) {
       const int deg = __ldg(p.degs + e);
       const int* row = p.nbrs + static_cast<size_t>(e) * p.R;
       const float worst = sd[p.L - 1];
@@ -417,16 +471,15 @@ __global__ void __launch_bounds__(32) walk_smem(Params p) {
       __syncwarp();
     }
 
-    int* oi = p.out_ids + static_cast<size_t>(b) * p.L;
-    float* od = p.out_dist + static_cast<size_t>(b) * p.L;
-    for (int i = lane; i < p.L; i += 32) {
-      oi[i] = sd[i] < pa::kInf ? sp[i] >> 1 : -1;
-      od[i] = sd[i];
+    if (p.out_ids != nullptr) {
+      int* oi = p.out_ids + static_cast<size_t>(b) * p.L;
+      float* od = p.out_dist + static_cast<size_t>(b) * p.L;
+      for (int i = lane; i < p.L; i += 32) {
+        oi[i] = sd[i] < pa::kInf ? sp[i] >> 1 : -1;
+        od[i] = sd[i];
+      }
     }
-    if (lane == 0) {
-      p.out_nv[b] = nv;
-      p.out_cmps[b] = cmps;
-    }
+    finish_query(p, b, nv, cmps, lane);
   }
 }
 
@@ -463,7 +516,8 @@ extern "C" int pa_fused_beam(const void* queries, const void* tier, const void* 
                              int B, int d, int R, int S, int n_valid, int k, int L, int Wb,
                              int Rp, float cut, int limit, int use_cut, int mips,
                              void* counter, void* out_ids, void* out_dist, void* out_nv,
-                             void* out_cmps, void* stream) {
+                             void* out_cmps, void* vis_ids, void* vis_dist, int vstride,
+                             void* stream) {
   if (B == 0) return 0;
   Params p;
   p.queries = static_cast<const float*>(queries);
@@ -492,6 +546,9 @@ extern "C" int pa_fused_beam(const void* queries, const void* tier, const void* 
   p.out_dist = static_cast<float*>(out_dist);
   p.out_nv = static_cast<int*>(out_nv);
   p.out_cmps = static_cast<int*>(out_cmps);
+  p.vis_ids = static_cast<int*>(vis_ids);
+  p.vis_dist = static_cast<float*>(vis_dist);
+  p.vstride = vstride;
 
   // per warp: the query as f32 and int8 (80 bytes a chunk), then the beam
   // (8 bytes a lane) and, in walk_smem, the candidates

@@ -1,12 +1,16 @@
-"""Kernel 3: the fused beam search, and a test launch of the block-level
-bitonic networks (``csrc/bitonic.cuh``, device code of kernel 5).
+"""Kernel 3: the fused beam search, its build mode, and a test launch of
+the block-level bitonic networks (``csrc/bitonic.cuh``, device code of
+kernel 5).
 
 Counterpart of parlayann_tpu/ops/pallas/fusedbeam.py (``fused_step`` :627
-and its driver ``beam_search_fused`` :700) at E = 1 with loop dedup, and of
-ops/pallas/bitonic.py. The CUDA kernel (``csrc/fusedbeam.cu``) runs each
-query's whole search in one warp, its beam in registers (L <= 64 and R <=
-64) or in the warp's shared memory (up to ``MAX_WB`` lanes), on a
-persistent grid whose warps take queries from a counter. So the TPU's
+as called from ``beam_search_fused`` :700 and ``build_beam_fused`` :952,
+the Vamana build's fused read phase) at E = 1 with loop dedup, and of
+ops/pallas/bitonic.py. ``build_beam_fused`` is the same walk at k = 0
+recording each expansion's (id, beam distance). The CUDA kernel
+(``csrc/fusedbeam.cu``) runs each query's whole search in one warp, its
+beam in registers (L <= 64 and R <= 64) or in the warp's shared memory
+(up to ``MAX_WB`` lanes), on a persistent grid whose warps take queries
+from a counter. So the TPU's
 per-step launches, straggler ladder and inline-ext id byte planes have no
 counterpart: ids come from ``graph.neighbors`` and vectors straight from
 the int8 tier.
@@ -59,10 +63,12 @@ def _select_next(bd, bp, nv, *, k, L, cut, limit, use_cut):
 
 def beam_search_fused_plain(queries, tier_data, nbrs, degs, starts, *,
                             metric: Metric, n_valid: int, k: int, L: int,
-                            cut: float = 1.35, limit: int = 2**30, expanded=None):
+                            cut: float = 1.35, limit: int = 2**30, expanded=None,
+                            expanded_dists=None):
     """The kernel's function in PyTorch, all queries in lock-step. A list
     given as ``expanded`` receives each step's expanded ids (B,), -1 for a
-    query that has stopped."""
+    query that has stopped; one given as ``expanded_dists`` their beam
+    distances (B,), INF for a stopped query."""
     B = queries.shape[0]
     dev = queries.device
     R = nbrs.shape[1]
@@ -101,6 +107,9 @@ def beam_search_fused_plain(queries, tier_data, nbrs, degs, starts, *,
     while bool((e >= 0).any()):
         if expanded is not None:
             expanded.append(e)
+        if expanded_dists is not None:
+            # the expanded vertex's beam copy, read before the step merges
+            expanded_dists.append(torch.where((bp >> 1) == e[:, None], bd, INF).amin(dim=1))
         active = e >= 0
         ec = e.clamp(min=0).long()
         cid = torch.where(slot < degs[ec][:, None], nbrs[ec], -1)
@@ -124,27 +133,37 @@ def beam_search_fused_plain(queries, tier_data, nbrs, degs, starts, *,
     return ids, bd[:, :L], nv, cmps
 
 
-def beam_search_fused(queries, tier_data, nbrs, degs, starts, *,
-                      metric: Metric, n_valid: int, k: int, L: int,
-                      cut: float = 1.35, limit: int = 2**30):
-    """Beam search of B queries to convergence -> (ids (B, L) int32 with -1
-    in empty slots, dists (B, L) f32 INF-padded, num_visited (B,),
-    dist_cmps (B,)).
+def build_beam_fused_plain(queries, tier_data, nbrs, degs, starts, *,
+                           metric: Metric, n_valid: int, L: int, vmax: int):
+    """:func:`build_beam_fused`'s function in PyTorch: the plain walk at
+    k = 0 with a budget of ``vmax``, its expansions stacked."""
+    B, dev = queries.shape[0], queries.device
+    exp_ids, exp_d = [], []
+    _, _, nv, cmps = beam_search_fused_plain(
+        queries, tier_data, nbrs, degs, starts, metric=metric, n_valid=n_valid,
+        k=0, L=L, limit=vmax, expanded=exp_ids, expanded_dists=exp_d)
+    vis_ids = torch.full((B, vmax), -1, dtype=torch.int32, device=dev)
+    vis_d = torch.full((B, vmax), INF, dtype=torch.float32, device=dev)
+    if exp_ids:
+        ids = torch.stack(exp_ids, dim=1).to(torch.int32)
+        vis_ids[:, :ids.shape[1]] = ids
+        vis_d[:, :ids.shape[1]] = torch.where(ids >= 0, torch.stack(exp_d, dim=1), INF)
+    return vis_ids, vis_d, nv, cmps
 
-    ``queries`` (B, d) f32 are in the tier's domain; ``tier_data``
-    (n_pad, d) is the int8 tier; ``nbrs``/``degs`` the graph; ``starts``
-    (S,) or (B, S) start vertices. CPU tensors run
-    :func:`beam_search_fused_plain`; CUDA tensors launch the kernel."""
-    if not _lib.route(queries, tier_data, nbrs, degs, starts):
-        return beam_search_fused_plain(
-            queries, tier_data, nbrs, degs, starts, metric=metric,
-            n_valid=n_valid, k=k, L=L, cut=cut, limit=limit)
+
+def _launch(queries, tier_data, nbrs, degs, starts, *, metric, n_valid, k, L, cut,
+            limit, vmax=None):
+    """Check the inputs and launch kernel 3 -> ((ids, dists, nv, cmps), the
+    launch's return code, None if there were no queries to launch for);
+    given ``vmax``, its build mode, whose ids and dists are the visited
+    rows (the beam is left unwritten)."""
     _lib.require(queries, "queries", torch.float32, 2)
     _lib.require(tier_data, "tier_data", torch.int8, 2)
     _lib.require(nbrs, "nbrs", torch.int32, 2)
     _lib.require(degs, "degs", torch.int32, 1)
     B, d = queries.shape
     n_pad, R = nbrs.shape
+    dev = queries.device
     if tier_data.shape != (n_pad, d) or degs.shape[0] != n_pad:
         raise ValueError(
             f"shape mismatch: queries {tuple(queries.shape)}, tier "
@@ -164,30 +183,87 @@ def beam_search_fused(queries, tier_data, nbrs, degs, starts, *,
         stride = S = starts.shape[1]
     if S > Wb:
         raise ValueError(f"{S} start vertices exceed the beam's {Wb} lanes")
-    ids = torch.empty((B, L), dtype=torch.int32, device=queries.device)
-    dists = torch.empty((B, L), dtype=torch.float32, device=queries.device)
-    nv = torch.empty(B, dtype=torch.int32, device=queries.device)
-    cmps = torch.empty(B, dtype=torch.int32, device=queries.device)
+    limit = min(limit, n_valid)
+    nv = torch.empty(B, dtype=torch.int32, device=dev)
+    cmps = torch.empty(B, dtype=torch.int32, device=dev)
+    if vmax is None:
+        ids = torch.empty((B, L), dtype=torch.int32, device=dev)
+        dists = torch.empty((B, L), dtype=torch.float32, device=dev)
+        beam, vis, vstride = (ids, dists), (None, None), 0
+    else:
+        limit = min(limit, vmax)
+        ids = torch.empty((B, vmax), dtype=torch.int32, device=dev)
+        dists = torch.empty((B, vmax), dtype=torch.float32, device=dev)
+        beam, vis, vstride = (None, None), (ids, dists), vmax
     if B == 0:
-        return ids, dists, nv, cmps
+        return (ids, dists, nv, cmps), None
     fn = _lib.function(
         "pa_fused_beam",
         [_lib.VP] * 5 + [_lib.INT] * 10 + [_lib.FLOAT] + [_lib.INT] * 3
-        + [_lib.VP] * 6)
+        + [_lib.VP] * 7 + [_lib.INT, _lib.VP])
     use_cut = k > 0 and metric.is_metric and k < L
     # the persistent grid's query queue: the next query to take
-    counter = torch.zeros(1, dtype=torch.int32, device=queries.device)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    ptr = [None if x is None else x.data_ptr() for x in (*beam, *vis)]
     rc = fn(queries.data_ptr(), tier_data.data_ptr(), nbrs.data_ptr(),
             degs.data_ptr(), starts.data_ptr(), stride, B, d, R, S, n_valid,
-            k, L, Wb, pow2(R), cut, min(limit, n_valid), int(use_cut),
-            int(metric is Metric.MIPS), counter.data_ptr(), ids.data_ptr(),
-            dists.data_ptr(), nv.data_ptr(), cmps.data_ptr(), _lib.stream())
-    beam_search_fused.launches += 1
-    _lib.check(rc, "beam_search_fused")
-    return ids, dists, nv, cmps
+            k, L, Wb, pow2(R), cut, limit, int(use_cut),
+            int(metric is Metric.MIPS), counter.data_ptr(), ptr[0], ptr[1],
+            nv.data_ptr(), cmps.data_ptr(), ptr[2], ptr[3], vstride, _lib.stream())
+    return (ids, dists, nv, cmps), rc
+
+
+def beam_search_fused(queries, tier_data, nbrs, degs, starts, *,
+                      metric: Metric, n_valid: int, k: int, L: int,
+                      cut: float = 1.35, limit: int = 2**30):
+    """Beam search of B queries to convergence -> (ids (B, L) int32 with -1
+    in empty slots, dists (B, L) f32 INF-padded, num_visited (B,),
+    dist_cmps (B,)).
+
+    ``queries`` (B, d) f32 are in the tier's domain; ``tier_data``
+    (n_pad, d) is the int8 tier; ``nbrs``/``degs`` the graph; ``starts``
+    (S,) or (B, S) start vertices. CPU tensors run
+    :func:`beam_search_fused_plain`; CUDA tensors launch the kernel."""
+    if not _lib.route(queries, tier_data, nbrs, degs, starts):
+        return beam_search_fused_plain(
+            queries, tier_data, nbrs, degs, starts, metric=metric,
+            n_valid=n_valid, k=k, L=L, cut=cut, limit=limit)
+    out, rc = _launch(queries, tier_data, nbrs, degs, starts, metric=metric,
+                      n_valid=n_valid, k=k, L=L, cut=cut, limit=limit)
+    if rc is not None:
+        beam_search_fused.launches += 1
+        _lib.check(rc, "beam_search_fused")
+    return out
 
 
 beam_search_fused.launches = 0
+
+
+def build_beam_fused(queries, tier_data, nbrs, degs, starts, *,
+                     metric: Metric, n_valid: int, L: int, vmax: int):
+    """The Vamana build's insertion search (JAX fusedbeam.py:952): the walk
+    at k = 0 (no cut) with a budget of min(vmax, n_valid) expansions ->
+    (visited ids (B, vmax) int32 in expansion order, -1-padded; their beam
+    distances (B, vmax) f32, INF-padded; num_visited (B,); dist_cmps (B,)).
+
+    Inputs as :func:`beam_search_fused`'s. CPU tensors run
+    :func:`build_beam_fused_plain`; CUDA tensors launch kernel 3's build
+    mode, counted in ``build_beam_fused.launches``."""
+    if not _lib.route(queries, tier_data, nbrs, degs, starts):
+        return build_beam_fused_plain(
+            queries, tier_data, nbrs, degs, starts, metric=metric,
+            n_valid=n_valid, L=L, vmax=vmax)
+    if vmax < 1:
+        raise ValueError(f"vmax must be >= 1, got {vmax}")
+    out, rc = _launch(queries, tier_data, nbrs, degs, starts, metric=metric,
+                      n_valid=n_valid, k=0, L=L, cut=0.0, limit=vmax, vmax=vmax)
+    if rc is not None:
+        build_beam_fused.launches += 1
+        _lib.check(rc, "build_beam_fused")
+    return out
+
+
+build_beam_fused.launches = 0
 
 
 def bitonic_sort_rows(keys: torch.Tensor, vals: torch.Tensor):

@@ -32,7 +32,8 @@ from parlayann_tpu_torch.ops.kernels.expand import (
 from parlayann_tpu_torch.ops.kernels.occlude import (
     occlusion_rounds, occlusion_rounds_plain, pairwise_ordered)
 from parlayann_tpu_torch.ops.kernels.fusedbeam import (
-    beam_search_fused, beam_search_fused_plain, bitonic_sort_rows)
+    beam_search_fused, beam_search_fused_plain, bitonic_sort_rows, build_beam_fused,
+    build_beam_fused_plain)
 from parlayann_tpu_torch.ops.kernels.flatscan import (
     MAX_K, flat_topk, flat_topk_plain, splits)
 from parlayann_tpu_torch.ops.kernels.clusterbeam import (
@@ -549,6 +550,75 @@ def test_torch_cuda_beam_search_fused_degree90_random_starts(gen, cuda, L):
         _, _, nv, _ = _check_walk((q, tier, nbrs, degs, starts), metric=metric,
                                   n_valid=2000, k=10, L=L)
         assert int(nv.max()) > 1
+
+
+def _check_build_walk(args, **kw):
+    """All four outputs of kernel 3's build mode (visited ids and
+    distances, nv, cmps) equal its plain version's; one launch a call with
+    queries, counted apart from the search's."""
+    before, search = build_beam_fused.launches, beam_search_fused.launches
+    got = build_beam_fused(*args, **kw)
+    assert build_beam_fused.launches == before + (args[0].shape[0] > 0)
+    assert beam_search_fused.launches == search
+    want = build_beam_fused_plain(*args, **kw)
+    for name, g, w in zip(("visited_ids", "visited_dists", "num_visited", "dist_cmps"),
+                          got, want):
+        assert torch.equal(g, w), name
+    return got
+
+
+@pytest.mark.parametrize("R,L,vmax", [(32, 64, 64), (64, 128, 128), (90, 64, 106)])
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.MIPS])
+def test_torch_cuda_build_beam_fused_equal(gen, cuda, metric, R, L, vmax):
+    """The build mode at the builds' (R, L, vmax): phase 3's (register
+    walk), bench.py's R = 64, L = 128 (the shared-memory walk) and degree
+    90 (vmax = R + 16, which the walk does not reach); a build's starts (point 0, -1 on the last 40 rows, padded rows
+    that do no work); half the queries are the tier's own rows, as a
+    build's inserts are."""
+    q, tier, nbrs, degs, _ = _walk_case(gen, cuda, R=R, B=256)
+    q[:128] = tier[:128].float()
+    starts = torch.zeros((256, 1), dtype=torch.int32, device=cuda)
+    starts[-40:] = -1
+    ids, dists, nv, _ = _check_build_walk((q, tier, nbrs, degs, starts), metric=metric,
+                                          n_valid=2000, L=L, vmax=vmax)
+    assert ids.shape == dists.shape == (256, vmax)
+    assert bool((nv[-40:] == 0).all()) and bool((ids[-40:] == -1).all())
+    if vmax == L:
+        assert int(nv.max()) == vmax  # the budget binds
+    else:  # degree 90 at L = 64 converges first: rows padded from nv
+        assert int(nv[:-40].min()) > 0 and int(nv.max()) < vmax
+
+
+@pytest.mark.parametrize("B", [0, 1, 500])
+def test_torch_cuda_build_beam_fused_small_n(gen, cuda, B):
+    """n_valid = 40 < vmax = 64: the limit min(vmax, n_valid) binds and the
+    rows pad from there; 1-D shared starts."""
+    q, tier, nbrs, degs, _ = _walk_case(gen, cuda, n=40, R=16, B=max(B, 1))
+    q = q[:B]
+    starts = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    for metric in (Metric.L2, Metric.MIPS):
+        ids, _, nv, _ = _check_build_walk((q, tier, nbrs, degs, starts), metric=metric,
+                                          n_valid=40, L=64, vmax=64)
+        assert ids.shape == (B, 64)
+        if B:
+            assert int(nv.max()) <= 40 and bool((ids[:, 40:] == -1).all())
+
+
+def test_torch_cuda_vamana_fused_read_equals_cpu(cuda):
+    """A fused_read=True q8 build on the card (kernel 3's build mode in its
+    steady batch of 4,096) equals the same build on the CPU (the plain
+    walk) row for row: every distance is an exact integer."""
+    from parlayann_tpu_torch.utils import synthetic
+
+    X = synthetic.clustered(8192, 32, n_queries=1, n_clusters=64, seed=11)[0]
+    kw = dict(R=16, L=32, alpha=1.2, batch_cap_frac=0.5, fused_read=True)
+    before = build_beam_fused.launches
+    g, _, st = build_vamana_index(X, device=cuda, **kw)
+    assert build_beam_fused.launches == before + 2  # one steady batch a pass
+    h, _, sh = build_vamana_index(X, device="cpu", **kw)
+    assert torch.equal(g.degrees.cpu(), h.degrees)
+    assert torch.equal(g.neighbors.cpu(), h.neighbors)
+    assert (st.total_visited, st.total_cmps) == (sh.total_visited, sh.total_cmps)
 
 
 @pytest.mark.parametrize("W", [2, 256, 2048])
