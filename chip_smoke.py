@@ -171,17 +171,26 @@ Phases:
      chosen centre plus 0.35 N(0, 1)), the exact top-20 on kernel 4 as
      ground truth: ``build_cluster_index(X, m=64, Rc=16, slack=2.0,
      cand=8, ext_dtype="int8", verbose=True)`` (C = 312,500: the
-     meta-routed rounds on kernel 1's f32 mode, the teleports, the
-     respill, the polish, the routed adjacency and the seed quantizer; the
-     build prints its split), its (Cm, cap) cells, ext size and peak device
-     memory, kernel 1's launches by mode; then 10K queries at
-     ``seed_probes=16``, n_probe 8, 16 and 32 at cut 0 and the adaptive
-     row (32, 4, 1.35), each through the meta seed (kernel 1 on int8
-     blocks), and n_probe 8 with ``seed_mode="stream"``; recall@10 at
-     n_probe 8 through the meta seed at least ``HIER_BAR``. Phase 2 then
-     holds kernel 1 to its plain version on the router's f32 blocks
-     (R8 = 112, B = 8192) and the seed's int8 blocks (R8 = 24, B = 10,000),
-     and kernel 5 over the 10M ext at n_probe 8 from the meta seeds.
+     meta-routed rounds on kernel 1's multi-probe mode over f32 blocks, one
+     launch a chunk of 16,384 points, the teleports, the respill, the
+     polish, the routed adjacency and the seed quantizer; the build prints
+     its split, summed beside ``HIER_SINGLE_MODE``'s), its (Cm, cap) cells,
+     ext size and peak device memory, kernel 1's launches by mode (at least
+     one multi launch a router chunk, no single-mode launch); then 10K
+     queries at ``seed_probes=16``, n_probe 8, 16 and 32 at cut 0 and the
+     adaptive row (32, 4, 1.35), each through the meta seed (kernel 1's
+     multi mode on int8 blocks), and n_probe 8 with
+     ``seed_mode="stream"``; recall@10 at n_probe 8 through the meta seed
+     at least ``HIER_BAR``. Phase 2 then holds kernel 1 to its plain
+     version on the router's f32 blocks (R8 = 112, B = 8192, each query at
+     its nearest cell) and the seed's int8 blocks (R8 = 24, B = 10,000);
+     the multi mode at the router's real shape (the first 16,384 points at
+     their top-16 cells) and the seed's (the 10K q8 queries at their top
+     16), each equal to its plain version and to 16 single launches, timed
+     beside them with its bound and its grouping / scoring split; one
+     router chunk fenced and split into the meta-centroid scan and
+     select, kernel 1, the mask and gather, and ``smallest_k``; and
+     kernel 5 over the 10M ext at n_probe 8 from the meta seeds.
   13. the multi-device modes (``parlayann_tpu_torch.parallel``), after
      phase 12, on phase 6's set (synthetic clustered 1M x 128, 10K
      queries) with exact ground truth from kernel 4, in a process group of
@@ -1853,13 +1862,14 @@ def run_cli(args, what):
 def _wrappers():
     """Every kernel wrapper, each counting its launches."""
     from parlayann_tpu_torch.ops.kernels.clusterbeam import cluster_walk
-    from parlayann_tpu_torch.ops.kernels.expand import expand_bits_flat, expand_distances
+    from parlayann_tpu_torch.ops.kernels.expand import (
+        expand_bits_flat, expand_distances, expand_distances_multi)
     from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk
     from parlayann_tpu_torch.ops.kernels.fusedbeam import beam_search_fused, build_beam_fused
     from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
 
-    return (expand_distances, occlusion_rounds, beam_search_fused, build_beam_fused,
-            flat_topk, cluster_walk, expand_bits_flat)
+    return (expand_distances, expand_distances_multi, occlusion_rounds, beam_search_fused,
+            build_beam_fused, flat_topk, cluster_walk, expand_bits_flat)
 
 
 def _zero_launches():
@@ -1873,8 +1883,8 @@ def _zero_launches():
 
 def _launch_counts():
     """{kernel entry of the JSON line: launches since _zero_launches}; the
-    f32 modes of kernels 1 and 2 and kernel 1's int16 mode have entries of
-    their own."""
+    f32 modes of kernels 1 (single and multi-probe) and 2 and kernel 1's
+    int16 mode have entries of their own."""
     torch.cuda.synchronize()
     out = {}
     for w in _wrappers():
@@ -2397,6 +2407,27 @@ HIER_PROBES = (8, 16, 32)  # cut 0
 HIER_ADAPTIVE = (32, 4, 1.35)  # n_probe, min_probe, cut
 HIER_SEED_PROBES = 16  # the JAX run's SEED_PROBES
 HIER_BAR = 0.90  # recall@10 at n_probe 8, meta seed (the JAX package: 0.9617)
+# the same build with kernel 1's single mode in the router (16 launches a
+# chunk), on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5): seconds
+# of the whole build, of its three router rounds, of the final assign
+# (polish included), of the routed adjacency and of the finish
+HIER_SINGLE_MODE = dict(build=128.44, rounds=56.5, final=55.4, adjacency=3.65, finish=12.28)
+
+
+def _build_split(text):
+    """The hierarchical build's verbose lines -> {part: seconds}: its router
+    rounds (summed), final assign, respill, polish, the whole final phase,
+    adjacency and finish."""
+    import re
+
+    def first(pattern):
+        m = re.search(pattern, text)
+        return float(m.group(1)) if m else float("nan")
+
+    return dict(rounds=sum(float(x) for x in re.findall(r"hier round \d+/\d+: ([\d.]+)s", text)),
+                assign=first(r"final assign: ([\d.]+)s"), respill=first(r"respill: ([\d.]+)s"),
+                polish=first(r"polish: ([\d.]+)s"), final=first(r"hier final: ([\d.]+)s"),
+                adjacency=first(r"adjacency ([\d.]+) s"), finish=first(r"finish ([\d.]+) s"))
 
 
 def hier_data(dev):
@@ -2444,13 +2475,18 @@ def hier_run(dev):
                                select="pallas")
     gt = (gi.cpu().numpy(), gd.cpu().numpy())
     log(f"ground truth: exact top-{2 * K} on kernel 4, {time.perf_counter() - t0:.3f} s")
+    import contextlib
+
     torch.cuda.reset_peak_memory_stats()
+    tee = _Tee(sys.stdout)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ci = pt.build_cluster_index(points, verbose=True, **HIER_BUILD)
+    with contextlib.redirect_stdout(tee):
+        ci = pt.build_cluster_index(points, verbose=True, **HIER_BUILD)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     build = _launch_counts()
+    split = _build_split("".join(tee.parts))
     Cm, cap = tci._meta_sizes(ci.C, tci.META_M)
     check(ci.seed_meta is not None and ci.seed_meta[1].dtype == torch.int8,
           "phase 12: the index has no int8 seed quantizer")
@@ -2459,10 +2495,25 @@ def hier_run(dev):
         f"{tuple(ci.seed_meta[1].shape[:2])}; ext {tuple(ci.ext.shape)} "
         f"{ci.ext.numel() / 2**30:.3f} GiB; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log("kernel 1 launches in the build:",
-        {"int8 rows": build["expand_distances"], "f32 rows": build["expand_distances (f32 rows)"]})
-    check(build["expand_distances (f32 rows)"] > 0,
-          "expand_distances (f32 rows) was not launched by the hierarchical build")
+    log(f"hierarchical build split: rounds {split['rounds']:.1f} s, final {split['final']:.1f} s "
+        f"(assign {split['assign']:.1f}, respill {split['respill']:.1f}, polish "
+        f"{split['polish']:.1f}), adjacency {split['adjacency']:.2f} s, finish "
+        f"{split['finish']:.2f} s; with kernel 1's single mode (16 launches a router "
+        f"chunk): {HIER_SINGLE_MODE['build']} s = rounds {HIER_SINGLE_MODE['rounds']} + "
+        f"final {HIER_SINGLE_MODE['final']} + adjacency {HIER_SINGLE_MODE['adjacency']} + "
+        f"finish {HIER_SINGLE_MODE['finish']}")
+    modes = {"single int8": build["expand_distances"],
+             "single f32": build["expand_distances (f32 rows)"],
+             "multi int8": build["expand_distances_multi"],
+             "multi f32": build["expand_distances_multi (f32 rows)"]}
+    log("kernel 1 launches in the build by mode:", modes)
+    # the three router rounds and the final assign: one multi launch a chunk
+    chunks = -(-HIER_N // tci._kmeans_chunk_for(Cm))
+    check(modes["multi f32"] >= (tci.HIER_ROUNDS + 1) * chunks,
+          f"the router launched kernel 1's multi mode {modes['multi f32']} times, fewer "
+          f"than one a chunk ({tci.HIER_ROUNDS + 1} x {chunks})")
+    check(modes["single f32"] == 0 and modes["single int8"] == 0,
+          "the hierarchical build launched kernel 1's single mode")
     got = ci.members[ci.members >= 0]
     check(len(got) == HIER_N and len(np.unique(got)) == HIER_N,
           "phase 12: the membership is not a partition of the points")
@@ -2496,23 +2547,130 @@ def hier_run(dev):
     launches = _launch_counts()
     log("launches during phase 12:", {k: v for k, v in launches.items() if v})
     check(launches["cluster_walk"] > 0, "cluster_walk was not launched by phase 12")
-    check(launches["expand_distances"] > build["expand_distances"],
-          "expand_distances (int8 rows) was not launched by the meta-seeded search")
+    check(launches["expand_distances_multi"] > build["expand_distances_multi"],
+          "expand_distances_multi (int8 rows) was not launched by the meta-seeded search")
+    check(launches["expand_distances"] == 0 and launches["expand_distances (f32 rows)"] == 0,
+          "phase 12 launched kernel 1's single mode")
     r8 = recall[(8, 0.0, "argmin")]
     check(r8 >= HIER_BAR, f"phase 12: recall@{K} at n_probe 8 with the meta seed is "
           f"{r8:.4f} < {HIER_BAR}")
-    return ci, X, Q, launches
+    return ci, X, Q, launches, dict(seconds=secs, **split)
+
+
+# the group of kernels a multi-mode call launches besides its scoring kernel
+MULTI_GROUPING = ("multi_count", "multi_partials", "multi_scan", "multi_scatter", "Memset")
+
+
+def kernel_multi(name, blocks, mcents, q, E):
+    """Kernel 1's multi-probe mode at a meta-routed top-k's shape: the B
+    queries ``q`` against the blocks of their top-E meta-cells (the flat
+    scan of ``mcents``, as ``meta_topk`` selects them) -> the JSON entry.
+    The launch must equal its plain version and the E single-mode launches
+    stacked (the earlier design, timed beside it). Bound: the distinct
+    blocks read once, the queries, the ids and the output, against 3 B E R8
+    d operations at the f32 rate. One more launch under torch.profiler
+    splits the grouping kernels from the scoring kernel."""
+    from parlayann_tpu_torch.ops.kernels.expand import (
+        expand_distances, expand_distances_multi, expand_distances_multi_plain)
+    from parlayann_tpu_torch.search.flat import flat_search_batch
+    from parlayann_tpu_torch.types import Metric
+
+    Cm, cap, d = blocks.shape
+    B = q.shape[0]
+    mt_i, _ = flat_search_batch(q, mcents, k=E, metric=Metric.L2, n_valid=Cm,
+                                chunk=min(Cm, 32768), select="sort")
+    ids = mt_i.clamp(0, Cm - 1).to(torch.int32).contiguous()
+    cols = [ids[:, e].contiguous() for e in range(E)]
+    got = expand_distances_multi(blocks, ids, q, metric=Metric.L2)
+    check(torch.equal(got, expand_distances_multi_plain(blocks, ids, q, metric=Metric.L2)),
+          f"expand_distances_multi on the {name} blocks: not equal to its plain version")
+    check(torch.equal(got, torch.stack([expand_distances(blocks, c, q, metric=Metric.L2)
+                                        for c in cols], dim=1)),
+          f"expand_distances_multi on the {name} blocks: not equal to {E} single launches")
+    ms = time_ms(lambda: expand_distances_multi(blocks, ids, q, metric=Metric.L2), 20)
+    single_ms = time_ms(lambda: [expand_distances(blocks, c, q, metric=Metric.L2)
+                                 for c in cols], 10)
+    plain_ms = time_ms(lambda: expand_distances_multi_plain(blocks, ids, q, metric=Metric.L2), 2)
+    n_blk = unique_rows(ids, Cm)
+    b = bound(n_blk * cap * d * blocks.element_size() + B * d * 4 + B * E * 4 + B * E * cap * 4,
+              3 * B * E * cap * d)
+    prof = profile_window(lambda: expand_distances_multi(blocks, ids, q, metric=Metric.L2),
+                          f"kernel 1 multi on the {name} blocks")
+    group_ms = score_ms = None
+    if prof is not None:
+        by = prof["by_name"]
+        group_ms = sum(us for k, us in by.items() if any(g in k for g in MULTI_GROUPING)) / 1e3
+        score_ms = sum(us for k, us in by.items() if "expand_multi_kernel" in k) / 1e3
+    log(f"kernel 1 expand_distances_multi {blocks.dtype} {name} blocks {tuple(blocks.shape)} "
+        f"B={B} x E={E} (top-{E} meta cells): equal to its plain version and to {E} "
+        f"single launches (L2); {ms:.4f} ms vs {E} single launches {single_ms:.4f} ms "
+        f"[the earlier design] vs plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}; {n_blk} distinct blocks); profiled: grouping {group_ms} ms, "
+        f"scoring {score_ms} ms")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                single_launches_ms=single_ms, grouping_ms=group_ms, scoring_ms=score_ms,
+                distinct_blocks=n_blk, **b)
+
+
+def router_chunk(router, X, k):
+    """One chunk of the build's router (``approx_assign``: the first 16,384
+    points, top-``HIER_P`` cells, k candidates), fenced, split into the
+    meta-centroid scan and select, kernel 1's multi launch, the mask and
+    the ``idtab`` gather, and ``smallest_k`` (CUDA events; ``meta_topk``'s
+    steps, checked equal to it) -> {part: ms}."""
+    from parlayann_tpu_torch.build import clusterindex as tci
+    from parlayann_tpu_torch.ops.distance import INF
+    from parlayann_tpu_torch.ops.kernels.clusterbeam import meta_topk
+    from parlayann_tpu_torch.ops.kernels.expand import expand_distances_multi
+    from parlayann_tpu_torch.ops.topk import smallest_k
+    from parlayann_tpu_torch.search.flat import flat_search_batch
+    from parlayann_tpu_torch.types import Metric
+
+    mcents, blocks, idtab = router
+    Cm, cap = blocks.shape[:2]
+    P = tci.HIER_P
+    q = X[:tci._kmeans_chunk_for(Cm)].float().contiguous()
+    B = q.shape[0]
+    for _ in range(2):  # a warm-up, then the measured chunk
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        mt_i, _ = flat_search_batch(q, mcents, k=P, metric=Metric.L2, n_valid=Cm,
+                                    chunk=min(Cm, 32768), select="sort")
+        ev[1].record()
+        mi = mt_i.clamp(0, Cm - 1).to(torch.int32)
+        dp = expand_distances_multi(blocks, mi, q, metric=Metric.L2)
+        ev[2].record()
+        ip = idtab[mi.long()]
+        dp = torch.where((ip >= 0) & (mt_i >= 0)[:, :, None], dp, INF)
+        ev[3].record()
+        d, i = smallest_k(dp.reshape(B, P * cap), ip.reshape(B, P * cap), k)
+        ev[4].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    want_i, want_d = meta_topk(q, mcents, blocks, idtab, k=k, P=P, metric=Metric.L2)
+    check(torch.equal(i, want_i) and torch.equal(d, want_d),
+          "the split router chunk differs from meta_topk")
+    parts = dict(zip(("scan_select", "kernel1", "mask_gather", "smallest_k"),
+                     (ev[j].elapsed_time(ev[j + 1]) for j in range(4))))
+    log(f"router chunk (B={B}, P={P}, k={k}, {Cm} cells of {cap}): {wall:.3f} ms fenced = "
+        + ", ".join(f"{n} {v:.3f} ms" for n, v in parts.items()))
+    return dict(wall_ms=wall, **parts)
 
 
 def kernel_hier(ci, X, Q, dev):
     """Kernel 1 on the hierarchical build's blocks and kernel 5 over the 10M
     ext, each against its plain version -> {"router": f32 entry, "seed":
-    int8 entry, "walk": kernel 5 entry}. The router's blocks are the
-    build's adjacency quantizer rebuilt over the final centroids, queried
-    by the first 8,192 points (one chunk of ``approx_assign``), each at its
-    nearest cell; the seed's blocks are the index's, queried by the q8
-    queries at their nearest cell. Bound: the distinct blocks read once,
-    the queries and the output."""
+    int8 entry, "router_multi", "seed_multi": the multi-probe mode's
+    entries, "chunk": the router chunk's split, "walk": kernel 5 entry}.
+    The router's blocks are the build's adjacency quantizer rebuilt over the
+    final centroids, queried by the first 8,192 points (half a chunk of
+    ``approx_assign``), each at its nearest cell, then in the multi mode by
+    the first 16,384 (one chunk) at their top-``HIER_P`` cells; the seed's
+    blocks are the index's, queried by the q8 queries at their nearest
+    cell, then at their top-``HIER_SEED_PROBES``. Bound: the distinct
+    blocks read once, the queries and the output."""
     from parlayann_tpu_torch.build import clusterindex as tci
     from parlayann_tpu_torch.ops import quantize
     from parlayann_tpu_torch.ops.kernels.clusterbeam import (
@@ -2549,6 +2707,12 @@ def kernel_hier(ci, X, Q, dev):
             f"B={B}: equal (L2); {ms:.4f} ms vs plain {plain_ms:.4f} ms; bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {unique_rows(ids, Cm)} distinct blocks)")
         out[name] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+    out["router_multi"] = kernel_multi("router", router[1], router[0],
+                                       X[:tci._kmeans_chunk_for(router[1].shape[0])].contiguous(),
+                                       tci.HIER_P)
+    out["seed_multi"] = kernel_multi("seed", ci.seed_meta[1], ci.seed_meta[0], q8.contiguous(),
+                                     HIER_SEED_PROBES)
+    out["chunk"] = router_chunk(router, X, HIER_BUILD["cand"])
     sd, sid = seed_centroids(q8, ci.centroids_q, C=ci.C, S=2, metric=Metric.L2,
                              meta=ci.seed_meta, seed_probes=HIER_SEED_PROBES)
     args = (q8.contiguous(), ci.ext, sd.contiguous(), sid.contiguous())
@@ -2842,7 +3006,7 @@ def main():
     phase("phase 11c: MIPS at 1M (q8 build and sweep, 4-bit, 2-bit and trimmed tiers, filter)")
     p11["11c"] = mips11_run(dev)
     phase("phase 12: the hierarchical ClusterIndex at 10M x 128 (router, teleport, polish, meta seed)")
-    ci12, X12, Q12, p12 = hier_run(dev)
+    ci12, X12, Q12, p12, b12 = hier_run(dev)
     phase("phase 2 (continued): kernel 1 on the 10M build's blocks, kernel 5 over its ext")
     k12 = kernel_hier(ci12, X12, Q12, dev)
     del ci12, X12, Q12
@@ -2884,6 +3048,19 @@ def main():
              replaces="parlayann_tpu/ops/pallas/expand.py:129",
              launches=launches["expand_distances (f32 rows)"],
              phase8_launches=h["expand_distances (f32 rows)"], **k1f),
+        # the multi-probe mode, launched by phase 12 only: f32 rows by the
+        # hierarchical build's router (one launch a chunk), int8 rows by
+        # the meta-routed query seed; timed at those shapes (phase 2), with
+        # the router chunk's split and the build's beside the f32 entry
+        dict(name="expand_distances_multi (f32 rows)", route="cuda",
+             source="parlayann_tpu_torch/csrc/expand.cu",
+             replaces="parlayann_tpu/ops/pallas/expand.py:381",
+             launches=p12["expand_distances_multi (f32 rows)"],
+             router_chunk=k12["chunk"], hier_build=b12, **k12["router_multi"]),
+        dict(name="expand_distances_multi", route="cuda",
+             source="parlayann_tpu_torch/csrc/expand.cu",
+             replaces="parlayann_tpu/ops/pallas/expand.py:381",
+             launches=p12["expand_distances_multi"], **k12["seed_multi"]),
         # the int16 mode, launched by phase 11a's 16-bit tier search
         dict(name="expand_distances (int16 rows)", route="cuda",
              source="parlayann_tpu_torch/csrc/expand.cu",

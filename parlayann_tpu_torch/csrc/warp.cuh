@@ -159,9 +159,14 @@ __device__ __forceinline__ Query stage_query(const float* qg, int d, int nch, fl
 // rows an integer-valued query sums in exact int32 with dp4a (L2 as sum v^2
 // - 2 sum v q, then + sum q^2); any other query sums in f32 in the order
 // stated at the top.
-template <typename T>
-__device__ __forceinline__ float score32(const Query& q, const char* base, int row_bytes,
-                                         int nch, int vec, bool mips, int mine, int lane) {
+//
+// score32_by takes the rows from `load(r, k)`, the 16-byte chunk k of row r
+// (zeros past the row): score32 reads them from device memory, kernel 1's
+// multi-probe mode from a block staged in shared memory. The sums are the
+// same either way.
+template <typename T, typename Load>
+__device__ __forceinline__ float score32_by(const Query& q, Load load, int nch, bool mips,
+                                            int mine, int lane) {
   const int s = lane & 7, g = lane & ~7;
   int id[8], ia[8];
   float fa[8];
@@ -176,8 +181,7 @@ __device__ __forceinline__ float score32(const Query& q, const char* base, int r
 #pragma unroll
     for (int v = 0; v < 8; ++v) {
       x[v] = make_int4(0, 0, 0, 0);
-      if (id[v] >= 0)
-        x[v] = load_chunk(base + static_cast<size_t>(id[v]) * row_bytes, k, row_bytes, vec);
+      if (id[v] >= 0) x[v] = load(id[v], k);
     }
     if constexpr (sizeof(T) == 1) {
       if (q.int_q) {
@@ -216,6 +220,50 @@ __device__ __forceinline__ float score32(const Query& q, const char* base, int r
   }
   const float t = reduce_scatter8(fa, s);
   return mips ? -t : t;
+}
+
+// score32_by on f32 rows for two queries at once: each chunk a lane loads
+// serves both, each query's sums in score32's order -> (distance to qa,
+// distance to qb) of the lane's row.
+template <typename Load>
+__device__ __forceinline__ float2 score32x2_by(const float* qa, const float* qb, Load load,
+                                               int nch, bool mips, int mine, int lane) {
+  const int s = lane & 7, g = lane & ~7;
+  int id[8];
+  float fa[8], fb[8];
+#pragma unroll
+  for (int v = 0; v < 8; ++v) {
+    id[v] = __shfl_sync(kFullMask, mine, g + v);
+    fa[v] = fb[v] = 0.f;
+  }
+  for (int k = s; k < nch; k += 8) {
+    int4 x[8];
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      x[v] = make_int4(0, 0, 0, 0);
+      if (id[v] >= 0) x[v] = load(id[v], k);
+    }
+    const float4 qva = *reinterpret_cast<const float4*>(qa + 4 * k);
+    const float4 qvb = *reinterpret_cast<const float4*>(qb + 4 * k);
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      acc_f32(fa[v], x[v], qva, mips);
+      acc_f32(fb[v], x[v], qvb, mips);
+    }
+  }
+  const float ta = reduce_scatter8(fa, s), tb = reduce_scatter8(fb, s);
+  return mips ? make_float2(-ta, -tb) : make_float2(ta, tb);
+}
+
+template <typename T>
+__device__ __forceinline__ float score32(const Query& q, const char* base, int row_bytes,
+                                         int nch, int vec, bool mips, int mine, int lane) {
+  return score32_by<T>(
+      q,
+      [=](int r, int k) {
+        return load_chunk(base + static_cast<size_t>(r) * row_bytes, k, row_bytes, vec);
+      },
+      nch, mips, mine, lane);
 }
 
 // ---- bitonic networks over a warp's registers: element i = 32 r + lane ----

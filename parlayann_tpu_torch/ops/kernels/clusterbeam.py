@@ -8,9 +8,9 @@ the same function in PyTorch, all queries in lock-step. :func:`cluster_search_fu
 is the whole search: the top-S centroid seed, the walk, the pool sort and
 the rerank. The seed is exact up to ``ARGMIN_SEED_CUTOFF`` centroid rows;
 past it an index with a seed quantizer (``ClusterIndex.seed_meta``) routes
-it through :func:`meta_topk`: a scan of the meta-centroids, then kernel 1
-(``expand_distances``) on the nearest cells' packed centroid blocks, the
-build's ``approx_assign`` on the query side.
+it through :func:`meta_topk`: a scan of the meta-centroids, then kernel
+1's multi-probe mode (``expand_distances_multi``) on the nearest cells'
+packed centroid blocks, the build's ``approx_assign`` on the query side.
 
 A query keeps two structures. The cluster beam (Wc = pow2(max(Lc, S, 8))
 lanes of (distance, packed id), pack = id * 2 + unexpanded bit, live lanes
@@ -51,7 +51,7 @@ from parlayann_tpu_torch.types import Metric
 from parlayann_tpu_torch.ops import distance, quantize
 from parlayann_tpu_torch.ops.distance import INF
 from parlayann_tpu_torch.ops.kernels import _lib
-from parlayann_tpu_torch.ops.kernels.expand import expand_distances
+from parlayann_tpu_torch.ops.kernels.expand import expand_distances_multi
 from parlayann_tpu_torch.ops.topk import lexsort, smallest_k
 from parlayann_tpu_torch.search.flat import flat_search_batch
 from parlayann_tpu_torch.search.rerank import rerank_topk
@@ -258,22 +258,20 @@ def meta_topk(q: torch.Tensor, mcents: torch.Tensor, blocks: torch.Tensor,
               idtab: torch.Tensor, *, k: int, P: int, metric: Metric):
     """Meta-routed top-k centroids -> (ids (B, k) int32, dists (B, k) f32
     ascending): the top-P of the (Cm, d) meta-centroids by the flat scan,
-    then one kernel 1 launch per probe over the (Cm, cap, d) cell blocks,
-    whose ``idtab`` (Cm, cap) holds each slot's centroid id (-1 empty), and
-    the k smallest of the B x P * cap candidates (equal distances keep
-    probe order). Distances are exact, in the blocks' domain. JAX
-    clusterindex.py:208-236 and clusterbeam.py:522-556."""
-    Cm = blocks.shape[0]
+    then one launch of kernel 1's multi-probe mode over the (Cm, cap, d)
+    cell blocks for all B x P probes, whose ``idtab`` (Cm, cap) holds each
+    slot's centroid id (-1 empty), and the k smallest of the B x P * cap
+    candidates, probe-major (equal distances keep probe order). Distances
+    are exact, in the blocks' domain. JAX clusterindex.py:208-236 and
+    clusterbeam.py:522-556, which loop one launch a probe."""
+    B, Cm, cap = q.shape[0], blocks.shape[0], blocks.shape[1]
     mt_i, _ = flat_search_batch(q, mcents, k=P, metric=metric, n_valid=Cm,
                                 chunk=min(Cm, 32768), select="sort")
-    ds, ids = [], []
-    for p in range(P):
-        mi = mt_i[:, p].clamp(0, Cm - 1)
-        dp = expand_distances(blocks, mi, q, metric=metric)
-        ip = idtab[mi.long()]
-        ds.append(torch.where((ip >= 0) & (mt_i[:, p:p + 1] >= 0), dp, INF))
-        ids.append(ip)
-    d, i = smallest_k(torch.cat(ds, dim=1), torch.cat(ids, dim=1), k)
+    mi = mt_i.clamp(0, Cm - 1).to(torch.int32)
+    dp = expand_distances_multi(blocks, mi, q.contiguous(), metric=metric)
+    ip = idtab[mi.long()]
+    dp = torch.where((ip >= 0) & (mt_i >= 0)[:, :, None], dp, INF)
+    d, i = smallest_k(dp.reshape(B, P * cap), ip.reshape(B, P * cap), k)
     return i, d
 
 

@@ -13,6 +13,12 @@ scalar tiers of 9 to 16 bits) or f32 vectors (the full-precision tier),
 one kernel each. On int16 rows the distances are summed exactly in int64
 and rounded once to f32: the squares and products of 16-bit levels pass
 2^31.
+``expand_distances_multi`` is kernel 1's multi-probe mode (JAX
+``expand_distances_multi`` :381): (B, E) ids, each query against E blocks,
+for the meta-routed top-k (``clusterbeam.meta_topk``), where many queries
+probe few blocks. Its kernel groups the pairs by block on the card and
+reads each touched block into shared memory once a work item, for f32 and
+int8 rows.
 Kernel 6 (``expand_bits_flat``, ``csrc/expandbits.cu``) reads the 1-bit
 tier's packed int32 words and returns XOR + popcount hamming distances; it
 also serves ``expand_distances(bits=1)``. Its inline array is
@@ -23,6 +29,8 @@ function is the same function in PyTorch.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -158,3 +166,64 @@ def expand_distances(inline: torch.Tensor, expand_ids: torch.Tensor,
 expand_distances.launches = 0
 expand_distances.launches_f32 = 0
 expand_distances.launches_i16 = 0
+
+
+def expand_distances_multi_plain(inline: torch.Tensor, expand_ids: torch.Tensor,
+                                 queries: torch.Tensor, *, metric: Metric) -> torch.Tensor:
+    """The multi-probe mode's function in PyTorch: (B, E, R8) f32, probe e
+    of query b as :func:`expand_distances_plain` of ``expand_ids[b, e]``
+    (the gather, then ``distance.gathered_lane_order`` for f32 rows and
+    ``distance.gathered`` for int8 rows), one probe at a time so the
+    gathered rows stay (B, R8, d)."""
+    B, E = expand_ids.shape
+    out = torch.empty((B, E, inline.shape[1]), dtype=torch.float32, device=queries.device)
+    for e in range(E):
+        out[:, e] = expand_distances_plain(inline, expand_ids[:, e], queries, metric=metric)
+    return out
+
+
+def expand_distances_multi(inline: torch.Tensor, expand_ids: torch.Tensor,
+                           queries: torch.Tensor, *, metric: Metric) -> torch.Tensor:
+    """-> (B, E, R8) f32 distances from query b to the R8 rows of block
+    ``expand_ids[b, e]`` (ids are clamped into range); queries are not
+    repeated. CPU tensors run :func:`expand_distances_multi_plain`; CUDA
+    tensors launch kernel 1's multi-probe mode, which takes a float32 or an
+    int8 ``(n_pad, R8, d)`` array, ``(B, E)`` int32 ids and ``(B, d)`` f32
+    queries, and equals the single mode pair for pair (f32 rows in its
+    summation order; int8 rows exact on integer-valued queries). Launches
+    are counted in ``launches``, the f32 rows' also in ``launches_f32``."""
+    if not _lib.route(inline, expand_ids, queries):
+        return expand_distances_multi_plain(inline, expand_ids, queries, metric=metric)
+    f32 = inline.dtype == torch.float32
+    _lib.require(inline, "inline", torch.float32 if f32 else torch.int8, 3)
+    _lib.require(expand_ids, "expand_ids", torch.int32, 2)
+    _lib.require(queries, "queries", torch.float32, 2)
+    n_pad, R8, d = inline.shape
+    B, E = expand_ids.shape
+    if queries.shape != (B, d):
+        raise ValueError(
+            f"shape mismatch: inline {tuple(inline.shape)}, expand_ids "
+            f"{tuple(expand_ids.shape)}, queries {tuple(queries.shape)}")
+    if B * E >= 2**31:
+        raise ValueError(f"{B} x {E} pairs exceed the kernel's int32 pair index")
+    out = torch.empty((B, E, R8), dtype=torch.float32, device=queries.device)
+    if B * E == 0:
+        return out
+    size = _lib.library().pa_expand_multi_scratch
+    size.argtypes = [_lib.INT, _lib.INT]
+    size.restype = ctypes.c_longlong
+    n_scratch = size(n_pad, B * E)
+    scratch = torch.empty(n_scratch, dtype=torch.int32, device=queries.device)
+    fn = _lib.function("pa_expand_distances_multi",
+                       [_lib.VP] * 5 + [ctypes.c_longlong] + [_lib.INT] * 7 + [_lib.VP])
+    rc = fn(inline.data_ptr(), expand_ids.data_ptr(), queries.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), n_scratch, B, E, n_pad, R8, d,
+            int(f32), int(metric is Metric.MIPS), _lib.stream())
+    expand_distances_multi.launches += 1
+    expand_distances_multi.launches_f32 += f32
+    _lib.check(rc, "expand_distances_multi")
+    return out
+
+
+expand_distances_multi.launches = 0
+expand_distances_multi.launches_f32 = 0

@@ -2,7 +2,7 @@
 
 Usage, on a machine with an NVIDIA GPU and nvcc:
 
-    python3 scripts/time_flat_topk.py [--kernel flat_topk|occlusion|fusedbeam|cluster]
+    python3 scripts/time_flat_topk.py [--kernel flat_topk|occlusion|fusedbeam|cluster|router]
                                       [--root DIR]
                                       [--reps N] [--tag NAME]
                                       [--f32] [--build N ...] [--build-reps K]
@@ -56,6 +56,15 @@ checkout in turns (A, B, B, A) in one call on one machine.
   is not deterministic, so two checkouts are compared on one pair of
   indexes: ``--index-cache FILE`` saves the first run's indexes there and
   loads them in every later run.
+
+- ``--kernel router`` (kernel 1 in the 10M build's router): draws
+  chip_smoke.py's phase-12 set (10M x 128 on the card, ``hier_data``), takes
+  312,500 of its points as centroids (phase 12's C), builds their meta
+  quantizer (``_meta_quantizer``, 4,070 cells of 112) and times one router
+  pass, ``approx_assign`` of all 10M points at P = 16, k = 8 (611 chunks of
+  16,384), fenced, twice; kernel 1's launches by mode are printed (a
+  checkout without the multi-probe mode launches the single mode 16 times
+  a chunk).
 
 ``--build N`` (100000 or 1000000, repeatable) also builds chip_smoke.py's
 q8 Vamana index over its synthetic clustered N x 128 set (R=32, L=64,
@@ -260,15 +269,43 @@ def build_run(chip, n, reps, dev, quantize_build=True):
                for k in ("num_device_alloc", "num_device_free")}}
 
 
+def time_router(chip, reps, dev):
+    import torch
+    from parlayann_tpu_torch.build import clusterindex as tci
+    from parlayann_tpu_torch.ops.kernels import expand
+    from parlayann_tpu_torch.types import Metric
+
+    X, _ = chip.hier_data(dev)
+    n, C = X.shape[0], 312_500
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cents = X[torch.randperm(n, generator=g, device=dev)[:C]].contiguous()
+    quant = tci._meta_quantizer(cents, C, Metric.L2, meta_m=tci.META_M, seed=0)
+    # the checkout's kernel 1 wrappers: the multi-probe mode where it has one
+    wrappers = [w for w in (expand.expand_distances,
+                            getattr(expand, "expand_distances_multi", None)) if w]
+    secs = []
+    for _ in range(reps):
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tci.approx_assign(X, n, cents, C, 8, Metric.L2, P=tci.HIER_P, quantizer=quant)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return {"router_cells": list(quant[1].shape), "router_s": secs,
+            **{f"{w.__name__}_launches": w.launches for w in wrappers}}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("flat_topk", "occlusion", "fusedbeam", "cluster"),
+    ap.add_argument("--kernel", choices=("flat_topk", "occlusion", "fusedbeam", "cluster",
+                                         "router"),
                     default="flat_topk")
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose parlayann_tpu_torch is timed")
     ap.add_argument("--reps", type=int, default=None,
                     help="timed launches (default 20 for flat_topk, fusedbeam and "
-                         "cluster, 50 for occlusion)")
+                         "cluster, 50 for occlusion; router: timed passes, default 2)")
     ap.add_argument("--tag", default="", help="a name for the checkout in the output")
     ap.add_argument("--build", type=int, action="append", default=[], choices=sorted(BUILDS),
                     help="also time and profile the q8 build of this many points")
@@ -308,6 +345,8 @@ def main():
         out.update(time_fused(chip, args.reps or 20, dev))
     elif args.kernel == "cluster":
         out.update(time_cluster(chip, args.reps or 20, dev, args.index_cache))
+    elif args.kernel == "router":
+        out.update(time_router(chip, args.reps or 2, dev))
     else:
         out.update(time_occlusion(chip, args.reps or 50, dev, args.f32))
     for n in args.build:

@@ -28,7 +28,7 @@ from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.ops import quantize
 from parlayann_tpu_torch.ops.kernels.expand import (
     expand_bits_flat, expand_bits_flat_plain, expand_distances,
-    expand_distances_plain)
+    expand_distances_multi, expand_distances_multi_plain, expand_distances_plain)
 from parlayann_tpu_torch.ops.kernels.occlude import (
     occlusion_rounds, occlusion_rounds_plain, pairwise_ordered)
 from parlayann_tpu_torch.ops.kernels.fusedbeam import (
@@ -1290,6 +1290,103 @@ def test_torch_cuda_expand_distances_meta_blocks(gen, cuda, dtype, Cm, cap, B):
         assert torch.equal(got, expand_distances_plain(blocks, ids, q, metric=metric))
 
 
+def _multi_case(gen, dev, dtype, Cm, cap, d, B, E, ids=None):
+    if dtype == "f32":
+        blocks = t(gen.standard_normal((Cm, cap, d)).astype(np.float32), dev)
+        q = t(gen.standard_normal((B, d)).astype(np.float32), dev)
+    else:
+        blocks = t(gen.integers(-128, 128, (Cm, cap, d)).astype(np.int8), dev)
+        q = t(gen.integers(-128, 128, (B, d)).astype(np.float32), dev)
+    if ids is None:
+        ids = gen.integers(-2, Cm + 2, (B, E))  # a few out of range: clamped
+    return blocks, t(np.asarray(ids, dtype=np.int32), dev), q
+
+
+def _check_multi(blocks, ids, q, metric):
+    """The multi mode against its plain version and the single mode's
+    launches stacked, bit for bit, with one launch counted."""
+    before = (expand_distances_multi.launches, expand_distances_multi.launches_f32)
+    got = expand_distances_multi(blocks, ids, q, metric=metric)
+    B, E = ids.shape
+    n, f32 = int(B * E > 0), int(B * E > 0 and blocks.dtype == torch.float32)
+    assert (expand_distances_multi.launches, expand_distances_multi.launches_f32) == (
+        before[0] + n, before[1] + f32)
+    assert got.shape == (B, E, blocks.shape[1])
+    assert torch.equal(got, expand_distances_multi_plain(blocks, ids, q, metric=metric))
+    if B > 0:
+        single = torch.stack([expand_distances(blocks, ids[:, e].contiguous(), q, metric=metric)
+                              for e in range(E)], dim=1)
+        assert torch.equal(got, single)
+
+
+@pytest.mark.parametrize("dtype,Cm,cap,d,B,E", [
+    ("f32", 4070, 112, 128, 16384, 16),   # the 10M build's router chunk
+    ("int8", 24415, 24, 128, 10000, 16),  # the 10M query seed
+    ("f32", 300, 40, 100, 999, 3),        # 400-byte rows: bulk copies
+    ("int8", 300, 24, 100, 999, 3),       # 100-byte rows: cp.async of 4 bytes
+    ("f32", 300, 32, 21, 500, 5),         # 84-byte rows
+    ("f32", 40, 112, 512, 300, 4),        # 229 KB blocks: three row tiles
+    ("f32", 10, 16, 64, 0, 16),           # B = 0
+])
+def test_torch_cuda_expand_multi_equal(gen, cuda, dtype, Cm, cap, d, B, E):
+    """Kernel 1's multi-probe mode equals its plain version and the single
+    mode's launches stacked, bit for bit, under L2 and MIPS: at the 10M
+    router's and seed's shapes, on rows whose bytes are not 16-byte
+    multiples (d = 100 int8, d = 21 f32), on blocks that do not fit twice in
+    shared memory, and at B = 0."""
+    blocks, ids, q = _multi_case(gen, cuda, dtype, Cm, cap, d, B, E)
+    for metric in (Metric.L2, Metric.MIPS):
+        _check_multi(blocks, ids, q, metric)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_torch_cuda_expand_multi_hot_block(gen, cuda, dtype):
+    """Every pair on one block (one cell's 32,000 pairs spread over 1,000
+    work items), and half the pairs on one block beside random ones."""
+    B, E = 2000, 16
+    ids = np.full((B, E), 7)
+    blocks, ids, q = _multi_case(gen, cuda, dtype, 50, 112 if dtype == "f32" else 24, 128,
+                                 B, E, ids=ids)
+    _check_multi(blocks, ids, q, Metric.L2)
+    mixed = np.where(gen.random((B, E)) < 0.5, 7, gen.integers(0, 50, (B, E)))
+    _check_multi(blocks, t(mixed.astype(np.int32), cuda), q, Metric.MIPS)
+
+
+def test_torch_cuda_expand_multi_misaligned_rows(gen, cuda):
+    """A view whose f32 rows start 4 bytes past a 16-byte boundary takes
+    the cp.async path and gives the same distances."""
+    blocks, ids, q = _multi_case(gen, cuda, "f32", 300, 32, 128, 700, 4)
+    flat = torch.empty(blocks.numel() + 4, dtype=torch.float32, device=cuda)
+    view = flat[1:1 + blocks.numel()].view(blocks.shape)
+    view.copy_(blocks)
+    assert torch.equal(expand_distances_multi(view, ids, q, metric=Metric.L2),
+                       expand_distances_multi_plain(blocks, ids, q, metric=Metric.L2))
+
+
+def test_torch_cuda_expand_multi_rejects_bad_input(cuda):
+    """Inputs the multi mode does not take raise, on the card, before any
+    launch; nothing falls back to the single mode or the plain version."""
+    blocks = torch.zeros((8, 8, 16), device=cuda)
+    ids = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    q = torch.zeros((4, 16), device=cuda)
+    before = expand_distances_multi.launches
+    with pytest.raises(ValueError, match="int8"):
+        expand_distances_multi(blocks.to(torch.int16), ids, q, metric=Metric.L2)
+    with pytest.raises(ValueError, match="int32"):
+        expand_distances_multi(blocks, ids.long(), q, metric=Metric.L2)
+    with pytest.raises(ValueError, match="2 dims"):
+        expand_distances_multi(blocks, ids[:, 0].contiguous(), q, metric=Metric.L2)
+    with pytest.raises(ValueError, match="float32"):
+        expand_distances_multi(blocks, ids, q.double(), metric=Metric.MIPS)
+    with pytest.raises(ValueError, match="shape"):
+        expand_distances_multi(blocks, ids, q[:3].contiguous(), metric=Metric.L2)
+    with pytest.raises(ValueError, match="contiguous"):
+        expand_distances_multi(blocks, ids.T, q[:2].contiguous(), metric=Metric.L2)
+    with pytest.raises(ValueError, match="device"):
+        expand_distances_multi(blocks, ids.cpu(), q, metric=Metric.L2)
+    assert expand_distances_multi.launches == before
+
+
 def test_torch_cuda_approx_assign_equals_cpu(cluster_data, cuda):
     """``approx_assign`` on the card against the CPU with one meta quantizer
     (built on the CPU: the card's k-means sums with atomics): distances
@@ -1304,10 +1401,16 @@ def test_torch_cuda_approx_assign_equals_cpu(cluster_data, cuda):
     quant = tci._meta_quantizer(cents, 300, Metric.L2, meta_m=24, seed=0)
     P, k = 3, 8
     ci, cd = tci.approx_assign(xc, 6000, cents, 300, k, Metric.L2, P=P, quantizer=quant)
-    before = expand_distances.launches_f32
+    before = (expand_distances.launches, expand_distances_multi.launches,
+              expand_distances_multi.launches_f32)
     gi, gd = tci.approx_assign(xc.to(cuda), 6000, cents.to(cuda), 300, k, Metric.L2, P=P,
                                quantizer=tuple(a.to(cuda) for a in quant))
-    assert expand_distances.launches_f32 > before
+    # one chunk of 6,000 points: one multi launch over its P probes, and no
+    # single-mode launch
+    chunks = -(-6000 // tci._kmeans_chunk_for(quant[1].shape[0]))
+    assert (expand_distances.launches, expand_distances_multi.launches,
+            expand_distances_multi.launches_f32) == (
+        before[0], before[1] + chunks, before[2] + chunks)
     same = (gi == ci).all(axis=1)
     np.testing.assert_array_equal(gd[same], cd[same])
     mc = quant[0].double().numpy()
@@ -1329,15 +1432,17 @@ def test_torch_cuda_hier_build_and_meta_seed(cluster_data, cuda, monkeypatch):
     X, Q = cluster_data
     monkeypatch.setattr(tci, "EXACT_LIMIT", 1.0)
     monkeypatch.setattr(tcb, "ARGMIN_SEED_CUTOFF", 8)
-    f32, i8 = expand_distances.launches_f32, expand_distances.launches
+    multi = expand_distances_multi
+    f32, single = multi.launches_f32, expand_distances.launches
     ci = build_cluster_index(X, m=32, Rc=16, ext_dtype="int8", device=cuda)
-    assert expand_distances.launches_f32 > f32 and ci.seed_meta is not None
+    assert multi.launches_f32 > f32 and ci.seed_meta is not None
     assert ci.seed_meta[1].dtype == torch.int8
     got = ci.members[ci.members >= 0]
     assert len(got) == 6000 and len(np.unique(got)) == 6000
-    i8 = expand_distances.launches - expand_distances.launches_f32
+    i8 = multi.launches - multi.launches_f32
     ids, _, _ = ci.search(t(Q, cuda), k=10, n_probe=8, cut=0.0, seed_probes=4)
-    assert expand_distances.launches - expand_distances.launches_f32 > i8
+    assert multi.launches - multi.launches_f32 > i8
+    assert expand_distances.launches == single  # the router and seed: multi mode only
     gt_i, gt_d = compute_groundtruth(PointSet.from_numpy(X, device="cpu"), Q, 20)
     assert compute_recall(ids.cpu().numpy(), gt_i, gt_d, 10) >= 0.9
 
