@@ -372,6 +372,19 @@ def bound(nbytes, ops, rate=F32_OPS):
     return dict(bound_ms=t_ops, bound_by="operations")
 
 
+def expand_ops(rows, q, n_dist):
+    """Kernel 1's operations for ``n_dist`` distances from queries ``q`` to
+    rows of ``rows``' dtype -> (ops, rate) for ``bound``. On int8 rows with
+    integer-valued queries in [-128, 127] (the q8 tier's) the kernel sums
+    exact dp4a integers, sum v q and sum v v: two int8 products and two
+    additions a term at the int8 rate. Otherwise a subtraction, a
+    multiplication and an addition a term at the f32 rate."""
+    d = q.shape[-1]
+    if rows.dtype == torch.int8 and bool(((q == q.round()) & (q >= -128) & (q <= 127)).all()):
+        return 4 * n_dist * d, INT8_OPS
+    return 3 * n_dist * d, F32_OPS
+
+
 def unique_rows(ids, n_pad):
     return int(torch.unique(ids.long().clamp(0, n_pad - 1)).numel())
 
@@ -419,7 +432,7 @@ def kernel_expand(gen, dev):
     plain_ms = time_ms(
         lambda: expand_distances_plain(inline, ids, q_int, metric=Metric.L2), 5)
     b = bound(unique_rows(ids, n_pad) * R8 * d + B * d * 4 + B * 4 + B * R8 * 4,
-              3 * B * R8 * d)
+              *expand_ops(inline, q_int, B * R8))
     log(f"kernel 1 expand_distances B={B} inline={tuple(inline.shape)}: "
         f"bit-equal (L2, MIPS); f32 queries within 1e-5; "
         f"{ms:.4f} ms vs plain {plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
@@ -635,7 +648,7 @@ def kernel_expand_hnsw(gen, dev):
         ms = time_ms(lambda: expand_distances(inline, ids, q, metric=Metric.L2), 20)
         plain_ms = time_ms(lambda: expand_distances_plain(inline, ids, q, metric=Metric.L2), 5)
         b = bound(unique_rows(ids, n_pad) * R8 * d * size + B * d * 4 + B * 4 + B * R8 * 4,
-                  3 * B * R8 * d)
+                  *expand_ops(inline, q, B * R8))
         out[name] = dict(ms=ms, plain_ms=plain_ms, **b)
         log(f"kernel 1 expand_distances {name} rows R8=40 B={B} inline={tuple(inline.shape)}: "
             f"equal (L2, MIPS); {ms:.4f} ms vs plain {plain_ms:.4f} ms; bound "
@@ -2414,20 +2427,27 @@ HIER_BAR = 0.90  # recall@10 at n_probe 8, meta seed (the JAX package: 0.9617)
 HIER_SINGLE_MODE = dict(build=128.44, rounds=56.5, final=55.4, adjacency=3.65, finish=12.28)
 
 
-def _build_split(text):
-    """The hierarchical build's verbose lines -> {part: seconds}: its router
-    rounds (summed), final assign, respill, polish, the whole final phase,
-    adjacency and finish."""
+def _build_split(text, rounds):
+    """The hierarchical build's verbose lines -> {part: seconds}: its
+    ``rounds`` router rounds (summed), final assign, respill, polish, the
+    whole final phase, adjacency and finish. Fails if a part's line is
+    missing."""
     import re
 
-    def first(pattern):
+    def first(name, pattern):
         m = re.search(pattern, text)
-        return float(m.group(1)) if m else float("nan")
+        check(m is not None, f"phase 12: the build printed no {name} line ({pattern!r})")
+        return float(m.group(1))
 
-    return dict(rounds=sum(float(x) for x in re.findall(r"hier round \d+/\d+: ([\d.]+)s", text)),
-                assign=first(r"final assign: ([\d.]+)s"), respill=first(r"respill: ([\d.]+)s"),
-                polish=first(r"polish: ([\d.]+)s"), final=first(r"hier final: ([\d.]+)s"),
-                adjacency=first(r"adjacency ([\d.]+) s"), finish=first(r"finish ([\d.]+) s"))
+    got = re.findall(r"hier round \d+/\d+: ([\d.]+)s", text)
+    check(len(got) == rounds, f"phase 12: the build printed {len(got)} of {rounds} round lines")
+    return dict(rounds=sum(map(float, got)),
+                assign=first("final assign", r"final assign: ([\d.]+)s"),
+                respill=first("respill", r"respill: ([\d.]+)s"),
+                polish=first("polish", r"polish: ([\d.]+)s"),
+                final=first("hier final", r"hier final: ([\d.]+)s"),
+                adjacency=first("adjacency", r"adjacency ([\d.]+) s"),
+                finish=first("finish", r"finish ([\d.]+) s"))
 
 
 def hier_data(dev):
@@ -2486,7 +2506,7 @@ def hier_run(dev):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     build = _launch_counts()
-    split = _build_split("".join(tee.parts))
+    split = _build_split("".join(tee.parts), tci.HIER_ROUNDS)
     Cm, cap = tci._meta_sizes(ci.C, tci.META_M)
     check(ci.seed_meta is not None and ci.seed_meta[1].dtype == torch.int8,
           "phase 12: the index has no int8 seed quantizer")
@@ -2567,8 +2587,9 @@ def kernel_multi(name, blocks, mcents, q, E):
     scan of ``mcents``, as ``meta_topk`` selects them) -> the JSON entry.
     The launch must equal its plain version and the E single-mode launches
     stacked (the earlier design, timed beside it). Bound: the distinct
-    blocks read once, the queries, the ids and the output, against 3 B E R8
-    d operations at the f32 rate. One more launch under torch.profiler
+    blocks read once, the queries, the ids and the output, against the B E
+    R8 distances' operations (``expand_ops``: the f32 rate on f32 blocks,
+    the int8 rate on the seed's int8 blocks and q8 queries). One more launch under torch.profiler
     splits the grouping kernels from the scoring kernel."""
     from parlayann_tpu_torch.ops.kernels.expand import (
         expand_distances, expand_distances_multi, expand_distances_multi_plain)
@@ -2593,7 +2614,7 @@ def kernel_multi(name, blocks, mcents, q, E):
     plain_ms = time_ms(lambda: expand_distances_multi_plain(blocks, ids, q, metric=Metric.L2), 2)
     n_blk = unique_rows(ids, Cm)
     b = bound(n_blk * cap * d * blocks.element_size() + B * d * 4 + B * E * 4 + B * E * cap * 4,
-              3 * B * E * cap * d)
+              *expand_ops(blocks, q, B * E * cap))
     prof = profile_window(lambda: expand_distances_multi(blocks, ids, q, metric=Metric.L2),
                           f"kernel 1 multi on the {name} blocks")
     group_ms = score_ms = None
@@ -2670,7 +2691,7 @@ def kernel_hier(ci, X, Q, dev):
     the first 16,384 (one chunk) at their top-``HIER_P`` cells; the seed's
     blocks are the index's, queried by the q8 queries at their nearest
     cell, then at their top-``HIER_SEED_PROBES``. Bound: the distinct
-    blocks read once, the queries and the output."""
+    blocks read once, the queries and the output, against ``expand_ops``."""
     from parlayann_tpu_torch.build import clusterindex as tci
     from parlayann_tpu_torch.ops import quantize
     from parlayann_tpu_torch.ops.kernels.clusterbeam import (
@@ -2702,7 +2723,7 @@ def kernel_hier(ci, X, Q, dev):
         Cm, cap, d = blocks.shape
         B = q.shape[0]
         b = bound(unique_rows(ids, Cm) * cap * d * blocks.element_size() + B * d * 4 + B * 4
-                  + B * cap * 4, 3 * B * cap * d)
+                  + B * cap * 4, *expand_ops(blocks, q, B * cap))
         log(f"kernel 1 expand_distances {blocks.dtype} {name} blocks {tuple(blocks.shape)} "
             f"B={B}: equal (L2); {ms:.4f} ms vs plain {plain_ms:.4f} ms; bound "
             f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {unique_rows(ids, Cm)} distinct blocks)")

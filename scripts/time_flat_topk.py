@@ -2,8 +2,8 @@
 
 Usage, on a machine with an NVIDIA GPU and nvcc:
 
-    python3 scripts/time_flat_topk.py [--kernel flat_topk|occlusion|fusedbeam|cluster|router]
-                                      [--root DIR]
+    python3 scripts/time_flat_topk.py [--kernel flat_topk|occlusion|fusedbeam|cluster|router|
+                                                multi] [--root DIR]
                                       [--reps N] [--tag NAME]
                                       [--f32] [--build N ...] [--build-reps K]
                                       [--f32-build]
@@ -65,6 +65,14 @@ checkout in turns (A, B, B, A) in one call on one machine.
   16,384), fenced, twice; kernel 1's launches by mode are printed (a
   checkout without the multi-probe mode launches the single mode 16 times
   a chunk).
+- ``--kernel multi`` (kernel 1's multi-probe mode alone): the same set and
+  centroids, and two shapes of phase 12: the router's (its meta quantizer,
+  the first 16,384 points at their top-16 cells) and the query seed's
+  (``_seed_quantizer`` over the centroids' q8 translation, (24,415, 24,
+  128) int8 blocks, chip_smoke.py's 10,000 queries translated the same way
+  at their top-16 cells). Each launch is checked equal to the checkout's
+  plain version and timed; the checkout's CTA shape (consumer warps,
+  stages) is whatever its ``launch_multi`` picks.
 
 ``--build N`` (100000 or 1000000, repeatable) also builds chip_smoke.py's
 q8 Vamana index over its synthetic clustered N x 128 set (R=32, L=64,
@@ -269,16 +277,24 @@ def build_run(chip, n, reps, dev, quantize_build=True):
                for k in ("num_device_alloc", "num_device_free")}}
 
 
+def router_inputs(chip, dev):
+    """chip_smoke.py's phase-12 set and 312,500 of its points as centroids
+    -> (points, queries, centroids) on the card."""
+    import torch
+
+    X, Q = chip.hier_data(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    return X, Q, X[torch.randperm(X.shape[0], generator=g, device=dev)[:312_500]].contiguous()
+
+
 def time_router(chip, reps, dev):
     import torch
     from parlayann_tpu_torch.build import clusterindex as tci
     from parlayann_tpu_torch.ops.kernels import expand
     from parlayann_tpu_torch.types import Metric
 
-    X, _ = chip.hier_data(dev)
-    n, C = X.shape[0], 312_500
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    cents = X[torch.randperm(n, generator=g, device=dev)[:C]].contiguous()
+    X, _, cents = router_inputs(chip, dev)
+    n, C = X.shape[0], cents.shape[0]
     quant = tci._meta_quantizer(cents, C, Metric.L2, meta_m=tci.META_M, seed=0)
     # the checkout's kernel 1 wrappers: the multi-probe mode where it has one
     wrappers = [w for w in (expand.expand_distances,
@@ -296,16 +312,49 @@ def time_router(chip, reps, dev):
             **{f"{w.__name__}_launches": w.launches for w in wrappers}}
 
 
+def time_multi(chip, reps, dev):
+    import torch
+    from parlayann_tpu_torch.build import clusterindex as tci
+    from parlayann_tpu_torch.ops import quantize
+    from parlayann_tpu_torch.ops.kernels import expand
+    from parlayann_tpu_torch.search.flat import flat_search_batch
+    from parlayann_tpu_torch.types import Metric
+
+    X, Q, cents = router_inputs(chip, dev)
+    C = cents.shape[0]
+    slope, offset = quantize.euclidean_params(X, 8)
+    router = tci._meta_quantizer(cents, C, Metric.L2, meta_m=tci.META_M, seed=0)
+    seed = tci._seed_quantizer(quantize.euclidean_translate(cents, slope, offset).float(), C,
+                               torch.int8)
+    shapes = {"router": (router, X[:tci._kmeans_chunk_for(router[1].shape[0])], tci.HIER_P),
+              "seed": (seed, quantize.euclidean_translate(Q, slope, offset).float(),
+                       chip.HIER_SEED_PROBES)}
+    out = {}
+    for name, ((mc, blocks, _), q, E) in shapes.items():
+        Cm = blocks.shape[0]
+        ids, _ = flat_search_batch(q, mc, k=E, metric=Metric.L2, n_valid=Cm,
+                                   chunk=min(Cm, 32768), select="sort")
+        ids = ids.clamp(0, Cm - 1).to(torch.int32).contiguous()
+        q = q.contiguous()
+        got = expand.expand_distances_multi(blocks, ids, q, metric=Metric.L2)
+        want = expand.expand_distances_multi_plain(blocks, ids, q, metric=Metric.L2)
+        out[f"{name}_shape"] = [*blocks.shape, q.shape[0], E]
+        out[f"{name}_equal"] = bool(torch.equal(got, want))
+        out[f"{name}_ms"] = chip.time_ms(
+            lambda: expand.expand_distances_multi(blocks, ids, q, metric=Metric.L2), reps)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("flat_topk", "occlusion", "fusedbeam", "cluster",
-                                         "router"),
+                                         "router", "multi"),
                     default="flat_topk")
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose parlayann_tpu_torch is timed")
     ap.add_argument("--reps", type=int, default=None,
-                    help="timed launches (default 20 for flat_topk, fusedbeam and "
-                         "cluster, 50 for occlusion; router: timed passes, default 2)")
+                    help="timed launches (default 20 for flat_topk, fusedbeam, cluster "
+                         "and multi, 50 for occlusion; router: timed passes, default 2)")
     ap.add_argument("--tag", default="", help="a name for the checkout in the output")
     ap.add_argument("--build", type=int, action="append", default=[], choices=sorted(BUILDS),
                     help="also time and profile the q8 build of this many points")
@@ -347,6 +396,8 @@ def main():
         out.update(time_cluster(chip, args.reps or 20, dev, args.index_cache))
     elif args.kernel == "router":
         out.update(time_router(chip, args.reps or 2, dev))
+    elif args.kernel == "multi":
+        out.update(time_multi(chip, args.reps or 20, dev))
     else:
         out.update(time_occlusion(chip, args.reps or 50, dev, args.f32))
     for n in args.build:
