@@ -34,7 +34,11 @@ Phases:
      each; then kernel 3's build mode (``build_beam_fused``) at a steady
      batch of the build, B = 16,000 of the q8 tier's rows walking from
      point 0 for vmax = 64 expansions, all four outputs equal to its plain
-     version, timed with its bound.
+     version, timed with its bound and a step's time, with the walk the
+     launcher takes and the share of step distances whose tier row the
+     walk did not read again; before it, each of kernel 3's walks
+     (``walk_regs<P,CP>``, ``walk_smem``) with its registers, spilled
+     bytes and resident warps an SM.
   3b. the fused read phase at 100K, on phase 3's set and ground truth: at
      bench.py's two configurations (R=32 L=64 alpha 1.2 and R=64 L=128
      alpha 1.15, two passes at 0.16), a lock-step build (phase 3's at
@@ -42,7 +46,7 @@ Phases:
      again with ``profile=True`` for its beam / bidirect / prune split, and
      searched on the q8 tier at beams 10/16/32/64; kernel 3's build mode
      is held to its plain version and timed at R=64 L=128 (vmax 128, the
-     shared-memory walk) as phase 2 does at R=32. Each fused build reaches
+     widest register walk) as phase 2 does at R=32. Each fused build reaches
      recall@10 ``RECALL_BAR`` at beam 64 and lies within ``FUSED_GAP`` of
      the lock-step build's at beams 10 and 64; it launches
      ``build_beam_fused`` once a steady batch a pass (10), and kernel 1
@@ -76,7 +80,10 @@ Phases:
      torch.profiler, which prints the device's busy time, idle share and
      top kernels. Then the same q8 build with ``fused_read=True`` (46
      ``build_beam_fused`` launches), timed, with recall@10 at beams 10 and
-     64 within ``FUSED_GAP`` of phase 6's graph on the q8 tier. Kernel 6 is
+     64 within ``FUSED_GAP`` of phase 6's graph on the q8 tier, and kernel
+     3's build mode at that build's steady batch (B = 40,000 of the tier's
+     rows over phase 6's graph, vmax 64), held to its plain version and
+     timed with its bound as phase 2 does at 100K. Kernel 6 is
      then checked against its plain version on the tiers' inline words (W
      = 4 and W = 16).
   8. HNSW at 100K, on phase 3's set and ground truth: build A, the JAX
@@ -939,14 +946,35 @@ def kernel_fusedbeam(idx, Q, dev, shapes=FUSED_SHAPES, plain_at=(1024, 64),
 BUILD_FUSED_B = 16_000  # a steady batch of phase 3's build: 0.16 x 100K inserts
 
 
+# kernel 3's walks by (L, R) of a launch that takes each (d = 128):
+# walk_regs<P, CP> (P = pow2(L) / 32 beam and CP = pow2(R) / 32 candidate
+# registers a lane) and walk_smem past 128 lanes or 64 neighbours
+WALK_SHAPES = ((10, 32), (10, 64), (64, 32), (64, 64), (128, 32), (128, 64), (64, 90))
+
+
+def walk_table():
+    """Print each of kernel 3's walks: registers and spilled bytes a thread
+    (the runtime's), resident warps an SM at the launch's shared memory."""
+    from parlayann_tpu_torch.ops.kernels.fusedbeam import walk_info
+
+    for L, R in WALK_SHAPES:
+        w = walk_info(128, L, R)
+        log(f"kernel 3 {w['walk']} (L={L}, R={R}): {w['regs']} registers, "
+            f"{w['local_bytes']} bytes spilled a thread; {w['threads'] // 32} warps a CTA, "
+            f"{w['resident_warps']} resident warps an SM")
+        check(w["regs"] > 0 and w["resident_warps"] > 0, f"kernel 3 {w['walk']}: no residency")
+
+
 def kernel_build_fused(idx, dev, B=BUILD_FUSED_B, R=32, L=64, what="phase 3's graph"):
     """Kernel 3's build mode against its plain version at a steady batch
     of phase 3's build: B of the q8 tier's rows (a draw of SEED) as
     queries, each walking ``idx``'s graph (phase 3's by default) from
     point 0 at k = 0 for vmax = max(L, R + 16) expansions (64 at R = 32,
-    L = 64); all four outputs equal -> times and bound."""
+    L = 64); all four outputs equal -> times, bound, the walk the launcher
+    took and the share of its step distances whose tier row it did not
+    read again (scored earlier in the same walk)."""
     from parlayann_tpu_torch.ops.kernels.fusedbeam import (
-        build_beam_fused, build_beam_fused_plain)
+        build_beam_fused, build_beam_fused_plain, walk_info)
 
     tier, g = idx.qpoints, idx.graph
     vmax = max(L, R + 16)
@@ -962,6 +990,10 @@ def kernel_build_fused(idx, dev, B=BUILD_FUSED_B, R=32, L=64, what="phase 3's gr
         check(torch.equal(a, b), f"build_beam_fused B={B} vmax={vmax}: {name} differ")
     ms = time_ms(lambda: build_beam_fused(*args, **kw), 10)
     plain_ms = time_ms(lambda: build_beam_fused_plain(*args, **kw), 2)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    build_beam_fused(*args, **kw, counts=counts)
+    valid, skipped = counts.tolist()
+    walk = walk_info(tier.d, L, R)["walk"]
     nv, cm = got[2], got[3]
     n_rows, n_adj = fused_rows(args, tier.n, [got[0].reshape(-1)])
     # each input byte once: the distinct tier rows scored, the visited
@@ -971,12 +1003,16 @@ def kernel_build_fused(idx, dev, B=BUILD_FUSED_B, R=32, L=64, what="phase 3's gr
     d = tier.d
     b = bound(n_rows * d + n_adj * (R + 1) * 4 + B * d * 4 + B * 4 + B * vmax * 8 + B * 8,
               2 * int(cm.sum()) * d, INT8_OPS)
+    n_vis = int(nv.sum())
+    share = skipped / valid if valid else 0.0
     log(f"kernel 3 build mode build_beam_fused B={B} L={L} vmax={vmax} R={R} on {what}: "
-        f"visited ids, dists, nv, cmps equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms; "
-        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; {int(nv.sum())} visits of {n_adj} "
-        f"vertices, {int(cm.sum())} distances to {n_rows} rows); visits mean "
-        f"{float(nv.float().mean()):.2f} max {int(nv.max())}")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+        f"{walk}; visited ids, dists, nv, cmps equal; {ms:.4f} ms vs plain {plain_ms:.4f} ms; "
+        f"{ms * 1e6 / n_vis:.3f} ns a step; bound {b['bound_ms']:.4f} ms ({b['bound_by']}; "
+        f"{n_vis} visits of {n_adj} vertices, {int(cm.sum())} distances to {n_rows} rows); "
+        f"visits mean {float(nv.float().mean()):.2f} max {int(nv.max())}; tier rows not read "
+        f"again: {skipped} of {valid} step distances ({share:.4f})")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None, walk=walk,
+                ns_per_step=ms * 1e6 / n_vis, rows_skipped_share=share, **b)
 
 
 # phase 3b: the fused read phase (kernel 3's build mode) beside the lock-step
@@ -1764,14 +1800,19 @@ def tier_run(dev):
         check(recall[(name, beam)] >= floor, f"tier {name} recall@{K} at beam {beam} "
               f"is {recall[(name, beam)]:.4f} < {floor}")
     del idx
-    fused_launches = fused_1m(X, q, points, graph, (gt_ids, gt_d), dev)
-    return launches, kept, fused_launches
+    fused_launches, k3b = fused_1m(X, q, points, graph, (gt_ids, gt_d), dev)
+    return launches, kept, fused_launches, k3b
+
+
+FUSED_1M_B = 40_000  # a steady batch of phase 6's build: 0.04 x 1M inserts
 
 
 def fused_1m(X, q, points, graph, gt, dev):
     """Phase 6's q8 build once more with fused_read=True, beside phase 6's
     graph: recall@10 at beams 10 and 64 within FUSED_GAP of it on the q8
-    tier -> the fused build's launches."""
+    tier; then kernel 3's build mode held to its plain version and timed
+    at the build's steady batch over phase 6's graph -> (the fused build's
+    launches, the build mode's times and bound at 1M)."""
     import parlayann_tpu_torch as pt
 
     steady = 2 * steady_batches(TIER_N, 0.04)
@@ -1792,7 +1833,10 @@ def fused_1m(X, q, points, graph, gt, dev):
         gap = rec["fused build"][beam] - rec["phase 6's graph"][beam]
         check(abs(gap) <= FUSED_GAP, f"6: the fused build's recall@{K} at beam {beam} is "
               f"{gap:+.4f} off phase 6's graph's")
-    return launches
+    del g, ps
+    k3b = kernel_build_fused(pt.Index(points=points, graph=graph).enable_quantized(bits=8),
+                             dev, B=FUSED_1M_B, what="phase 6's 1M graph")
+    return launches, k3b
 
 
 def kernel_bits(kept, gen, dev):
@@ -2959,6 +3003,7 @@ def main():
     phase("phase 3 (continued): the 100K build once more under torch.profiler")
     profiled_build(X, dev)
     phase("phase 2 (continued): kernel 3 on the built graph, and its build mode")
+    walk_table()
     k3s = kernel_fusedbeam(idx, Q, dev)
     k3 = dict(max_abs_err=0.0, library_ms=None, **k3s[(1024, 64)],
               shapes={f"B{B}_L{L}": dict(ms=v["ms"], bound_ms=v["bound_ms"])
@@ -3015,7 +3060,7 @@ def main():
     for name, n in range_run(dev).items():
         p10[name] += n
     phase("phase 6: the capacity tiers at 1M (q8 build, 1-bit and JL search)")
-    tier_launches, kept, p6_fused = tier_run(dev)
+    tier_launches, kept, p6_fused, k3b["shapes"]["1M_R32_L64_vmax64_B40000"] = tier_run(dev)
     launches["expand_bits_flat"] = tier_launches["expand_bits_flat"]
     phase("phase 2 (continued): kernel 6 on the tiers' inline words")
     k6 = kernel_bits(kept, gen, dev)
@@ -3101,7 +3146,8 @@ def main():
              phase9_launches=p9["beam_search_fused"], **k3),
         # kernel 3's build mode: launched by phase 3b's fused_read=True build
         # at R = 32 (the main path; phase3b_launches: both configurations)
-        # and by phase 6's 1M fused build
+        # and by phase 6's 1M fused build; shapes: its times at phase 3b's
+        # R = 64, L = 128 and at phase 6's 1M steady batch
         dict(name="build_beam_fused", route="cuda",
              source="parlayann_tpu_torch/csrc/fusedbeam.cu",
              replaces="parlayann_tpu/ops/pallas/fusedbeam.py:952",

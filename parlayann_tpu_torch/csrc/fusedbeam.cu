@@ -20,21 +20,22 @@
 // The build calls it at k = 0 (no cut) with limit = min(vmax, n_valid).
 // The JAX function runs exactly vmax steps and lets stopped rows emit
 // (-1, INF): the same rows as stopping at the limit and padding. A search
-// passes null pointers, a uniform branch, so the four register-walk
-// instantiations stay four.
+// passes null pointers, a uniform branch, so the six register-walk
+// instantiations stay six.
 //
-// What bounds it on the H100: the dependent chain of steps. A query's step
-// reads the expanded vertex's degree and adjacency row, then its
-// neighbours' int8 rows, then sorts and merges a few dozen (distance, id)
-// pairs before the next vertex is known; at B = 1024, L = 64 that is about
-// 64 steps a query. Counted once per input byte, the walk there moves
+// What bounds it on the H100: the steps, one after another in each warp. A
+// query's step reads the expanded vertex's degree and adjacency row, then
+// its neighbours' int8 rows, then sorts and merges a few dozen (distance,
+// id) pairs before the next vertex is known; at B = 1024, L = 64 that is
+// about 64 steps a query. With 12-16 such warps an SM the step's
+// instructions, not its round trips, set the pace (measured below). Counted once per input byte, the walk there moves
 // about 16.7 MB (73,699 distinct tier rows, the adjacency rows of 47,092
 // distinct vertices, queries, starts and outputs: 5.0 us at 3.35 TB/s) and
 // does 5.1e8 int8 operations (0.3 us at the 1,979 T/s int8 rate), so the
 // card could finish in about 0.005 ms if the chains were not in the way.
 // A step's memory round trips are L2 hits (the 12.8 MB int8 tier of 100K x
-// 128 sits in the 50 MB L2); what a design can shorten is the work between
-// them and how many chains each SM runs. The build mode's walks are the
+// 128 sits in the 50 MB L2); what a design can shorten is the work of a
+// step and how many chains each SM runs. The build mode's walks are the
 // same chains, each exactly min(vmax, converged) steps long (64 at R = 32,
 // L = 64): one launch walks a steady batch of 16,000 (100K) or 40,000
 // (1M) inserts, where the lock-step read launches kernel 1 once for every
@@ -61,8 +62,10 @@
 //     every lane its own row's sum. A query that is integer-valued in
 //     [-128, 127] (the q8 tier's translated queries) is scored with dp4a
 //     in exact int32 (L2 as sum v^2 - 2 sum v q + sum q^2); any other in
-//     f32. Seed and step distances come from the same function
-//     (score_rows), so every copy of a vertex's distance is bit-identical:
+//     f32. Rows that keep 16-byte loads aligned (the q8 tier at d a
+//     multiple of 16) load their chunks without load-width tests. Seed and
+//     step distances come from the same function (score_row32), so every
+//     copy of a vertex's distance is bit-identical:
 //     the hashless-dedup invariant. On int8 tiers with integer-valued
 //     queries every distance is an exact integer below 2^24 and the kernel
 //     equals the plain PyTorch version bit for bit.
@@ -76,13 +79,28 @@
 //     sequence holding the W smallest of both, and a shuffle bitonic merge
 //     sorts it. Picking the next vertex is one ballot a register, __ffs and
 //     a bit flip in the owning lane.
-//  5. Beams wider than 64 lanes (L > 64, up to 4096) or rows of more than
-//     64 neighbours run walk_smem: the same walk with the beam and the
-//     candidates in the warp's shared memory and the same networks run by
-//     the warp over it (a CTA of one warp). Registers serve beams up to 64
-//     over graphs of degree up to 64 (the main path's beams 10-64 over
-//     R = 32, and bench.py's R = 64 graph at the same beams) in four
-//     instantiations, which keep the build short.
+//  5. Registers serve beams up to 128 lanes over graphs of degree up to
+//     64, in six instantiations (P = 1, 2, 4 x CP = 1, 2): the main path's
+//     beams 10-64 over R = 32, bench.py's R = 64, L = 128 build (W = 128,
+//     Nc = 64) and its searches up to L = 128. Four beam registers merge
+//     in seven stages, two of them between a lane's own registers. Beams
+//     wider than 128 lanes (L > 128, up to 4096) or rows of more than 64
+//     neighbours (HCNNG's degree 90) run walk_smem: the same walk with the
+//     beam and the candidates in the warp's shared memory and the same
+//     networks run by the warp over it (a CTA of one warp). The (distance,
+//     pack) order is unique, so both walks give the same bits.
+//  6. The register walk does not score a vertex twice. A neighbour the
+//     walk has already scored is in the beam, or at or past the beam's
+//     L-th distance, which never grows: it cannot be kept, the plain
+//     version's keep rule gives the same answer, so its tier row is not
+//     read again (dist_cmps still counts it). The warp keeps the ids it
+//     has scored in a direct-mapped table in its shared memory (min(32 W,
+//     2048) slots, cleared for each query): lossy, a slot holding the
+//     last id hashed there, but never wrong, a slot holding a whole id.
+//     At the build's shapes 71-77% of step distances are found there.
+//     The candidates left are packed to the front of the step's registers
+//     (past one register, through the warp's shared memory), and a pass of
+//     32 rows with none left is not scored.
 // The query's staging, the scoring (pa::score32) and the networks live in
 // warp.cuh, shared with kernel 5.
 // Measured on an H100 (PERF.md): one lane reading a whole row touched 32
@@ -90,7 +108,14 @@
 // L = 64; scoring every query in f32 alone was 1.5-1.7x slower than dp4a
 // at L = 64; merging by rank on steps that keep few candidates, and
 // capping the 128 registers a thread for occupancy (spills), were both
-// slower.
+// slower. In the build mode, as first measured: every walk used 128
+// registers a thread, 16 resident warps an SM. Loading the next vertex's
+// adjacency row a step ahead (the guess right on 79-95% of steps) was
+// 1.5-9% slower, so it is not done; point 6's table took 9-12% off, the
+// aligned loads 12-19% more, packing 64 candidates 14% more at R = 64,
+// and the 128-register cap 14% more there (the aligned loads had taken
+// walk_regs<4,2> to 168 registers, 12 warps). The walk is bound by the
+// instructions of its steps, not by their round trips or their bytes.
 
 #include "bitonic.cuh"
 #include "warp.cuh"
@@ -103,9 +128,10 @@ using pa::warp_merge;
 using pa::warp_sort_desc;
 
 constexpr int kWarps = 4;    // queries in flight a CTA of walk_regs
-constexpr int kMaxRegP = 2;  // beam registers a lane: W <= 64
+constexpr int kMaxRegP = 4;  // beam registers a lane: W <= 128
 constexpr int kMaxRegC = 2;  // candidate registers a lane: pow2(R) <= 64
 constexpr int kSmemC = 4;    // candidates a lane scores at once in walk_smem
+constexpr int kSeenSlots = 2048;  // the register walk's table of scored ids, at most
 
 struct Params {
   const float* queries;  // (B, d) f32, in the tier's domain
@@ -131,6 +157,10 @@ struct Params {
   int* vis_ids;     // (B, vstride)
   float* vis_dist;  // (B, vstride)
   int vstride;
+  int seen_slots, seen_shift;  // the register walk's table of scored ids: 2^(32 - shift) slots
+  // or null: gains the register walk's valid candidates and those it did
+  // not score again
+  unsigned long long* counts;  // (2,)
 };
 
 // Record expansion nv of query b: its id and its beam distance (the build
@@ -161,19 +191,36 @@ __device__ __forceinline__ void finish_query(const Params& p, int b, int nv, int
   }
 }
 
-// The distances from the warp's query to 32 N tier rows: lane l gives
-// ids[c] of row 32 c + l (id < 0: none, INF) and receives its distance in
-// out[c]. Every distance of the kernel comes from here, so equal (query,
-// row) pairs give equal bits.
+// The distance from the warp's query to 32 tier rows: lane l gives the id
+// of its row (< 0: none, INF) and receives its distance. Every distance of
+// the kernel comes from here, so equal (query, row) pairs give equal bits.
+// Rows that keep 16-byte loads aligned (vec = 16: the q8 tier of d a
+// multiple of 16) take their chunks without the load-width tests.
+__device__ __forceinline__ float score_row32(const Params& p, const pa::Query& q, int id,
+                                             int lane) {
+  const char* tier = reinterpret_cast<const char*>(p.tier);
+  float dist;
+  if (p.vec == 16) {
+    const size_t rb = p.d;
+    dist = pa::score32_by<int8_t>(
+        q,
+        [=](int r, int k) {
+          return __ldg(reinterpret_cast<const int4*>(tier + static_cast<size_t>(r) * rb) + k);
+        },
+        p.nch, p.mips, id, lane);
+  } else {
+    dist = pa::score32<int8_t>(q, tier, p.d, p.nch, p.vec, p.mips, id, lane);
+  }
+  return id >= 0 ? dist : pa::kInf;
+}
+
+// score_row32 over 32 N rows: lane l gives ids[c] of row 32 c + l and
+// receives its distance in out[c].
 template <int N>
 __device__ __forceinline__ void score_rows(const Params& p, const pa::Query& q,
                                            const int (&ids)[N], float (&out)[N], int lane) {
-  const char* tier = reinterpret_cast<const char*>(p.tier);
 #pragma unroll
-  for (int c = 0; c < N; ++c) {
-    const float dist = pa::score32<int8_t>(q, tier, p.d, p.nch, p.vec, p.mips, ids[c], lane);
-    out[c] = ids[c] >= 0 ? dist : pa::kInf;
-  }
+  for (int c = 0; c < N; ++c) out[c] = score_row32(p, q, ids[c], lane);
 }
 
 // Is (dist, id) in the sorted beam copy (md, mp) of W lanes? Its beam copy
@@ -240,10 +287,17 @@ __device__ int seed_beam(const Params& p, const pa::Query& q, int b, float* sd, 
   return scored;
 }
 
-// ---- the walk with its beam in registers (W <= 64, pow2(R) <= 64) ----
+// ---- the walk with its beam in registers (W <= 128, pow2(R) <= 64) ----
 
+// The slot of vertex v in a warp's table of 2^(32 - shift) scored ids.
+__device__ __forceinline__ int seen_slot(int v, int shift) {
+  return static_cast<int>((static_cast<unsigned>(v) * 2654435761u) >> shift);
+}
+
+// At most 128 registers a thread, so 4 CTAs (16 warps) fit an SM: the
+// widest walk spills a few words rather than drop to 12 warps.
 template <int P, int CP>
-__global__ void __launch_bounds__(32 * kWarps) walk_regs(Params p) {
+__global__ void __launch_bounds__(32 * kWarps, 4) walk_regs(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31;
   unsigned char* slice = smem + (threadIdx.x >> 5) * p.slice;
@@ -251,7 +305,10 @@ __global__ void __launch_bounds__(32 * kWarps) walk_regs(Params p) {
   int8_t* qi = reinterpret_cast<int8_t*>(qf + 16 * p.nch);
   float* md = reinterpret_cast<float*>(qi + 16 * p.nch);  // the beam's copy
   int* mp = reinterpret_cast<int*>(md + p.W);
+  int* seen = mp + p.W;  // ids the walk has scored, direct-mapped
+  int* live = seen + p.seen_slots;  // a step's candidates left to score, packed
   const int sent = 2 * p.n_valid + 1;  // pack of every INF entry
+  const unsigned below = (1u << lane) - 1;  // the lanes before this one
 
   float bd[P];
   int bp[P];
@@ -287,8 +344,10 @@ __global__ void __launch_bounds__(32 * kWarps) walk_regs(Params p) {
     return e;
   };
 
+  unsigned long long valid = 0, skipped = 0;  // the lane's candidates; those not scored again
   for (int b = pa::next_in_queue(p.counter, lane); b < p.B; b = pa::next_in_queue(p.counter, lane)) {
     __syncwarp();
+    for (int i = lane; i < p.seen_slots; i += 32) seen[i] = -1;
     const pa::Query q = pa::stage_query<int8_t>(
         p.queries + static_cast<size_t>(b) * p.d, p.d, p.nch, qf, qi, lane);
 
@@ -311,14 +370,41 @@ __global__ void __launch_bounds__(32 * kWarps) walk_regs(Params p) {
         const int j = 32 * c + lane;
         cid[c] = j < p.R ? __ldg(row + j) : -1;
       }
+      int n_live = 0;
 #pragma unroll
       for (int c = 0; c < CP; ++c) {
         const int j = 32 * c + lane;
         if (!(j < deg && cid[c] >= 0 && cid[c] < p.n_valid)) cid[c] = -1;
         cmps += __popc(__ballot_sync(pa::kFullMask, cid[c] >= 0));
+        valid += cid[c] >= 0;
+        // a vertex this walk has scored is in the beam or at or past the
+        // beam's L-th distance, which never grows: it cannot be kept, so
+        // its row is not read again
+        if (cid[c] >= 0 && seen[seen_slot(cid[c], p.seen_shift)] == cid[c]) {
+          cid[c] = -1;
+          skipped += 1;
+        }
+        const unsigned m = __ballot_sync(pa::kFullMask, cid[c] >= 0);
+        if (CP > 1 && cid[c] >= 0) live[n_live + __popc(m & below)] = cid[c];
+        n_live += __popc(m);
+      }
+      // the rest (packed to the front past one register), 32 rows a pass;
+      // passes past n_live are skipped
+      if (CP > 1) {
+        __syncwarp();
+#pragma unroll
+        for (int c = 0; c < CP; ++c) {
+          const int i = 32 * c + lane;
+          cid[c] = i < n_live ? live[i] : -1;
+        }
       }
       float cd[CP];
-      score_rows<CP>(p, q, cid, cd, lane);
+#pragma unroll
+      for (int c = 0; c < CP; ++c) {
+        cd[c] = 32 * c < n_live ? score_row32(p, q, cid[c], lane) : pa::kInf;
+        if (cid[c] >= 0) seen[seen_slot(cid[c], p.seen_shift)] = cid[c];
+      }
+      __syncwarp();
       nv += 1;
       const float worst = md[p.L - 1];
       bool any = false;
@@ -370,9 +456,13 @@ __global__ void __launch_bounds__(32 * kWarps) walk_regs(Params p) {
     }
     finish_query(p, b, nv, cmps, lane);
   }
+  if (p.counts != nullptr) {
+    atomicAdd(p.counts, valid);
+    atomicAdd(p.counts + 1, skipped);
+  }
 }
 
-// ---- the walk with its beam in shared memory (W > 64 or pow2(R) > 64) ----
+// ---- the walk with its beam in shared memory (W > 128 or pow2(R) > 64) ----
 
 __global__ void __launch_bounds__(32) walk_smem(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -487,7 +577,35 @@ using WalkFn = void (*)(Params);
 
 WalkFn pick(int P, int CP) {
   if (P == 1) return CP == 1 ? &walk_regs<1, 1> : &walk_regs<1, 2>;
-  return CP == 1 ? &walk_regs<2, 1> : &walk_regs<2, 2>;
+  if (P == 2) return CP == 1 ? &walk_regs<2, 1> : &walk_regs<2, 2>;
+  return CP == 1 ? &walk_regs<4, 1> : &walk_regs<4, 2>;
+}
+
+// The walk a launch takes, its CTA and its shared memory (sets p.slice and
+// the table's size): the register walk for W <= 128 beam lanes and Nc <= 64
+// candidate lanes, walk_smem past either. Per warp: the query as f32 and
+// int8 (80 bytes a chunk), then the beam (8 bytes a lane) and, in the
+// register walk, its table of scored ids (min(32 W, 2048) slots of 4 bytes),
+// in walk_smem the candidates.
+struct Walk {
+  WalkFn kernel;
+  int P, CP;  // registers a lane; 0, 0 for walk_smem
+  int threads;
+  size_t smem;
+};
+
+Walk choose(Params& p) {
+  const int P = p.W / 32, CP = p.Nc / 32;
+  const size_t qbytes = 80 * static_cast<size_t>(p.nch);
+  if (P <= kMaxRegP && CP <= kMaxRegC) {
+    p.seen_slots = 32 * p.W < kSeenSlots ? 32 * p.W : kSeenSlots;
+    p.seen_shift = 32 - (__builtin_ctz(static_cast<unsigned>(p.seen_slots)));
+    p.slice = static_cast<int>(qbytes + 8 * static_cast<size_t>(p.W) +
+                               4 * static_cast<size_t>(p.seen_slots + p.Nc));
+    return Walk{pick(P, CP), P, CP, 32 * kWarps, static_cast<size_t>(kWarps) * p.slice};
+  }
+  p.slice = static_cast<int>(qbytes + 8 * static_cast<size_t>(p.W + p.Nc));
+  return Walk{&walk_smem, 0, 0, 32, static_cast<size_t>(p.slice)};
 }
 
 // A test launch of the block-level bitonic sort: one CTA sorts one row of
@@ -517,7 +635,7 @@ extern "C" int pa_fused_beam(const void* queries, const void* tier, const void* 
                              int Rp, float cut, int limit, int use_cut, int mips,
                              void* counter, void* out_ids, void* out_dist, void* out_nv,
                              void* out_cmps, void* vis_ids, void* vis_dist, int vstride,
-                             void* stream) {
+                             void* counts, void* stream) {
   if (B == 0) return 0;
   Params p;
   p.queries = static_cast<const float*>(queries);
@@ -549,35 +667,46 @@ extern "C" int pa_fused_beam(const void* queries, const void* tier, const void* 
   p.vis_ids = static_cast<int*>(vis_ids);
   p.vis_dist = static_cast<float*>(vis_dist);
   p.vstride = vstride;
+  p.counts = static_cast<unsigned long long*>(counts);
 
-  // per warp: the query as f32 and int8 (80 bytes a chunk), then the beam
-  // (8 bytes a lane) and, in walk_smem, the candidates
-  const int P = p.W / 32, CP = p.Nc / 32;
-  const size_t qbytes = 80 * static_cast<size_t>(p.nch);
-  WalkFn kernel;
-  int threads;
-  size_t smem;
-  if (P <= kMaxRegP && CP <= kMaxRegC) {
-    kernel = pick(P, CP);
-    threads = 32 * kWarps;
-    p.slice = static_cast<int>(qbytes + 8 * static_cast<size_t>(p.W));
-    smem = static_cast<size_t>(kWarps) * p.slice;
-  } else {
-    kernel = &walk_smem;
-    threads = 32;
-    p.slice = static_cast<int>(qbytes + 8 * static_cast<size_t>(p.W + p.Nc));
-    smem = p.slice;
-  }
-  cudaError_t err = pa::allow_smem(kernel, smem);
+  const Walk w = choose(p);
+  cudaError_t err = pa::allow_smem(w.kernel, w.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   long long resident = 0;
-  err = pa::resident_ctas(reinterpret_cast<const void*>(kernel), threads, smem, &resident);
+  err = pa::resident_ctas(reinterpret_cast<const void*>(w.kernel), w.threads, w.smem,
+                          &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   // a persistent grid: every SM full, or one warp a query if fewer
-  const long long ctas = (static_cast<long long>(B) + threads / 32 - 1) / (threads / 32);
+  const long long ctas = (static_cast<long long>(B) + w.threads / 32 - 1) / (w.threads / 32);
   const int grid = static_cast<int>(ctas < resident ? ctas : resident);
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  w.kernel<<<grid, w.threads, w.smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The walk a launch of kernel 3 over rows of d int8 values, Wb = pow2(L)
+// beam lanes and Rp = pow2(R) neighbours takes on the current card ->
+// out[0..5] = P and CP (0 and 0: walk_smem), threads a CTA, registers a
+// thread, local (spilled) bytes a thread, resident CTAs an SM.
+extern "C" int pa_fused_beam_info(int d, int Wb, int Rp, int* out) {
+  Params p{};
+  p.W = Wb > 32 ? Wb : 32;
+  p.Nc = Rp > 32 ? Rp : 32;
+  p.nch = (d + 15) / 16;
+  const Walk w = choose(p);
+  cudaError_t err = pa::allow_smem(w.kernel, w.smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, w.kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, w.kernel, w.threads, w.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = w.P;
+  out[1] = w.CP;
+  out[2] = w.threads;
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  out[5] = per_sm;
+  return 0;
 }
 
 extern "C" int pa_bitonic_rows(void* keys, void* vals, int rows, int W, void* stream) {

@@ -288,11 +288,17 @@ __device__ __forceinline__ void cmpx_lanes(float& d, int& p, int j, bool up, int
   p = take ? op : p;
 }
 
+// log2(32 C) for the networks' C = 1, 2 or 4 registers a lane
+template <int C>
+__host__ __device__ constexpr int warp_log() {
+  static_assert(C == 1 || C == 2 || C == 4, "one, two or four registers a lane");
+  return C == 1 ? 5 : C == 2 ? 6 : 7;
+}
+
 // Sort 32 C (key, pack) pairs descending.
 template <int C>
 __device__ __forceinline__ void warp_sort_desc(float (&d)[C], int (&p)[C], int lane) {
-  static_assert(C == 1 || C == 2, "one or two registers a lane");
-  constexpr int kLog = C == 1 ? 5 : 6;  // log2(32 C)
+  constexpr int kLog = warp_log<C>();
 #pragma unroll
   for (int lk = 1; lk <= kLog; ++lk) {
     const int k = 1 << lk;
@@ -313,11 +319,11 @@ __device__ __forceinline__ void warp_sort_desc(float (&d)[C], int (&p)[C], int l
   }
 }
 
-// Sort ascending 32 C pairs that form a bitonic sequence.
+// Sort ascending 32 C pairs that form a bitonic sequence. Strides of 32
+// and more (C = 2, 4) pair registers within a lane, the rest lanes.
 template <int C>
 __device__ __forceinline__ void warp_merge(float (&d)[C], int (&p)[C], int lane) {
-  static_assert(C == 1 || C == 2, "one or two registers a lane");
-  constexpr int kLog = C == 1 ? 5 : 6;  // log2(32 C)
+  constexpr int kLog = warp_log<C>();
 #pragma unroll
   for (int lj = kLog - 1; lj >= 0; --lj) {
     const int j = 1 << lj;

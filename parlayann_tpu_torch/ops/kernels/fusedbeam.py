@@ -8,9 +8,9 @@ the Vamana build's fused read phase) at E = 1 with loop dedup, and of
 ops/pallas/bitonic.py. ``build_beam_fused`` is the same walk at k = 0
 recording each expansion's (id, beam distance). The CUDA kernel
 (``csrc/fusedbeam.cu``) runs each query's whole search in one warp, its
-beam in registers (L <= 64 and R <= 64) or in the warp's shared memory
-(up to ``MAX_WB`` lanes), on a persistent grid whose warps take queries
-from a counter. So the TPU's
+beam in registers (L <= 128 and R <= 64; :func:`walk_info` says which walk
+a shape takes) or in the warp's shared memory (up to ``MAX_WB`` lanes), on
+a persistent grid whose warps take queries from a counter. So the TPU's
 per-step launches, straggler ladder and inline-ext id byte planes have no
 counterpart: ids come from ``graph.neighbors`` and vectors straight from
 the int8 tier.
@@ -24,6 +24,8 @@ package's ``beam_search_batch``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -152,7 +154,7 @@ def build_beam_fused_plain(queries, tier_data, nbrs, degs, starts, *,
 
 
 def _launch(queries, tier_data, nbrs, degs, starts, *, metric, n_valid, k, L, cut,
-            limit, vmax=None):
+            limit, vmax=None, counts=None):
     """Check the inputs and launch kernel 3 -> ((ids, dists, nv, cmps), the
     launch's return code, None if there were no queries to launch for);
     given ``vmax``, its build mode, whose ids and dists are the visited
@@ -183,6 +185,10 @@ def _launch(queries, tier_data, nbrs, degs, starts, *, metric, n_valid, k, L, cu
         stride = S = starts.shape[1]
     if S > Wb:
         raise ValueError(f"{S} start vertices exceed the beam's {Wb} lanes")
+    if counts is not None:
+        _lib.require(counts, "counts", torch.int64, 1)
+        if counts.numel() != 2 or counts.device != dev:
+            raise ValueError("counts must hold 2 int64 on the inputs' device")
     limit = min(limit, n_valid)
     nv = torch.empty(B, dtype=torch.int32, device=dev)
     cmps = torch.empty(B, dtype=torch.int32, device=dev)
@@ -200,7 +206,7 @@ def _launch(queries, tier_data, nbrs, degs, starts, *, metric, n_valid, k, L, cu
     fn = _lib.function(
         "pa_fused_beam",
         [_lib.VP] * 5 + [_lib.INT] * 10 + [_lib.FLOAT] + [_lib.INT] * 3
-        + [_lib.VP] * 7 + [_lib.INT, _lib.VP])
+        + [_lib.VP] * 7 + [_lib.INT, _lib.VP, _lib.VP])
     use_cut = k > 0 and metric.is_metric and k < L
     # the persistent grid's query queue: the next query to take
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -209,7 +215,8 @@ def _launch(queries, tier_data, nbrs, degs, starts, *, metric, n_valid, k, L, cu
             degs.data_ptr(), starts.data_ptr(), stride, B, d, R, S, n_valid,
             k, L, Wb, pow2(R), cut, limit, int(use_cut),
             int(metric is Metric.MIPS), counter.data_ptr(), ptr[0], ptr[1],
-            nv.data_ptr(), cmps.data_ptr(), ptr[2], ptr[3], vstride, _lib.stream())
+            nv.data_ptr(), cmps.data_ptr(), ptr[2], ptr[3], vstride,
+            None if counts is None else counts.data_ptr(), _lib.stream())
     return (ids, dists, nv, cmps), rc
 
 
@@ -240,7 +247,8 @@ beam_search_fused.launches = 0
 
 
 def build_beam_fused(queries, tier_data, nbrs, degs, starts, *,
-                     metric: Metric, n_valid: int, L: int, vmax: int):
+                     metric: Metric, n_valid: int, L: int, vmax: int,
+                     counts: torch.Tensor | None = None):
     """The Vamana build's insertion search (JAX fusedbeam.py:952): the walk
     at k = 0 (no cut) with a budget of min(vmax, n_valid) expansions ->
     (visited ids (B, vmax) int32 in expansion order, -1-padded; their beam
@@ -248,7 +256,12 @@ def build_beam_fused(queries, tier_data, nbrs, degs, starts, *,
 
     Inputs as :func:`beam_search_fused`'s. CPU tensors run
     :func:`build_beam_fused_plain`; CUDA tensors launch kernel 3's build
-    mode, counted in ``build_beam_fused.launches``."""
+    mode, counted in ``build_beam_fused.launches``. ``counts``, an int64
+    tensor of 2 on the card, gains the register walk's valid candidates
+    (the step distances its ``dist_cmps`` count) and those among them
+    whose tier row it did not read, having scored them earlier in the same
+    walk (the shared-memory walk adds nothing; the plain version leaves it
+    as it is)."""
     if not _lib.route(queries, tier_data, nbrs, degs, starts):
         return build_beam_fused_plain(
             queries, tier_data, nbrs, degs, starts, metric=metric,
@@ -256,7 +269,8 @@ def build_beam_fused(queries, tier_data, nbrs, degs, starts, *,
     if vmax < 1:
         raise ValueError(f"vmax must be >= 1, got {vmax}")
     out, rc = _launch(queries, tier_data, nbrs, degs, starts, metric=metric,
-                      n_valid=n_valid, k=0, L=L, cut=0.0, limit=vmax, vmax=vmax)
+                      n_valid=n_valid, k=0, L=L, cut=0.0, limit=vmax, vmax=vmax,
+                      counts=counts)
     if rc is not None:
         build_beam_fused.launches += 1
         _lib.check(rc, "build_beam_fused")
@@ -264,6 +278,19 @@ def build_beam_fused(queries, tier_data, nbrs, degs, starts, *,
 
 
 build_beam_fused.launches = 0
+
+
+def walk_info(d: int, L: int, R: int) -> dict:
+    """The walk kernel 3 takes on the current card for rows of d int8
+    values, beam L and R neighbours -> dict(walk="walk_regs<P,CP>" or
+    "walk_smem", threads (a CTA), regs and local_bytes (a thread, from the
+    runtime), resident_warps (an SM, at the launch's shared memory))."""
+    fn = _lib.function("pa_fused_beam_info", [_lib.INT] * 3 + [_lib.VP])
+    out = (ctypes.c_int * 6)()
+    _lib.check(fn(d, pow2(max(L, 8)), pow2(R), ctypes.addressof(out)), "walk_info")
+    P, CP, threads, regs, local, ctas = out
+    return dict(walk=f"walk_regs<{P},{CP}>" if P else "walk_smem", threads=threads,
+                regs=regs, local_bytes=local, resident_warps=ctas * threads // 32)
 
 
 def bitonic_sort_rows(keys: torch.Tensor, vals: torch.Tensor):

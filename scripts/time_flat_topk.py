@@ -2,8 +2,8 @@
 
 Usage, on a machine with an NVIDIA GPU and nvcc:
 
-    python3 scripts/time_flat_topk.py [--kernel flat_topk|occlusion|fusedbeam|cluster|router|
-                                                multi] [--root DIR]
+    python3 scripts/time_flat_topk.py [--kernel flat_topk|occlusion|fusedbeam|fusedbuild|
+                                                cluster|router|multi] [--root DIR]
                                       [--reps N] [--tag NAME]
                                       [--f32] [--build N ...] [--build-reps K]
                                       [--f32-build]
@@ -31,13 +31,32 @@ checkout in turns (A, B, B, A) in one call on one machine.
   build; the graph's digest is printed, so two checkouts can be seen to
   search the same graph), then times the q8 walk at chip_smoke.py's four
   shapes, B = 1024 and 10,000 queries x L = 10 and 64, and at B = 10,000,
-  L = 128 (a beam wider than the register walk's 64), on the search's own
+  L = 128 (128 beam lanes), on the search's own
   inputs (translated queries, entry-tier starts). Each shape's four
   outputs are also checked equal to the checkout's plain version, and the
   mean and largest visits are printed. Then the checkout's q8
   ``Index.batch_search_timed`` of the 10K queries at chip_smoke.py's beams
   (10/16/32/64, three fenced rounds after a warm-up): recall@10 against
   exact ground truth, QPS, mean visits and distance counts.
+- ``--kernel fusedbuild`` (kernel 3's build mode, ``build_beam_fused``):
+  the graphs of chip_smoke.py's phases 3 and 3b (the 100K q8 Vamana builds
+  at R=32 L=64 alpha 1.2 and R=64 L=128 alpha 1.15, batch_cap_frac 0.16),
+  phase 9's HCNNG graph and phase 6's 1M q8 graph (1M x 128, 10K
+  clusters, R=32 L=64, 0.04); then the build mode at a steady batch of
+  each build, as chip_smoke.py's ``kernel_build_fused``: B = 16,000 of the
+  100K q8 tier's rows at (R, L, vmax) = (32, 64, 64) and (64, 128, 128),
+  and B = 40,000 of the 1M tier's rows at (32, 64, 64), each launch's four
+  outputs checked equal to the checkout's plain version, with its time, a
+  step's time (the total visits over it), the walk the launcher takes
+  (with its registers and resident warps an SM: from the runtime where the
+  checkout's wrapper has ``walk_info``, else from nvcc's -Xptxas -v
+  report) and, where the checkout counts them, the share of step
+  distances whose tier row the walk did not read again. Then kernel 3's
+  search at chip_smoke.py's shapes (and B = 10,000, L = 128) on the R = 32
+  graph, at B = 10,000 and L = 10, 64 and 128 on the R = 64 graph, and on
+  the HCNNG graph (R = 90), outputs checked and timed. Pass
+  ``--index-cache FILE`` to every run of one call: the first saves its
+  graphs there and the others walk the same ones.
 - ``--kernel cluster`` (kernel 5): builds chip_smoke.py's 100K ClusterIndex
   (m=64, Rc=16, slack 1.5) with the checkout's own build on the f32 and the
   int8 ext layout (a digest of each ext is printed, so two checkouts can be
@@ -93,7 +112,9 @@ from __future__ import annotations
 import argparse
 import hashlib
 import importlib.util
+import inspect
 import json
+import re
 import sys
 import time
 from pathlib import Path
@@ -345,10 +366,146 @@ def time_multi(chip, reps, dev):
     return out
 
 
+# kernel 3's build mode: (name, data, graph, B, R, L), vmax = max(L, R + 16) as
+# chip_smoke.py's kernel_build_fused; phase 3's and phase 3b's R = 64 graphs
+# at a steady batch of 16,000 (0.16 x 100K), phase 6's 1M graph at its
+# steady batch of 40,000 (0.04 x 1M)
+FUSEDBUILD_SHAPES = (("R32_L64_vmax64_B16000", "100K", "R32", 16_000, 32, 64),
+                     ("R64_L128_vmax128_B16000", "100K", "R64", 16_000, 64, 128),
+                     ("1M_R32_L64_vmax64_B40000", "1M", "1M", 40_000, 32, 64))
+
+
+def _ptxas_walks(log):
+    """Registers and spills of kernel 3's walks from nvcc's -Xptxas -v log
+    -> {"walk_regs<P,CP>" or "walk_smem": dict(regs, spill_stores,
+    spill_loads)}; empty when the library was already built."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            w = re.search(r"walk_regsILi(\d+)ELi(\d+)E", m.group(1))
+            name = (f"walk_regs<{w.group(1)},{w.group(2)}>" if w
+                    else "walk_smem" if "walk_smem" in m.group(1) else None)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["regs"] = int(m.group(1))
+            name = None
+    return out
+
+
+def _resident_warps(regs, warps_per_cta):
+    """Warps of a kernel an H100 SM holds by its registers alone (256-register
+    allocation units a warp, 32 CTAs and 64 warps an SM at most): for a
+    checkout whose wrapper cannot ask the runtime."""
+    per_warp = -(-regs * 32 // 256) * 256
+    ctas = min(65536 // per_warp // warps_per_cta, 32, 64 // warps_per_cta)
+    return ctas * warps_per_cta
+
+
+def time_fusedbuild(chip, reps, dev, cache=None):
+    import numpy as np
+    import torch
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch import interop
+    from parlayann_tpu_torch.ops.kernels import _lib
+    from parlayann_tpu_torch.ops.kernels import fusedbeam as fb
+    from parlayann_tpu_torch.utils import synthetic
+    from parlayann_tpu_torch.utils.arrays import pow2
+
+    log = _lib.build_report()[1]
+    data = {"100K": synthetic.clustered(100_000, 128, n_queries=10_000, n_clusters=1000,
+                                        cluster_std=0.35, seed=SEED),
+            "1M": synthetic.clustered(chip.TIER_N, 128, n_queries=10, n_clusters=10_000,
+                                      cluster_std=0.35, seed=SEED)}
+    # the card's builds are deterministic, but checkouts compared in one call
+    # share the first run's graphs through the cache and build nothing
+    builds = {"R32": ("100K", dict(R=32, L=64, alpha=1.2, batch_cap_frac=0.16)),
+              "R64": ("100K", dict(R=64, L=128, alpha=1.15, batch_cap_frac=0.16)),
+              "1M": ("1M", dict(R=32, L=64, alpha=1.2, batch_cap_frac=0.04))}
+    if cache and Path(cache).exists():
+        saved = dict(np.load(cache))
+    else:
+        saved = {}
+        for name, (src, kw) in builds.items():
+            g, _, _ = pt.build_vamana_index(data[src][0], device=dev, **kw)
+            saved[f"{name}_nbrs"], saved[f"{name}_degs"] = (g.neighbors.cpu().numpy(),
+                                                            g.degrees.cpu().numpy())
+        g, _, _ = pt.build_hcnng_index(data["100K"][0], mst_deg=3, num_clusters=30,
+                                       cluster_size=1000, device=dev, seed=chip.PYNN_SEED)
+        saved["hcnng_nbrs"], saved["hcnng_degs"] = (g.neighbors.cpu().numpy(),
+                                                    g.degrees.cpu().numpy())
+        if cache:
+            np.savez(cache, **saved)
+
+    def index(name, src):
+        nb, dg = saved[f"{name}_nbrs"], saved[f"{name}_degs"]
+        graph = interop.graph_from_state(nb, dg, len(dg), nb.shape[1], device=dev)
+        points = pt.PointSet.from_numpy(data[src][0], device=dev)
+        return pt.Index(points=points, graph=graph).enable_quantized(bits=8)
+
+    out = {"graphs": {name: hashlib.sha256(saved[f"{name}_nbrs"].tobytes()
+                                           + saved[f"{name}_degs"].tobytes()).hexdigest()[:16]
+                      for name in ("R32", "R64", "1M", "hcnng")},
+           "ptxas": _ptxas_walks(log)}
+    counted = "counts" in inspect.signature(fb.build_beam_fused).parameters
+    for key, src, name, B, R, L in FUSEDBUILD_SHAPES:
+        idx = index(name, src)
+        tier, g = idx.qpoints, idx.graph
+        vmax = max(L, R + 16)
+        ids = torch.from_numpy(np.random.default_rng(SEED).permutation(tier.n)[:B]
+                               .astype(np.int64)).to(dev)
+        args = (tier.data[ids].float(), tier.data, g.neighbors, g.degrees,
+                torch.zeros((B, 1), dtype=torch.int32, device=dev))
+        kw = dict(metric=tier.metric, n_valid=tier.n, L=L, vmax=vmax)
+        got = fb.build_beam_fused(*args, **kw)
+        want = fb.build_beam_fused_plain(*args, **kw)
+        ms = chip.time_ms(lambda: fb.build_beam_fused(*args, **kw), reps)
+        steps = int(got[2].sum())
+        row = dict(equal=all(bool(torch.equal(a, b)) for a, b in zip(got, want)), ms=ms,
+                   steps=steps, ns_per_step=ms * 1e6 / steps)
+        if hasattr(fb, "walk_info"):
+            row.update(fb.walk_info(tier.d, L, R))
+        else:  # the launcher's rule before register walks of 128 lanes
+            walk = (f"walk_regs<{max(pow2(L), 32) // 32},{max(pow2(R), 32) // 32}>"
+                    if pow2(L) <= 64 and pow2(R) <= 64 else "walk_smem")
+            row["walk"] = walk
+            if walk in out["ptxas"]:
+                row["resident_warps_from_regs"] = _resident_warps(
+                    out["ptxas"][walk]["regs"], 4 if walk != "walk_smem" else 1)
+        if counted:
+            counts = torch.zeros(2, dtype=torch.int64, device=dev)
+            fb.build_beam_fused(*args, **kw, counts=counts)
+            row["step_distances"], row["rows_skipped"] = map(int, counts.tolist())
+            row["rows_skipped_share"] = row["rows_skipped"] / max(row["step_distances"], 1)
+        out[key] = row
+    # kernel 3's search rows: chip_smoke.py's shapes on phase 3's graph, on
+    # the R = 64 graph and on the HCNNG graph (R = 90, the shared-memory
+    # walk), and L = 128
+    for name, shapes in (("R32", chip.FUSED_SHAPES + ((10_000, 128),)),
+                         ("R64", ((10_000, 10), (10_000, 64), (10_000, 128))),
+                         ("hcnng", chip.HCNNG_FUSED)):
+        idx = index(name, "100K")
+        for B, L in shapes:
+            args, kw = chip.fused_args(idx, data["100K"][1][:B], L, dev)
+            got = fb.beam_search_fused(*args, **kw)
+            want = fb.beam_search_fused_plain(*args, **kw)
+            out[f"search_{name}_B{B}_L{L}"] = dict(
+                equal=all(bool(torch.equal(a, b)) for a, b in zip(got, want)),
+                ms=chip.time_ms(lambda: fb.beam_search_fused(*args, **kw), reps))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("flat_topk", "occlusion", "fusedbeam", "cluster",
-                                         "router", "multi"),
+    ap.add_argument("--kernel", choices=("flat_topk", "occlusion", "fusedbeam", "fusedbuild",
+                                         "cluster", "router", "multi"),
                     default="flat_topk")
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose parlayann_tpu_torch is timed")
@@ -364,8 +521,8 @@ def main():
     ap.add_argument("--f32-build", action="store_true",
                     help="also time and profile each --build size on the f32 points")
     ap.add_argument("--index-cache", default=None,
-                    help="cluster: load the two ClusterIndexes from this file, or build "
-                         "and save them there")
+                    help="cluster / fusedbuild: load the indexes or graphs from this file, "
+                         "or build and save them there")
     args = ap.parse_args()
     root = str(Path(args.root).resolve())
     sys.path[:0] = [root]  # the timed package
@@ -392,6 +549,8 @@ def main():
         out.update(time_flat(chip, args.reps or 20, dev))
     elif args.kernel == "fusedbeam":
         out.update(time_fused(chip, args.reps or 20, dev))
+    elif args.kernel == "fusedbuild":
+        out.update(time_fusedbuild(chip, args.reps or 20, dev, args.index_cache))
     elif args.kernel == "cluster":
         out.update(time_cluster(chip, args.reps or 20, dev, args.index_cache))
     elif args.kernel == "router":

@@ -48,36 +48,55 @@ def _row_set(ids, dists, b):
                   for i in range(ids.shape[1]) if dists[b, i] < 1e37 and ids[b, i] >= 0)
 
 
-@pytest.fixture(scope="module")
-def walk_case():
-    """The JAX test's case (tests/test_fusedbeam.py:170): n = 400 random
-    128-d points on the q8 tier, random rows of R = 16 without self loops
-    and degrees from 4 to 16, 32 translated (integer-valued) queries."""
-    rng = np.random.default_rng(5)
-    n, d, R, B = 400, 128, 16, 32
+def _walk_case(seed, R, B, lo):
+    """n = 400 random 128-d points on the q8 tier, random rows of R
+    neighbours without self loops and degrees from lo to R, B translated
+    (integer-valued) queries."""
+    rng = np.random.default_rng(seed)
+    n, d = 400, 128
     X = rng.standard_normal((n, d)).astype(np.float32)
     jq8 = jquantize.quantize_pointset(JPointSet.from_numpy(X), bits=8)
     nbrs = np.stack([rng.choice(np.delete(np.arange(n), i), R, replace=False)
                      for i in range(n)]).astype(np.int32)
-    degs = rng.integers(4, R + 1, (n,)).astype(np.int32)
+    degs = rng.integers(lo, R + 1, (n,)).astype(np.int32)
     Qf = rng.standard_normal((B, d)).astype(np.float32)
     q_t = np.asarray(jquantize.translate_query(jnp.asarray(Qf), jq8), np.float32)
     return dict(n=n, R=R, tier=np.asarray(jq8.data), nbrs=nbrs, degs=degs, q=q_t)
 
 
-@pytest.mark.parametrize("metric", ["L2", "MIPS"])
-def test_torch_build_beam_fused_matches_jax(walk_case, metric):
+@pytest.fixture(scope="module")
+def walk_case():
+    """The JAX test's case (tests/test_fusedbeam.py:170): R = 16, degrees
+    from 4 to 16, 32 queries."""
+    return _walk_case(5, 16, 32, 4)
+
+
+@pytest.fixture(scope="module")
+def wide_case():
+    """bench.py's second configuration's widths: R = 64 (rows of 16 to 64
+    neighbours), 16 queries; walked at L = 128, vmax = 128, the card's
+    widest register walk."""
+    return _walk_case(6, 64, 16, 16)
+
+
+@pytest.mark.parametrize("case,metric", [
+    pytest.param("walk_case", "L2", id="L2"), pytest.param("walk_case", "MIPS", id="MIPS"),
+    pytest.param("wide_case", "L2", id="R64-L128-L2"),
+    pytest.param("wide_case", "MIPS", id="R64-L128-MIPS")])
+def test_torch_build_beam_fused_matches_jax(request, case, metric):
     """Per-row (distance, id) sets of the visited lists and num_visited
-    equal the JAX kernel's (L = 16, vmax = 24); dist_cmps equal the port's
-    lock-step recorder at expand = 1; rows are -1 / INF past num_visited."""
-    c = walk_case
-    n, L, vmax = c["n"], 16, 24
+    equal the JAX kernel's (L = 16, vmax = 24 over rows of 16; L = 128,
+    vmax = 128 over rows of 64); dist_cmps equal the port's lock-step
+    recorder at expand = 1; rows are -1 / INF past num_visited."""
+    c = request.getfixturevalue(case)
+    n = c["n"]
+    L, vmax, block_b = (16, 24, 32) if case == "walk_case" else (128, 128, 16)
     jm, tm = JMetric[metric], Metric[metric]
     jn, jd = jnp.asarray(c["nbrs"]), jnp.asarray(c["degs"])
     iext = jfused.build_inline_ext(jnp.asarray(c["tier"]), jn, jd)
     j_ids, j_d, j_nv, _ = jfused.build_beam_fused(
         jnp.asarray(c["q"]), jnp.asarray(c["tier"]), iext, jnp.zeros((1,), jnp.int32),
-        metric=jm, n_valid=n, L=L, vmax=vmax, G=8, block_b=32)
+        metric=jm, n_valid=n, L=L, vmax=vmax, G=8, block_b=block_b)
     j_ids, j_d = np.asarray(j_ids), np.asarray(j_d)
 
     args = (torch.tensor(c["q"]), torch.tensor(c["tier"]),

@@ -33,12 +33,13 @@ from parlayann_tpu_torch.ops.kernels.occlude import (
     occlusion_rounds, occlusion_rounds_plain, pairwise_ordered)
 from parlayann_tpu_torch.ops.kernels.fusedbeam import (
     beam_search_fused, beam_search_fused_plain, bitonic_sort_rows, build_beam_fused,
-    build_beam_fused_plain)
+    build_beam_fused_plain, walk_info)
 from parlayann_tpu_torch.ops.kernels.flatscan import (
     MAX_K, flat_topk, flat_topk_plain, splits)
 from parlayann_tpu_torch.ops.kernels.clusterbeam import (
     cluster_walk, cluster_walk_plain, seed_centroids)
 from parlayann_tpu_torch.ops.topk import lexsort
+from parlayann_tpu_torch.utils.arrays import pow2
 from parlayann_tpu_torch.api import build_cluster_index, build_hnsw_index, build_vamana_index
 from parlayann_tpu_torch.build import hcnng, hnsw, pynndescent
 from parlayann_tpu_torch.harness.recall import compute_recall
@@ -567,26 +568,48 @@ def _check_build_walk(args, **kw):
     return got
 
 
-@pytest.mark.parametrize("R,L,vmax", [(32, 64, 64), (64, 128, 128), (90, 64, 106)])
+@pytest.mark.parametrize("R,L,vmax", [(32, 64, 64), (64, 128, 128), (90, 64, 106),
+                                       (48, 100, 100), (64, 129, 129)])
 @pytest.mark.parametrize("metric", [Metric.L2, Metric.MIPS])
 def test_torch_cuda_build_beam_fused_equal(gen, cuda, metric, R, L, vmax):
-    """The build mode at the builds' (R, L, vmax): phase 3's (register
-    walk), bench.py's R = 64, L = 128 (the shared-memory walk) and degree
-    90 (vmax = R + 16, which the walk does not reach); a build's starts (point 0, -1 on the last 40 rows, padded rows
-    that do no work); half the queries are the tier's own rows, as a
-    build's inserts are."""
+    """The build mode, and the search (k = 10) over the same inputs, at the
+    builds' (R, L, vmax) and the register walk's edges: phase 3's (64
+    lanes), bench.py's R = 64, L = 128 (the widest register walk, 128
+    lanes and 64 candidates), R = 48, L = 100 (neither a power of two:
+    lanes 100-127 hold the sentinel), L = 129 (256 lanes: the
+    shared-memory walk) and degree 90 (the shared-memory walk; vmax = R +
+    16, which the walk does not reach); a build's starts (point 0, -1 on
+    the last 40 rows, padded rows that do no work); half the queries are
+    the tier's own rows, as a build's inserts are."""
     q, tier, nbrs, degs, _ = _walk_case(gen, cuda, R=R, B=256)
     q[:128] = tier[:128].float()
     starts = torch.zeros((256, 1), dtype=torch.int32, device=cuda)
     starts[-40:] = -1
-    ids, dists, nv, _ = _check_build_walk((q, tier, nbrs, degs, starts), metric=metric,
-                                          n_valid=2000, L=L, vmax=vmax)
+    ids, dists, nv, cm = _check_build_walk((q, tier, nbrs, degs, starts), metric=metric,
+                                           n_valid=2000, L=L, vmax=vmax)
     assert ids.shape == dists.shape == (256, vmax)
     assert bool((nv[-40:] == 0).all()) and bool((ids[-40:] == -1).all())
     if vmax == L:
         assert int(nv.max()) == vmax  # the budget binds
     else:  # degree 90 at L = 64 converges first: rows padded from nv
         assert int(nv[:-40].min()) > 0 and int(nv.max()) < vmax
+    # the walk the launcher takes, and its count of rows not read again
+    info = walk_info(128, L, R)
+    regs = L <= 128 and R <= 64
+    assert info["walk"] == (f"walk_regs<{max(pow2(L), 32) // 32},{max(pow2(R), 32) // 32}>"
+                            if regs else "walk_smem")
+    assert info["regs"] > 0 and info["resident_warps"] > 0
+    counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+    build_beam_fused(q, tier, nbrs, degs, starts, metric=metric, n_valid=2000, L=L,
+                     vmax=vmax, counts=counts)
+    valid, skipped = counts.tolist()
+    if regs:  # every step distance the walk counts, less the seeds'
+        assert valid == int(cm.sum()) - 216 and 0 < skipped < valid
+    else:
+        assert valid == skipped == 0
+    ids, _, nv, _ = _check_walk((q, tier, nbrs, degs, starts), metric=metric, n_valid=2000,
+                                k=10, L=L)
+    assert ids.shape == (256, L) and bool((nv[-40:] == 0).all()) and int(nv.max()) > 1
 
 
 @pytest.mark.parametrize("B", [0, 1, 500])
