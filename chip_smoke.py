@@ -234,8 +234,10 @@ expanded ids; kernel 5: the distinct expanded ext rows, their id planes
 and valid vectors, and f32 rows' operations at the f32 rate, int8 rows'
 at the int8 rate). Kernel 4 runs on
 the tensor cores in 3xTF32, so its operations are 3 TF32 passes (2 for
-int8 points) of 2 B N d over 495 T/s (N: the points in the valid mask
-where there is one), the H100 SXM dense TF32 rate;
+int8 points) of 2 B N d over 495 T/s, the H100 SXM dense TF32 rate; its
+masked mode counts N as the points in the valid mask, and on int8 points
+with integer-valued queries its 2 B N d operations at the int8 rate (the
+TF32 passes' bound printed beside it);
 kernel 2's are its stars' 2 C d int8 products and kernel 3's its 2 d int8
 products and sums a distance (integer-valued queries on the int8 tier),
 both over 1,979 T/s, the dense int8 rate (kernel 2's f32 mode runs 3xTF32
@@ -387,9 +389,16 @@ def expand_ops(rows, q, n_dist):
     additions a term at the int8 rate. Otherwise a subtraction, a
     multiplication and an addition a term at the f32 rate."""
     d = q.shape[-1]
-    if rows.dtype == torch.int8 and bool(((q == q.round()) & (q >= -128) & (q <= 127)).all()):
+    if rows.dtype == torch.int8 and int8_valued(q):
         return 4 * n_dist * d, INT8_OPS
     return 3 * n_dist * d, F32_OPS
+
+
+def int8_valued(q):
+    """True where every query value is an integer in [-128, 127], as the q8
+    tier's are: a product of such queries with int8 rows is an int8 x int8
+    product, and its bound counts the int8 rate."""
+    return bool(((q == q.round()) & (q >= -128) & (q <= 127)).all())
 
 
 def unique_rows(ids, n_pad):
@@ -1455,7 +1464,8 @@ def hnsw_profile(X, Q, dev):
     check(prof is not None, "the profiled HNSW build saw no device activity")
     n2, n4 = occlusion_rounds.launches - before[0], flat_topk.launches - before[1]
     ms2 = sum(us for k, us in prof["by_name"].items() if "occlusion" in k) / 1e3
-    ms4 = sum(us for k, us in prof["by_name"].items() if "flat_topk" in k) / 1e3
+    ms4 = sum(us for k, us in prof["by_name"].items()
+              if any(f in k for f in FLAT_KERNELS)) / 1e3
     check(n2 > 0 and n4 > 0 and ms2 > 0 and ms4 > 0,
           "the profiled HNSW build ran no occlusion_rounds or flat_topk")
     log(f"    occlusion_rounds {ms2:.4f} ms over {n2} launches; flat_topk {ms4:.4f} ms "
@@ -1464,21 +1474,21 @@ def hnsw_profile(X, Q, dev):
     sprof = profile_window(lambda: kept["idx"].batch_search(qd, k=K, ef=12),
                            f"HNSW A search of {len(Q)} queries at ef 12")
     check(sprof is not None, "the profiled HNSW search saw no device activity")
-    return dict(idle=prof["idle"], occlusion_ms=ms2, occlusion_launches=n2,
-                flat_ms=ms4, flat_launches=n4, search_idle=sprof["idle"])
+    return dict(idle=prof["idle"], busy_ms=prof["busy_ms"], occlusion_ms=ms2,
+                occlusion_launches=n2, flat_ms=ms4, flat_launches=n4,
+                search_idle=sprof["idle"])
 
 
-def kernel_flat_hnsw(builds, X, dev, B=2000, k=50):
+def hnsw_level1_cases(builds, X, dev, B=2000, k=50):
     """Kernel 4's masked mode on level 1 as the builds call it: build A's
     f32 level points and build B's int8 ones (the q8 tier's rows), the
     queries of the steady batch that starts halfway through the insert
     order (the build's point vectors as f32), the mask of the level's
     members inserted before it, each row excluding its own level-1 id (-1
-    for rows not on level 1), k = efc. f32 equal to the plain version under
-    phase 2's rule, int8 bit-equal -> {"f32", "int8": times and bound}."""
+    for rows not on level 1), k = efc -> {name: case} for ``masked_case``;
+    the yardstick multiplies every member of the level."""
     from parlayann_tpu_torch.build import hnsw
     from parlayann_tpu_torch.ops import quantize
-    from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk, flat_topk_plain
 
     n = len(X)
     _, order = hnsw.insert_plan(n, builds["A"].m_l, HNSW_SEED)
@@ -1486,55 +1496,123 @@ def kernel_flat_hnsw(builds, X, dev, B=2000, k=50):
     pos[order] = np.arange(n)
     lo = n // 2
     rows = torch.from_numpy(order[lo:lo + B].astype(np.int64)).to(dev)
-    out = {}
+    cases = {}
     for name, kind in (("A", "f32"), ("B", "int8")):
         idx = builds[name]
         lv = idx.levels[1]
         ml = len(lv.members)
         vm = np.zeros(lv.points_l.shape[0], dtype=bool)
         vm[:ml] = pos[lv.members] < lo
-        n_in = int(vm.sum())
         data = idx.points.data
         if kind == "int8":
             data = quantize.quantize_pointset(idx.points, bits=8).data
         pts = data[lv.members_d.long()].contiguous()
-        q = data[rows].float().contiguous()
-        excl = lv.glob2loc_d[rows].contiguous()
-        mask = torch.from_numpy(vm).to(dev)
-        kw = dict(k=k, metric=idx.points.metric, n_valid=ml)
-        what = f"flat_topk masked {kind} (HNSW {name} level 1)"
-        got = flat_topk(q, pts, mask, excl, **kw)
-        want = flat_topk_plain(q, pts, mask, excl, **kw)
-        if kind == "int8":
-            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-                  f"{what}: not equal")
-            err, note = 0.0, "equal"
-        else:
-            x = pts.float()
-            scale = (q * q).sum(1) + (x * x).sum(1).max()
-            rel, n_tie = check_topk(got, want, scale, what)
-            ok = want[0] >= 0
-            err = float((got[1] - want[1]).abs()[ok].max())
-            note = f"max rel err {rel:.3g}, {n_tie} rows with tie swaps"
-        check(not bool((got[0] == excl[:, None]).any()), f"{what}: an excluded id")
-        check(bool(mask[got[0][got[0] >= 0].long()].all()), f"{what}: an id outside the mask")
-        ms = time_ms(lambda: flat_topk(q, pts, mask, excl, **kw), 20)
-        plain_ms = time_ms(lambda: flat_topk_plain(q, pts, mask, excl, **kw), 5)
-        # the yardstick of phase 2: the cuBLAS product of the distance matrix
-        x = pts[:ml].float()
-        xn = (x * x).sum(1)[None, :]
-        lib_ms = time_ms(lambda: torch.addmm(xn, q, x.T, beta=1.0, alpha=-2.0), 20)
-        # the function reads only the members in the mask, the mask, the
-        # queries and exclusions, and writes the (B, k) lists
-        d, size, passes = q.shape[1], pts.element_size(), 3 if kind == "f32" else 2
-        b = bound(n_in * d * size + ml + B * d * 4 + B * 4 + B * k * 8,
-                  passes * 2 * B * n_in * d, TF32_OPS)
-        log(f"kernel 4 {what} ({ml} members, {n_in} in the mask) B={B} k={k}: {note}; "
-            f"{ms:.4f} ms vs plain {plain_ms:.4f} ms (torch.addmm of the distance matrix "
-            f"{lib_ms:.4f} ms); bound {b['bound_ms']:.4f} ms ({b['bound_by']}, "
-            f"{passes} TF32 passes over the {n_in} points in the mask)")
-        out[kind] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err, **b)
-    return out
+        cases[f"hnsw_{name}_level1_masked_{kind}_B{B}_k{k}"] = dict(
+            q=data[rows].float().contiguous(), pts=pts, mask=torch.from_numpy(vm).to(dev),
+            excl=lv.glob2loc_d[rows].contiguous(), k=k, metric=idx.points.metric,
+            n_valid=ml, lib_rows=ml, what=f"HNSW {name} level 1")
+    return cases
+
+
+EXACT_FRAC = 0.16  # phase 11b's exact build: batch_cap_frac
+EXACT_K = 64  # its kc = min(vmax, max(L, R + 8)) at R = 32, L = 64
+
+
+def exact_build_cases(X, dev):
+    """Kernel 4's masked mode at the exact-candidate build's shapes (phase
+    11b: q8 tier, R = 32, L = 64, seed 0), from its own schedule
+    (``batch_schedule(n, n, 0.16)``) and pass orders
+    (``default_rng(0).permutation`` twice): (a) pass 1's doubling batch of
+    rows [127, 255), padded to 256; (b) pass 1's steady batch [48383,
+    64383) of 16,000 rows; (c) the same batch of pass 2, all points
+    inserted. Each row queries its own q8 row as f32 and excludes its own id
+    (pad rows: row 0, no exclusion), k = 64, the mask the points inserted
+    before the batch (point 0, the start, from the outset) -> {name: case}
+    for ``masked_case``; the yardstick multiplies the points in the mask."""
+    from parlayann_tpu_torch.build.vamana import _pad_pow2, batch_schedule
+    from parlayann_tpu_torch.data.pointset import PointSet
+    from parlayann_tpu_torch.ops import quantize
+
+    n = len(X)
+    tier = quantize.quantize_pointset(PointSet.from_numpy(X, device=dev), bits=8)
+    sched, max_batch = batch_schedule(n, n, EXACT_FRAC)
+    rng = np.random.default_rng(0)
+    orders = [rng.permutation(n).astype(np.int32) for _ in range(2)]
+    steady = [b for b in sched if b[1] - b[0] >= max(max_batch, 4096)]
+    picks = (("a_pass1_doubling", 0, (127, 255)), ("b_pass1_steady", 0, steady[2]),
+             ("c_pass2_steady", 1, steady[2]))
+    cases = {}
+    for name, p, (lo, hi) in picks:
+        order = orders[p]
+        batch = torch.from_numpy(_pad_pow2(order[lo:hi], max_batch)).to(dev)
+        ins = np.zeros(tier.data.shape[0], dtype=bool)
+        ins[0] = True
+        ins[order[:lo] if p == 0 else order] = True
+        B = len(batch)
+        cases[f"exact_{name}_int8_B{B}_k{EXACT_K}"] = dict(
+            q=tier.data[batch.long().clamp(min=0)].float().contiguous(), pts=tier.data,
+            mask=torch.from_numpy(ins).to(dev), excl=batch, k=EXACT_K, metric=tier.metric,
+            n_valid=n, lib_rows=None,
+            what=f"the exact build's {'pass 1' if p == 0 else 'pass 2'} rows [{lo}, {hi})")
+    return cases
+
+
+def masked_case(case, reps=20, plain_reps=5):
+    """Check kernel 4's masked mode on one case against its plain version
+    (int8 bit-equal, f32 under phase 2's rule; no excluded id, no id outside
+    the mask) and time it -> dict(ms, plain_ms, library_ms, max_abs_err,
+    bound_ms, bound_by, n_in). The yardstick is ``torch.addmm`` of the
+    distance matrix over the case's ``lib_rows`` first rows (None: the
+    points in the mask); the bound counts the points in the mask, the bytes
+    of the in-mask rows, the mask, the queries, the exclusions and the
+    (B, k) lists against the operations of 2 B N_in d: on int8 points with
+    integer-valued queries (every case here) an int8 x int8 product at the
+    int8 rate (``int8_valued``), else 3 TF32 passes. The kernel's own
+    passes, 2 TF32 passes on int8 points, give ``bound_tf32_ms``."""
+    from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk, flat_topk_plain
+
+    q, pts, mask, excl, k = case["q"], case["pts"], case["mask"], case["excl"], case["k"]
+    kw = dict(k=k, metric=case["metric"], n_valid=case["n_valid"])
+    kind = "int8" if pts.dtype == torch.int8 else "f32"
+    what = f"flat_topk masked {kind} ({case['what']})"
+    got = flat_topk(q, pts, mask, excl, **kw)
+    want = flat_topk_plain(q, pts, mask, excl, **kw)
+    if kind == "int8":
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"{what}: not equal")
+        err, note = 0.0, "equal"
+    else:
+        x = pts.float()
+        scale = (q * q).sum(1) + (x * x).sum(1).max()
+        rel, n_tie = check_topk(got, want, scale, what)
+        ok = want[0] >= 0
+        err = float((got[1] - want[1]).abs()[ok].max())
+        note = f"max rel err {rel:.3g}, {n_tie} rows with tie swaps"
+    check(not bool((got[0] == excl[:, None]).any()), f"{what}: an excluded id")
+    check(bool(mask[got[0][got[0] >= 0].long()].all()), f"{what}: an id outside the mask")
+    ms = time_ms(lambda: flat_topk(q, pts, mask, excl, **kw), reps)
+    plain_ms = time_ms(lambda: flat_topk_plain(q, pts, mask, excl, **kw), plain_reps)
+    valid = mask.clone()
+    valid[case["n_valid"]:] = False
+    n_in = int(valid.sum())
+    x = (pts[:case["lib_rows"]] if case["lib_rows"] else pts[valid]).float()
+    xn = (x * x).sum(1)[None, :]
+    lib_ms = time_ms(lambda: torch.addmm(xn, q, x.T, beta=1.0, alpha=-2.0), reps)
+    B, d = q.shape
+    passes = 3 if kind == "f32" else 2
+    nbytes = n_in * d * pts.element_size() + pts.shape[0] + B * d * 4 + B * 4 + B * k * 8
+    tf32 = bound(nbytes, passes * 2 * B * n_in * d, TF32_OPS)
+    if kind == "int8" and int8_valued(q):
+        b, rate = bound(nbytes, 2 * B * n_in * d, INT8_OPS), "the int8 rate"
+    else:
+        b, rate = tf32, f"{passes} TF32 passes"
+    log(f"kernel 4 {what} ({pts.shape[0]} points, {n_in} in the mask) B={B} k={k}: {note}; "
+        f"{ms:.4f} ms vs plain {plain_ms:.4f} ms (torch.addmm of the "
+        f"{'level' if case['lib_rows'] else 'in-mask'} distance matrix {lib_ms:.4f} ms); "
+        f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {rate} over the {n_in} points in "
+        f"the mask; {passes} TF32 passes {tf32['bound_ms']:.4f} ms)")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err, n_in=n_in,
+                bound_tf32_ms=tf32["bound_ms"], **b)
 
 
 HCNNG_BEAMS = (10, 16, 32, 64)
@@ -2337,7 +2415,8 @@ def modes11_run(X, Q, gt, points, graph, dev):
         f"{split[0]:.4f} s, bidirect {split[1]:.4f} s, prune {split[2]:.4f} s")
     _zero_launches()
     out = {}
-    for name, kw in (("exact", dict(cand_mode="exact", profile=True, batch_cap_frac=0.16)),
+    for name, kw in (("exact", dict(cand_mode="exact", profile=True,
+                                    batch_cap_frac=EXACT_FRAC)),
                      ("single_batch", dict(single_batch=8))):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2356,6 +2435,7 @@ def modes11_run(X, Q, gt, points, graph, dev):
             bits=8), q), ps.n, gt, (10, 64), f"{name} build, q8")
     launches = _launch_counts()
     log("launches during phase 11b:", {k: v for k, v in launches.items() if v})
+    exact_kernel4_profile(X, dev)
     for name in ("occlusion_rounds", "flat_topk", "expand_distances"):
         check(launches[name] > 0, f"{name} was not launched by phase 11b")
     check(abs(out["exact"][10] - ref) <= EXACT_GAP,
@@ -2367,6 +2447,35 @@ def modes11_run(X, Q, gt, points, graph, dev):
     log(f"phase 11b: exact build recall@{K} at beam 10 {out['exact'][10]:.4f} (phase 3's "
         f"build {ref:.4f}); single-batch build at beam 64 {out['single_batch'][64]:.4f}")
     return launches
+
+
+# the kernels of kernel 4's masked mode: the scan, the compaction passes and
+# the merge of the splits
+FLAT_KERNELS = ("flat_topk", "compact_count", "compact_scatter", "merge_splits")
+
+
+def exact_kernel4_profile(X, dev):
+    """Phase 11b's exact build once more under torch.profiler: kernel 4's
+    launches and summed device time (the scan and, in the masked mode, its
+    compaction and merge) beside the build's fenced beam split."""
+    import parlayann_tpu_torch as pt
+    from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk
+
+    before, kept = flat_topk.launches, {}
+    prof = profile_window(lambda: kept.setdefault("stats", pt.build_vamana_index(
+        X, R=32, L=64, alpha=1.2, device=dev, cand_mode="exact", profile=True,
+        batch_cap_frac=EXACT_FRAC)[2]), "100K exact build")
+    check(prof is not None, "the profiled exact build saw no device activity")
+    n4 = flat_topk.launches - before
+    ms4 = sum(us for k, us in prof["by_name"].items()
+              if any(f in k for f in FLAT_KERNELS)) / 1e3
+    st = kept["stats"]
+    check(n4 > 0 and ms4 > 0, "the profiled exact build ran no flat_topk")
+    log(f"    flat_topk (kernel 4 masked) {ms4:.4f} ms device time over {n4} launches; "
+        f"the profiled build's fenced split: beam {st.beam_time:.3f} s, bidirect "
+        f"{st.bidirect_time:.3f} s, prune {st.prune_time:.3f} s of {st.build_time:.3f} s")
+    return dict(flat_ms=ms4, flat_launches=n4, busy_ms=prof["busy_ms"], idle=prof["idle"],
+                beam_s=st.beam_time, build_s=st.build_time)
 
 
 def mips11_run(dev):
@@ -3027,7 +3136,7 @@ def main():
     phase("phase 8 (continued): build A and a search under torch.profiler")
     hnsw_profile(X, Q, dev)
     phase("phase 2 (continued): kernel 4's masked mode on HNSW's level 1, kernel 3 on level 0")
-    k4h = kernel_flat_hnsw(hnsw_builds, X, dev)
+    k4m = {name: masked_case(c) for name, c in hnsw_level1_cases(hnsw_builds, X, dev).items()}
     k3h = kernel_fusedbeam(hnsw_builds["A"]._base_index(), Q, dev, shapes=HNSW_FUSED,
                            plain_at=HNSW_FUSED[0], what="HNSW A's level 0")
     del hnsw_builds
@@ -3069,6 +3178,9 @@ def main():
     p11 = {"11a": tiers11_run(*p3, Q, gt, dev)}
     phase("phase 11b: exact-candidate (profiled) and single-batch Vamana builds at 100K")
     p11["11b"] = modes11_run(X, Q, gt, *p3, dev)
+    phase("phase 2 (continued): kernel 4's masked mode at the exact build's shapes")
+    k4m.update({name: masked_case(c, reps=10, plain_reps=2)
+                for name, c in exact_build_cases(X, dev).items()})
     phase("phase 11c: MIPS at 1M (q8 build and sweep, 4-bit, 2-bit and trimmed tiers, filter)")
     p11["11c"] = mips11_run(dev)
     phase("phase 12: the hierarchical ClusterIndex at 10M x 128 (router, teleport, polish, meta seed)")
@@ -3085,8 +3197,7 @@ def main():
                     "hier_seed_blocks_R8_24_int8_B10000": k12["seed"]}
     k1f["shapes"] = {"hnsw_R8_40_f32_B8000": k1h["f32"],
                      "hier_router_blocks_R8_112_f32_B8192": k12["router"]}
-    k4["shapes"] = {"hnsw_A_level1_masked_f32_B2000_k50": k4h["f32"],
-                    "hnsw_B_level1_masked_int8_B2000_k50": k4h["int8"]}
+    k4["shapes"] = k4m
     k3["shapes"].update({f"hnsw_R40_B{B}_L{L}": v for (B, L), v in k3h.items()})
     # kernel 5's times over phase 12's 10M ext
     k5["shapes"]["int8_10M_B10000_p8_meta_seed"] = k12["walk"]

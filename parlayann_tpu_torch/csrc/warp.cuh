@@ -288,11 +288,11 @@ __device__ __forceinline__ void cmpx_lanes(float& d, int& p, int j, bool up, int
   p = take ? op : p;
 }
 
-// log2(32 C) for the networks' C = 1, 2 or 4 registers a lane
+// log2(32 C) for the networks' C = 1, 2, 4 or 8 registers a lane
 template <int C>
 __host__ __device__ constexpr int warp_log() {
-  static_assert(C == 1 || C == 2 || C == 4, "one, two or four registers a lane");
-  return C == 1 ? 5 : C == 2 ? 6 : 7;
+  static_assert(C == 1 || C == 2 || C == 4 || C == 8, "one, two, four or eight registers a lane");
+  return C == 1 ? 5 : C == 2 ? 6 : C == 4 ? 7 : 8;
 }
 
 // Sort 32 C (key, pack) pairs descending.
@@ -320,7 +320,7 @@ __device__ __forceinline__ void warp_sort_desc(float (&d)[C], int (&p)[C], int l
 }
 
 // Sort ascending 32 C pairs that form a bitonic sequence. Strides of 32
-// and more (C = 2, 4) pair registers within a lane, the rest lanes.
+// and more (C > 1) pair registers within a lane, the rest lanes.
 template <int C>
 __device__ __forceinline__ void warp_merge(float (&d)[C], int (&p)[C], int lane) {
   constexpr int kLog = warp_log<C>();

@@ -17,11 +17,17 @@ is float32-accurate: each product misses at most about 3 * 2^-22 of
 MXU passes; a single-pass TF32 or bf16 "fast" is ROADMAP queue 2,
 "B2. flat_topk").
 
-The grid also splits the points: S CTAs scan S contiguous id ranges of one
-block of queries, each keeping its own sorted lists, and
-:func:`merge_split_topk` merges them (:func:`split_plan` picks S). The
-splits of a row share the best k-th entry any of them has reached through
-a (B,) scratch, so each filters its candidates against it.
+The grid also splits the points: S CTAs scan S contiguous ranges of one
+block of queries, each keeping its own sorted lists. The splits of a row
+share the best k-th entry any of them has reached through a (B,) scratch,
+so each filters its candidates against it. Without a mask the ranges cut
+the ids (:func:`split_plan` picks S) and :func:`merge_split_topk` merges
+the lists. With ``valid_mask`` the kernel first compacts the valid ids on
+the card (ascending, with their bias and their count, which the host never
+reads), the ranges cut that compacted order (:func:`masked_plan` picks S
+and the fewest tiles a split, the card sizes the splits from the count as
+:func:`split_ranges` does), and a merge kernel merges the lists of the
+splits that hold points.
 """
 
 from __future__ import annotations
@@ -42,7 +48,8 @@ PRECISIONS = ("fast", "exact")
 QUERY_TILE = 64   # queries per CTA (csrc/flatscan.cu kBT)
 POINT_TILE = 128  # points per tile (kCT); a split is a multiple of it
 WAVES = 4         # CTAs the splits aim for, in waves over the card
-MIN_SPLIT = 4096  # points; no split is cut smaller
+MIN_SPLIT = 4096  # points; no split of the unmasked mode is cut smaller
+SPLIT_PER_ENTRY = 4  # a masked split scans at least this many points per list entry
 
 
 def _bias(points: torch.Tensor, valid_mask: Optional[torch.Tensor],
@@ -80,16 +87,44 @@ def _check_args(k: int, precision: str):
         raise ValueError(f"k must be >= 1, got {k}")
 
 
-def split_plan(B: int, n_pad: int, slots: int):
+def split_floor(k: int) -> int:
+    """The fewest points a masked split scans: ``SPLIT_PER_ENTRY`` per entry of
+    the k-entry lists it writes (so the lists the merge reads stay a
+    quarter of the points scanned), at least one tile."""
+    return max(POINT_TILE, SPLIT_PER_ENTRY * k)
+
+
+def split_plan(B: int, n_pad: int, slots: int, floor: int = MIN_SPLIT):
     """-> (S, points per split): enough splits of the point range for about
     ``WAVES`` waves of CTAs over ``slots`` (CTAs resident on the card at
-    once), none smaller than ``MIN_SPLIT`` points; splits are whole tiles,
-    and S = 1 when one split covers every point."""
+    once), none smaller than ``floor`` points; splits are whole tiles, and
+    S = 1 when one split covers every point."""
     rows = -(-B // QUERY_TILE)
     want = -(-WAVES * slots // max(rows, 1))
-    S = max(1, min(want, n_pad // MIN_SPLIT))
+    S = max(1, min(want, n_pad // floor))
     per = max(POINT_TILE, -(-n_pad // (S * POINT_TILE)) * POINT_TILE)
     return max(1, -(-n_pad // per)), per
+
+
+def masked_plan(B: int, n_valid: int, slots: int, k: int):
+    """Masked mode -> (S, fewest tiles a split): the host does not know how
+    many points the mask keeps, so S aims at ``WAVES`` waves as
+    :func:`split_plan` does over ``n_valid`` (the most the mask can keep),
+    with :func:`split_floor` in place of ``MIN_SPLIT`` so that a few
+    thousand points fill the card, and the card sizes the splits from the
+    count (:func:`split_ranges`); splits past the count exit at once."""
+    S, _ = split_plan(B, n_valid, slots, split_floor(k))
+    return S, -(-split_floor(k) // POINT_TILE)
+
+
+def split_ranges(count: int, S: int, min_tiles: int):
+    """The masked mode's splits of ``count`` compacted points, as the card
+    cuts them (csrc/flatscan.cu ``masked_split_tiles``): each split takes
+    max(min_tiles, ceil(tiles / S)) tiles in order -> [(lo, hi)] positions
+    of the splits that hold points."""
+    tiles = -(-count // POINT_TILE)
+    span = max(min_tiles, -(-tiles // S)) * POINT_TILE
+    return [(lo, min(lo + span, count)) for lo in range(0, count, span)]
 
 
 def merge_split_topk(dists: torch.Tensor, ids: torch.Tensor, k: int):
@@ -196,10 +231,14 @@ def flat_topk(queries: torch.Tensor, points: torch.Tensor,
         if exclude_ids.shape != (B,):
             raise ValueError(f"exclude_ids {tuple(exclude_ids.shape)} for {B} queries")
         exclude_ids = exclude_ids.to(torch.int32).contiguous()
-    bias = _bias(points, valid_mask, n_valid, metric).contiguous()
     if B == 0:
         return (torch.empty((0, k), dtype=torch.int32, device=queries.device),
                 torch.empty((0, k), dtype=torch.float32, device=queries.device))
+    if valid_mask is not None:
+        sel_d, sel_i = _launch_masked(queries, points, valid_mask, exclude_ids, k,
+                                      metric, n_valid)
+        return _finish(sel_d, sel_i, queries, metric)
+    bias = _bias(points, None, n_valid, metric).contiguous()
     x_int8 = points.dtype == torch.int8
     S, per = splits(B, n_pad, k, x_int8, queries.device)
     out_d = torch.empty((B, S, k), dtype=torch.float32, device=queries.device)
@@ -209,8 +248,7 @@ def flat_topk(queries: torch.Tensor, points: torch.Tensor,
     fn = _lib.function("pa_flat_topk", [_lib.VP] * 5 + [_lib.INT] * 4
                        + [_lib.FLOAT] + [_lib.INT] * 5 + [_lib.VP] * 3)
     rc = fn(queries.data_ptr(), points.data_ptr(), bias.data_ptr(),
-            None if exclude_ids is None else exclude_ids.data_ptr(),
-            None if thr is None else thr.data_ptr(), B, n_pad, d, k,
+            _ptr(exclude_ids), _ptr(thr), B, n_pad, d, k,
             -1.0 if metric is Metric.MIPS else -2.0, int(x_int8), S, per,
             _copy_width(queries), _copy_width(points),
             out_d.data_ptr(), out_i.data_ptr(), _lib.stream())
@@ -223,7 +261,49 @@ def flat_topk(queries: torch.Tensor, points: torch.Tensor,
     return _finish(sel_d, sel_i, queries, metric)
 
 
+def _launch_masked(queries, points, valid_mask, exclude_ids, k, metric, n_valid):
+    """The masked mode on the card: one C call compacts the valid ids,
+    scans them and merges the splits -> selection-domain (B, k) (distances,
+    ids), with no host synchronisation."""
+    dev = queries.device
+    B, d = queries.shape
+    x_int8 = points.dtype == torch.int8
+    mask = valid_mask.to(torch.bool).contiguous()
+    S, min_tiles = masked_splits(B, n_valid, k, x_int8, dev)
+    # the compaction's int32 workspace, laid out by the C side
+    size = _lib.library().pa_flat_topk_masked_scratch
+    size.argtypes = [_lib.INT]
+    size.restype = ctypes.c_longlong
+    n_ws = size(n_valid)
+    ws = torch.empty(n_ws, dtype=torch.int32, device=dev)
+    out_d = torch.empty((B, S, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, S, k), dtype=torch.int32, device=dev)
+    if S > 1:
+        thr = torch.empty((B,), dtype=torch.int64, device=dev)
+        fin_d = torch.empty((B, k), dtype=torch.float32, device=dev)
+        fin_i = torch.empty((B, k), dtype=torch.int32, device=dev)
+    else:
+        thr = fin_d = fin_i = None
+    fn = _lib.function("pa_flat_topk_masked", [_lib.VP] * 5 + [ctypes.c_longlong, _lib.VP]
+                       + [_lib.INT] * 4 + [_lib.FLOAT] + [_lib.INT] * 6 + [_lib.VP] * 5)
+    rc = fn(queries.data_ptr(), points.data_ptr(), mask.data_ptr(), _ptr(exclude_ids),
+            ws.data_ptr(), n_ws, _ptr(thr), B, n_valid, d, k,
+            -1.0 if metric is Metric.MIPS else -2.0, int(x_int8),
+            int(metric is not Metric.MIPS), S, min_tiles, _copy_width(queries),
+            _copy_width(points), out_d.data_ptr(), out_i.data_ptr(), _ptr(fin_d),
+            _ptr(fin_i), _lib.stream())
+    flat_topk.launches += 1
+    _lib.check(rc, "flat_topk")
+    if S == 1:
+        return out_d[:, 0], out_i[:, 0]
+    return fin_d, fin_i
+
+
 flat_topk.launches = 0
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
 
 
 def _copy_width(t: torch.Tensor) -> int:
@@ -239,16 +319,29 @@ def _copy_width(t: torch.Tensor) -> int:
 _resident: dict = {}
 
 
-def splits(B: int, n_pad: int, k: int, x_int8: bool, device: torch.device):
-    """-> (S, points per split) that :func:`flat_topk` launches with on
-    ``device``: :func:`split_plan` over the CTAs the card holds at once at
-    this k (the kernel's occupancy times the SM count)."""
-    key = (k, bool(x_int8), device.index)
+def _slots(k: int, x_int8: bool, masked: bool, device: torch.device) -> int:
+    """CTAs the card holds at once at this k: the kernel's occupancy times
+    the SM count, asked once per device and kernel."""
+    key = (k, bool(x_int8), bool(masked), device.index)
     if key not in _resident:
         fn = _lib.function("pa_flat_topk_resident",
-                           [_lib.INT, _lib.INT, ctypes.POINTER(ctypes.c_int)])
+                           [_lib.INT, _lib.INT, _lib.INT, ctypes.POINTER(ctypes.c_int)])
         blocks = ctypes.c_int(0)
-        _lib.check(fn(k, int(x_int8), ctypes.byref(blocks)), "flat_topk occupancy")
+        _lib.check(fn(k, int(x_int8), int(masked), ctypes.byref(blocks)),
+                   "flat_topk occupancy")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         _resident[key] = max(1, blocks.value) * sms
-    return split_plan(B, n_pad, _resident[key])
+    return _resident[key]
+
+
+def splits(B: int, n_pad: int, k: int, x_int8: bool, device: torch.device):
+    """-> (S, points per split) that :func:`flat_topk` launches with on
+    ``device`` without a mask: :func:`split_plan` over the CTAs the card
+    holds at once."""
+    return split_plan(B, n_pad, _slots(k, x_int8, False, device))
+
+
+def masked_splits(B: int, n_valid: int, k: int, x_int8: bool, device: torch.device):
+    """-> (S, fewest tiles a split) of the masked mode on ``device``:
+    :func:`masked_plan` over the CTAs the card holds at once."""
+    return masked_plan(B, n_valid, _slots(k, x_int8, True, device), k)

@@ -2,8 +2,8 @@
 
 Usage, on a machine with an NVIDIA GPU and nvcc:
 
-    python3 scripts/time_flat_topk.py [--kernel flat_topk|occlusion|fusedbeam|fusedbuild|
-                                                cluster|router|multi] [--root DIR]
+    python3 scripts/time_flat_topk.py [--kernel flat_topk|masked|occlusion|fusedbeam|
+                                                fusedbuild|cluster|router|multi] [--root DIR]
                                       [--reps N] [--tag NAME]
                                       [--f32] [--build N ...] [--build-reps K]
                                       [--f32-build]
@@ -18,7 +18,23 @@ checkout in turns (A, B, B, A) in one call on one machine.
 - ``--kernel flat_topk`` (kernel 4, the default): chip_smoke.py's phase-2
   shape, the synthetic clustered 100K x 128 set (seed 7) and its 10K
   queries, k=10, L2, on f32 points and on the q8 tier (int8 points,
-  translated queries).
+  translated queries); then the same at k=100, the ground truth's usual k
+  (keys ``*_k100_ms``), each first checked against the checkout's plain
+  version (int8 bit-equal, f32 under phase 2's rule).
+- ``--kernel masked`` (kernel 4's masked mode, ``valid_mask`` given):
+  chip_smoke.py's masked cases, each checked against the checkout's plain
+  version (int8 bit-equal, f32 under phase 2's rule) and timed beside its
+  plain version and ``torch.addmm`` of its distance matrix: HNSW's level 1
+  of phase 8's builds A (f32) and B (int8), B = 2,000 rows at k = 50 (the
+  builds are the checkout's own); the exact-candidate build's (a) doubling
+  batch of pass 1 (128 rows padded to 256), (b) steady batch of pass 1 and
+  (c) steady batch of pass 2 (16,000 rows), int8 at k = 64, each against
+  the prefix inserted before it. Then phase 2's unmasked shapes as
+  ``flat_topk`` times them. Pass ``--index-cache FILE`` to every run of one
+  call: the first saves the cases there and the others time the same ones.
+  ``--profile-builds`` first builds phase 8's HNSW A and phase 11b's
+  exact-candidate graph under torch.profiler (kernel 4's device ms and
+  launches, busy time, idle share, the exact build's fenced beam split).
 - ``--kernel occlusion`` (kernel 2): chip_smoke.py's six prune shapes,
   B=2048 rows of d=128 at (C, R) = (96, 32), (64, 32), (40, 32),
   (192, 64), (50, 20) and (80, 40), alpha 1.2, under L2 and under MIPS, each on rows
@@ -130,7 +146,7 @@ def time_flat(chip, reps, dev):
     from parlayann_tpu_torch.types import Metric
     from parlayann_tpu_torch.data.pointset import PointSet
     from parlayann_tpu_torch.ops import quantize
-    from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk
+    from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk, flat_topk_plain
     from parlayann_tpu_torch.utils import synthetic
 
     X, Q = synthetic.clustered(100_000, 128, n_queries=10_000, n_clusters=1000,
@@ -139,9 +155,77 @@ def time_flat(chip, reps, dev):
     q = torch.from_numpy(Q).to(dev)
     tier = quantize.quantize_pointset(ps, bits=8)
     q8 = quantize.translate_query(q, tier).float()
-    kw = dict(k=10, metric=Metric.L2, n_valid=len(X))
-    return {f"{name}_ms": chip.time_ms(lambda: flat_topk(qq, xx, **kw), reps)
-            for name, qq, xx in (("f32", q, ps.data), ("int8", q8, tier.data))}
+    out = {}
+    for k, tag in ((10, ""), (100, "_k100")):
+        kw = dict(k=k, metric=Metric.L2, n_valid=len(X))
+        for name, qq, xx in (("f32", q, ps.data), ("int8", q8, tier.data)):
+            if k != 10:  # phase 2 checks k = 10; the other k is checked here
+                got, want = flat_topk(qq, xx, **kw), flat_topk_plain(qq, xx, **kw)
+                what = f"flat_topk {name} k={k}"
+                if name == "int8":
+                    chip.check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                               f"{what}: not equal")
+                else:
+                    xf = xx.float()
+                    chip.check_topk(got, want, (qq * qq).sum(1) + (xf * xf).sum(1).max(), what)
+            out[f"{name}{tag}_ms"] = chip.time_ms(lambda: flat_topk(qq, xx, **kw), reps)
+    return out
+
+
+def masked_cases(chip, dev, cache=None):
+    """The masked mode's cases (chip_smoke.py's ``hnsw_level1_cases`` over
+    phase 8's builds A and B, with the checkout's own HNSW build, and
+    ``exact_build_cases``), saved to ``cache`` or loaded from it."""
+    import torch
+    from parlayann_tpu_torch.types import Metric
+    from parlayann_tpu_torch.utils import synthetic
+
+    if cache and Path(cache).exists():
+        cases = torch.load(cache, map_location=dev)
+        for c in cases.values():
+            c["metric"] = Metric[c["metric"]]
+        return cases
+    X, _ = synthetic.clustered(100_000, 128, n_queries=10_000, n_clusters=1000,
+                               cluster_std=0.35, seed=SEED)
+    builds = {name: chip.hnsw_build(X, name, dev)[0] for name in chip.HNSW_BUILDS}
+    cases = chip.hnsw_level1_cases(builds, X, dev)
+    del builds
+    cases.update(chip.exact_build_cases(X, dev))
+    if cache:
+        Path(cache).parent.mkdir(parents=True, exist_ok=True)
+        torch.save({name: dict(c, metric=c["metric"].name) for name, c in cases.items()},
+                   cache)
+    return cases
+
+
+def profile_builds(chip, dev):
+    """The checkout's HNSW build A and exact-candidate build under
+    torch.profiler (chip_smoke.py's ``hnsw_profile`` and
+    ``exact_kernel4_profile``): kernel 4's device ms and launches beside
+    the build's busy time, idle share and (exact build) fenced beam split."""
+    from parlayann_tpu_torch.utils import synthetic
+
+    X, Q = synthetic.clustered(100_000, 128, n_queries=10_000, n_clusters=1000,
+                               cluster_std=0.35, seed=SEED)
+    out = {}
+    for name, r in (("hnsw_A", chip.hnsw_profile(X, Q, dev)),
+                    ("exact", chip.exact_kernel4_profile(X, dev))):
+        out.update({f"{name}_{key}": v for key, v in r.items()})
+    return out
+
+
+def time_masked(chip, reps, dev, cache=None, profile=False):
+    """Kernel 4's masked mode at HNSW's level-1 shapes and the exact
+    build's three, each checked against the checkout's plain version
+    (chip_smoke.py's ``masked_case``), then phase 2's unmasked shapes;
+    with ``profile``, the builds around it (``profile_builds``)."""
+    out = profile_builds(chip, dev) if profile else {}
+    for name, case in masked_cases(chip, dev, cache).items():
+        r = chip.masked_case(case, reps=reps, plain_reps=2)
+        out.update({f"{name}_{key}": v for key, v in r.items()
+                    if key in ("ms", "plain_ms", "library_ms", "bound_ms", "n_in")})
+    out.update({f"unmasked_{key}": v for key, v in time_flat(chip, reps, dev).items()})
+    return out
 
 
 def time_occlusion(chip, reps, dev, f32=False):
@@ -504,14 +588,15 @@ def time_fusedbuild(chip, reps, dev, cache=None):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("flat_topk", "occlusion", "fusedbeam", "fusedbuild",
-                                         "cluster", "router", "multi"),
+    ap.add_argument("--kernel", choices=("flat_topk", "masked", "occlusion", "fusedbeam",
+                                         "fusedbuild", "cluster", "router", "multi"),
                     default="flat_topk")
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose parlayann_tpu_torch is timed")
     ap.add_argument("--reps", type=int, default=None,
-                    help="timed launches (default 20 for flat_topk, fusedbeam, cluster "
-                         "and multi, 50 for occlusion; router: timed passes, default 2)")
+                    help="timed launches (default 20 for flat_topk, masked, fusedbeam, "
+                         "cluster and multi, 50 for occlusion; router: timed passes, "
+                         "default 2)")
     ap.add_argument("--tag", default="", help="a name for the checkout in the output")
     ap.add_argument("--build", type=int, action="append", default=[], choices=sorted(BUILDS),
                     help="also time and profile the q8 build of this many points")
@@ -520,9 +605,12 @@ def main():
                     help="occlusion: time kernel 2's f32 mode (normal f32 vectors)")
     ap.add_argument("--f32-build", action="store_true",
                     help="also time and profile each --build size on the f32 points")
+    ap.add_argument("--profile-builds", action="store_true",
+                    help="masked: first profile the checkout's HNSW build A and exact build "
+                         "(kernel 4's device ms and launches, busy time, idle share)")
     ap.add_argument("--index-cache", default=None,
-                    help="cluster / fusedbuild: load the indexes or graphs from this file, "
-                         "or build and save them there")
+                    help="cluster / fusedbuild / masked: load the indexes, graphs or "
+                         "cases from this file, or build and save them there")
     args = ap.parse_args()
     root = str(Path(args.root).resolve())
     sys.path[:0] = [root]  # the timed package
@@ -547,6 +635,9 @@ def main():
            "lib_build_s": time.perf_counter() - t0}
     if args.kernel == "flat_topk":
         out.update(time_flat(chip, args.reps or 20, dev))
+    elif args.kernel == "masked":
+        out.update(time_masked(chip, args.reps or 20, dev, args.index_cache,
+                               args.profile_builds))
     elif args.kernel == "fusedbeam":
         out.update(time_fused(chip, args.reps or 20, dev))
     elif args.kernel == "fusedbuild":

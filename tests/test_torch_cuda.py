@@ -705,7 +705,7 @@ def _check_flat(got, want, dtype, scale, excl=None):
         assert not (got[0] == excl[:, None]).any()
 
 
-@pytest.mark.parametrize("k", [1, 10, 128, 256])
+@pytest.mark.parametrize("k", [1, 10, 64, 128, 256])
 @pytest.mark.parametrize("metric", [Metric.L2, Metric.MIPS])
 @pytest.mark.parametrize("dtype", ["f32", "int8", "int8-f32q"])
 def test_torch_cuda_flat_topk_equal(gen, cuda, dtype, metric, k):
@@ -1074,30 +1074,56 @@ def test_torch_cuda_f32_tier_and_lock_step_search(cluster_data, cuda):
         assert compute_recall(ids.cpu().numpy(), gt, gt_d, 10) >= floor, kw
 
 
-@pytest.mark.parametrize("k", [1, 10, 50])
+@pytest.mark.parametrize("k", [1, 10, 50, 64, 128, 256])
 @pytest.mark.parametrize("dtype", ["f32", "int8"])
 def test_torch_cuda_flat_topk_masked_hnsw_shapes(gen, cuda, dtype, k):
     """Kernel 4's masked mode at HNSW's exact-scan shapes (a level of 5,300
-    members of d = 128, up to the steady batch of 2,000 rows, k up to efc =
-    50): random, all-false and all-true masks, each row excluding one id,
-    in or outside the mask, under L2 and MIPS."""
+    members of d = 128, up to the steady batch of 2,000 rows, k up to 256
+    across the selection's four paths): random, prefix, all-false, all-true
+    masks and one keeping fewer points than k, each row excluding one id,
+    in or outside the mask, under L2 and MIPS. Every call launches the
+    kernel once."""
     n, d = 5300, 128
     x, q, scale = _flat_case(gen, cuda, dtype, n, d, 2000)
-    masks = {"random": gen.random(n) < 0.5, "none": np.zeros(n, bool),
-             "all": np.ones(n, bool)}
-    for B in (0, 1, 333, 2000):
+    masks = {"random": gen.random(n) < 0.5, "prefix": np.arange(n) < 1300,
+             "none": np.zeros(n, bool), "all": np.ones(n, bool),
+             "few": gen.permutation(n) < max(k // 2, 1)}
+    for B in (0, 1, 256, 2000):
         for name, m in masks.items():
             mk = t(m, cuda)
             ex = t(gen.integers(0, n, B).astype(np.int32), cuda)
             for metric in (Metric.L2, Metric.MIPS):
                 kw = dict(k=k, metric=metric, n_valid=n)
+                before = flat_topk.launches
                 got = flat_topk(q[:B], x, mk, ex, **kw)
+                assert flat_topk.launches == before + (B > 0)
                 want = flat_topk_plain(q[:B], x, mk, ex, **kw)
                 _check_flat(got, want, dtype, scale[:B], ex)
                 if name == "none":
                     assert not (got[0] >= 0).any()
                 else:
                     assert bool(mk[got[0][got[0] >= 0].long()].all())
+
+
+@pytest.mark.parametrize("B,n_in", [(256, 128), (2000, 48_000), (2000, 100_000)])
+def test_torch_cuda_flat_topk_masked_exact_build_prefix(gen, cuda, B, n_in):
+    """The exact-candidate build's shape: 100K int8 points of d = 128, the
+    inserted prefix of a random order as the mask (a doubling batch's 128,
+    about half, all), each row excluding its own id (-1 on pad rows), k =
+    64, n_valid below the padded rows: bit-equal to the plain version."""
+    n_pad, n_valid, d, k = 100_032, 100_000, 128, 64
+    x = t(gen.integers(-128, 128, (n_pad, d)).astype(np.int8), cuda)
+    order = gen.permutation(n_valid)
+    m = np.zeros(n_pad, bool)
+    m[order[:n_in]] = True
+    rows = order[n_in // 2:n_in // 2 + B] if n_in < n_valid else order[:B]
+    q = x[t(rows.astype(np.int64), cuda)].float()
+    ex = t(np.where(np.arange(B) < B - 7, rows, -1).astype(np.int32), cuda)
+    kw = dict(k=k, metric=Metric.L2, n_valid=n_valid)
+    got = flat_topk(q, x, t(m, cuda), ex, **kw)
+    want = flat_topk_plain(q, x, t(m, cuda), ex, **kw)
+    _check_flat(got, want, "int8", None, ex)
+    assert bool((got[0] >= 0).all())
 
 
 def _same_hierarchy(a, b):

@@ -30,8 +30,8 @@ from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.ops import quantize
 from parlayann_tpu_torch.ops.distance import INF
 from parlayann_tpu_torch.ops.kernels.flatscan import (
-    MIN_SPLIT, POINT_TILE, _bias, _finish, flat_topk_plain, merge_split_topk,
-    split_plan)
+    MIN_SPLIT, POINT_TILE, _bias, _finish, flat_topk_plain, masked_plan, merge_split_topk,
+    split_floor, split_plan, split_ranges)
 from parlayann_tpu_torch.search.flat import FlatIndex, flat_search_batch
 from parlayann_tpu_torch.search.exact import exact_knn
 from parlayann_tpu_torch.harness.recall import compute_recall
@@ -268,18 +268,126 @@ def test_torch_flat_merge_split_topk_equals_one_scan(rng, metric, S, k):
 
 
 def test_torch_flat_split_plan():
-    """About four waves of CTAs, splits of whole tiles and never below
-    MIN_SPLIT points; one split where the points are few."""
+    """About four waves of CTAs, splits of whole tiles and never below the
+    floor: MIN_SPLIT points without a mask, split_floor(k) (4 k, at least a
+    tile) in the masked mode; one split where the points are few. Phase 2's
+    plan (B = 10,000 over 100K points, k = 10) holds."""
+    assert split_floor(10) == POINT_TILE and split_floor(50) == 200
     assert split_plan(10_000, 100_000, 264) == (7, 14336)
     assert split_plan(64, 70_000, 264)[0] > 1
     assert split_plan(1, 100, 264) == (1, POINT_TILE)
     assert split_plan(5, 0, 132) == (1, POINT_TILE)
-    for B in (1, 64, 300, 10_000, 200_000):
-        for n in (1, 127, 4095, 4096, 70_000, 1_000_000):
-            for slots in (132, 264):
-                S, per = split_plan(B, n, slots)
-                assert per % POINT_TILE == 0 and (S - 1) * per < n <= S * per
-                assert S == 1 or per >= MIN_SPLIT
+    assert split_plan(2000, 5256, 132) == (1, 5376)
+    # a few thousand points fill the card in the masked mode: HNSW's
+    # level 1 at 2,000 rows
+    S, per = split_plan(2000, 5256, 132, split_floor(50))
+    assert S * -(-2000 // 64) >= 132 and per >= split_floor(50)
+    for floor in (MIN_SPLIT, *(split_floor(k) for k in (1, 10, 64, 256))):
+        for B in (1, 64, 300, 10_000, 200_000):
+            for n in (1, 127, 4095, 4096, 70_000, 1_000_000):
+                for slots in (132, 264):
+                    S, per = split_plan(B, n, slots, floor)
+                    assert per % POINT_TILE == 0 and (S - 1) * per < n <= S * per
+                    assert S == 1 or per >= floor
+
+
+@pytest.mark.parametrize("count,S,min_tiles", [
+    (0, 5, 1), (1, 5, 4), (128, 13, 4), (2597, 13, 4), (2597, 5, 1), (48_000, 5, 4),
+    (100_000, 5, 4), (129, 200, 1)])
+def test_torch_flat_split_ranges_cover_the_count(count, S, min_tiles):
+    """The masked mode's splits, as the card cuts them from the count:
+    contiguous whole tiles in order (the last one ragged), at most S of
+    them, none below min_tiles tiles unless it is the last, and together
+    exactly [0, count)."""
+    r = split_ranges(count, S, min_tiles)
+    assert len(r) <= S and [lo for lo, _ in r] == [0, *(hi for _, hi in r)][:len(r)]
+    assert (r[-1][1] if r else 0) == count
+    for lo, hi in r[:-1]:
+        assert lo % POINT_TILE == 0 and (hi - lo) >= min_tiles * POINT_TILE
+    S_h, mt = masked_plan(2000, 5256, 132, 50)
+    assert S_h > 1 and mt * POINT_TILE >= split_floor(50)
+
+
+def compacted(X, mask, n_valid, metric):
+    """The masked mode's compaction in PyTorch: the valid ids in ascending
+    order (mask set, id below n_valid, finite bias)."""
+    bias = _bias(torch.from_numpy(X), torch.from_numpy(mask), n_valid, metric)
+    return torch.nonzero(bias < INF)[:, 0]
+
+
+def masked_split_lists(Q, X, mask, excl, k, metric, n_valid, S, min_tiles):
+    """flat_topk_plain over each split of the compacted in-mask order
+    (split_ranges), ids made global, the exclusion given by global id:
+    the (B, splits, k) lists the card's masked splits write."""
+    ids = compacted(X, mask, n_valid, metric)
+    q = torch.from_numpy(Q)
+    ds, out = [], []
+    for lo, hi in split_ranges(len(ids), S, min_tiles):
+        sub = ids[lo:hi]
+        at = torch.searchsorted(sub, torch.from_numpy(excl).long())
+        hit = (at < len(sub)) & (sub[at.clamp(max=len(sub) - 1)] == torch.from_numpy(excl))
+        ex_local = torch.where(hit, at, -1).to(torch.int32)
+        i, d = flat_topk_plain(q, torch.from_numpy(X)[sub], None, ex_local, k=k,
+                               metric=metric, n_valid=len(sub))
+        ds.append(d)
+        out.append(torch.where(i >= 0, sub[i.long().clamp(min=0)], -1).to(torch.int32))
+    if not ds:
+        return (torch.full((len(Q), 0, k), INF), torch.full((len(Q), 0, k), -1,
+                                                             dtype=torch.int32))
+    return torch.stack(ds, 1), torch.stack(out, 1)
+
+
+@pytest.mark.parametrize("case,S,min_tiles,k", [
+    ("random", 3, 1, 64),    # three splits of whole tiles, the last ragged
+    ("random", 7, 1, 300),   # k larger than a split (one tile each)
+    ("prefix", 4, 2, 50),    # the exact build's inserted prefix
+    ("few", 5, 1, 50),       # fewer valid points than k: empty slots
+    ("empty", 5, 1, 10),     # an all-false mask: no split holds a point
+])
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.MIPS])
+def test_torch_flat_masked_splits_merge_to_one_scan(rng, metric, case, S, min_tiles, k):
+    """Integer points and queries force ties within and across the splits
+    of the compacted order; merge_split_topk of the splits' lists equals one
+    scan with the mask, an exclusion (in or outside the mask) and an
+    invalid tail (n_valid < n)."""
+    n, n_valid = 1200, 1190
+    X = rng.integers(-3, 4, (n, 6)).astype(np.float32)
+    Q = rng.integers(-3, 4, (17, 6)).astype(np.float32)
+    mask = {"random": rng.random(n) < 0.7, "prefix": np.arange(n) < 700,
+            "few": rng.permutation(n) < 20, "empty": np.zeros(n, bool)}[case]
+    excl = rng.integers(0, n, len(Q)).astype(np.int32)
+    excl[:3] = np.flatnonzero(mask)[:3] if mask.sum() >= 3 else excl[:3]
+    want = flat_topk_plain(torch.from_numpy(Q), torch.from_numpy(X),
+                           torch.from_numpy(mask), torch.from_numpy(excl), k=k,
+                           metric=metric, n_valid=n_valid)
+    d, i = masked_split_lists(Q, X, mask, excl, k, metric, n_valid, S, min_tiles)
+    got_d, got_i = merge_split_topk(d, i, k)
+    if d.shape[1] == 0:  # no split: every slot empty
+        got_d, got_i = torch.full((len(Q), k), INF), torch.full((len(Q), k), -1)
+    assert torch.equal(got_i.to(torch.int32), want[0]) and torch.equal(got_d, want[1])
+    if case == "few":
+        assert (want[0][:, 20:] == -1).all()
+
+
+@pytest.mark.parametrize("k", [50, 64, 128])
+@pytest.mark.parametrize("mask_kind", ["random", "prefix"])
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_torch_flat_topk_plain_masked_wide_k(data, dtype, mask_kind, k):
+    """The masked mode's k (HNSW's efc = 50, the exact build's 64, and 128)
+    over a random and a prefix mask, each row excluding one id, on f32
+    points and on the q8 tier: flat_topk_plain against the JAX oracle."""
+    X, Q = points_and_queries(data, dtype, Metric.L2)
+    g = np.random.default_rng(k)
+    mask = (g.random(len(X)) < 0.5 if mask_kind == "random"
+            else np.arange(len(X)) < len(X) // 3)
+    excl = g.integers(0, len(X), len(Q)).astype(np.int32)
+    want_i, want_d = oracle(Q, X, k, JMetric.L2, mask=mask, excl=excl)
+    ids, dists = flat_topk_plain(
+        torch.from_numpy(Q), torch.from_numpy(X), torch.from_numpy(mask),
+        torch.from_numpy(excl), k=k, metric=Metric.L2, n_valid=len(X), chunk=700)
+    ids = ids.numpy()
+    assert mask[ids[ids >= 0]].all() and not (ids == excl[:, None]).any()
+    assert_same_topk(ids, dists, want_i, want_d, Q, X, exact=dtype == "int8")
 
 
 def tf32_rna(a: torch.Tensor) -> torch.Tensor:
