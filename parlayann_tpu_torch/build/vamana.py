@@ -32,8 +32,10 @@ The build modes of the JAX package:
   from ``seed + 7919``), through kernel 4's masked mode with each point's
   own id excluded, on the card; samples of up to 2048 rows take the plain
   scan, as JAX's "sort" select;
-- ``profile=True``: the same build with a device fence after each phase,
-  filling BuildStats' beam, bidirect and prune seconds (index.h:217-222);
+- ``profile=True``: the same build with the recorder on and a device
+  fence around each phase, filling BuildStats' beam, bidirect and prune
+  seconds (index.h:217-222) from the phases' spans, which then leave the
+  recorder unless it was on before;
   ``profile_one_batch`` times the three phases of one steady batch;
 - ``fused_read=True`` (JAX ``PARLAYANN_BUILD_FUSED=1``, vamana.py:536-577;
   off by default there and here): steady batches read through
@@ -42,10 +44,18 @@ The build modes of the JAX package:
   single expansions, in place of the lock-step read's kernel 1 launch a
   step. Ramp batches and the partial last batch keep the lock-step read,
   as in JAX.
+
+Under the recorder (``utils/trace.py``) a build is the span ``build``,
+and each batch's phases are its children ``build.read`` (inline rows
+included; counting ``visits`` and ``cmps``), ``build.prune`` (the forward
+robustPrune and the row write), ``build.reverse`` (the reverse-edge
+exchange) and ``build.overflow`` (the overflow α-prune), all on the host
+clock alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import NamedTuple
 
@@ -66,6 +76,8 @@ from parlayann_tpu_torch.build.prune import robust_prune_chunked
 from parlayann_tpu_torch.build.reverse import (
     prepare_reverse_append, prune_reverse_all, scatter_rows,
 )
+from parlayann_tpu_torch.utils import trace
+from parlayann_tpu_torch.utils.timing import fence
 
 # read-phase vertices expanded per beam step: the JAX package's shipped
 # default (vamana.py:590) — it shapes the graph, so parity needs it
@@ -91,26 +103,28 @@ class BuildStats(NamedTuple):
     n_fallback: int
 
 
-class _Laps:
-    """The fenced phase split of a profiled build: ``laps(name)`` adds the
-    seconds since the last lap, after a device fence, to ``times[name]``
-    (``None``: restart the clock). Off (``on=False``), it does nothing and
-    the times stay 0."""
+@contextlib.contextmanager
+def _phase(name, dev, times=None):
+    """The span of one build phase. ``times`` (a profiled build's; the
+    recorder is on) gets the span's host seconds added under ``name``, the
+    device fenced on both sides so that they hold the phase's device work
+    and nothing else."""
+    if times is None:
+        with trace.span(name):
+            yield
+        return
+    fence(dev)
+    with trace.span(name) as sp:
+        yield
+        fence(dev)
+    times[name] = times.get(name, 0.0) + sp.host_ns * 1e-9
 
-    def __init__(self, dev: torch.device, on: bool = True):
-        self.dev, self.on = dev, on
-        self.times = {"beam": 0.0, "bidirect": 0.0, "prune": 0.0}
-        self.t = time.perf_counter()
 
-    def __call__(self, name):
-        if not self.on:
-            return
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        now = time.perf_counter()
-        if name:
-            self.times[name] += now - self.t
-        self.t = now
+def _split(times: dict) -> tuple[float, float, float]:
+    """A profiled build's phase seconds -> (beam, bidirect, prune), as
+    BuildStats counts them."""
+    return (times.get("build.read", 0.0), times.get("build.reverse", 0.0),
+            times.get("build.prune", 0.0) + times.get("build.overflow", 0.0))
 
 
 def _old_candidates(nbrs, degs, points_data, safe_ids, queries, *, R, metric):
@@ -222,22 +236,24 @@ def _scale_samples(n: int, rng: np.random.Generator, points_data: torch.Tensor):
 
 
 def _write_batch(nbrs, degs, points_data, batch_ids, cand_ids, cand_d, alpha,
-                 laps, *, R, metric, n_valid, chunk=2048, rev_chunk=4096):
-    """Forward robustPrune + row write, reverse append, overflow α-prune,
-    timed by ``laps`` as prune, bidirect, prune."""
+                 times=None, *, R, metric, n_valid, chunk=2048, rev_chunk=4096):
+    """Forward robustPrune + row write, reverse append, overflow α-prune:
+    the phases ``build.prune``, ``build.reverse`` and ``build.overflow``
+    (``times``: see :func:`_phase`)."""
     n_pad = nbrs.shape[0]
-    pr = robust_prune_chunked(batch_ids, cand_ids, cand_d, points_data, alpha,
-                              R=R, metric=metric, n_valid=n_valid, chunk=chunk)
-    wt = torch.where(batch_ids >= 0, batch_ids, n_pad)
-    nbrs, degs = scatter_rows(nbrs, degs, wt, pr.ids, pr.degree)
-    laps("prune")
-    nbrs, degs, ctx = prepare_reverse_append(
-        nbrs, degs, batch_ids, pr.ids, pr.dists, R=R, n_valid=n_valid)
-    laps("bidirect")
-    nbrs, degs = prune_reverse_all(nbrs, degs, ctx, points_data, alpha, R=R,
-                                   metric=metric, n_valid=n_valid,
-                                   chunk=rev_chunk)
-    laps("prune")
+    dev = points_data.device
+    with _phase("build.prune", dev, times):
+        pr = robust_prune_chunked(batch_ids, cand_ids, cand_d, points_data, alpha,
+                                  R=R, metric=metric, n_valid=n_valid, chunk=chunk)
+        wt = torch.where(batch_ids >= 0, batch_ids, n_pad)
+        nbrs, degs = scatter_rows(nbrs, degs, wt, pr.ids, pr.degree)
+    with _phase("build.reverse", dev, times):
+        nbrs, degs, ctx = prepare_reverse_append(
+            nbrs, degs, batch_ids, pr.ids, pr.dists, R=R, n_valid=n_valid)
+    with _phase("build.overflow", dev, times):
+        nbrs, degs = prune_reverse_all(nbrs, degs, ctx, points_data, alpha, R=R,
+                                       metric=metric, n_valid=n_valid,
+                                       chunk=rev_chunk)
     return nbrs, degs
 
 
@@ -302,8 +318,9 @@ def build_vamana_graph(points: PointSet, bp: BuildParams, verbose: bool = False,
 
     ``cand_mode``: "beam" (the reference's insertion search) or "exact"
     (the multi-scale exact candidates); a ``bp.single_batch`` build always
-    searches ("beam"). ``profile=True`` fences every phase and fills the
-    beam, bidirect and prune seconds: the same graph, a slower build.
+    searches ("beam"). ``profile=True`` records the build's spans, fences
+    every phase and fills the beam, bidirect and prune seconds: the same
+    graph, a slower build.
     ``fused_read=True`` reads steady batches through kernel 3's build mode
     (``_fused_read_phase``); it raises ``ValueError`` wherever the JAX
     package never reads fused: points that are not int8, d < R rounded up
@@ -350,52 +367,55 @@ def build_vamana_graph(points: PointSet, bp: BuildParams, verbose: bool = False,
                  * points.data.element_size() <= INLINE_BUDGET)
 
     t0 = time.perf_counter()
-    laps = _Laps(dev, on=profile)
+    times = {} if profile else None
     tot_vis = torch.zeros((), dtype=torch.int64, device=dev)
     tot_cmp = torch.zeros((), dtype=torch.int64, device=dev)
-    for p in range(bp.num_passes):
-        alpha = bp.alpha if p == bp.num_passes - 1 else 1.0
-        order = rng.permutation(n).astype(np.int32)
-        for bi, (lo, hi) in enumerate(sched):
-            batch = torch.from_numpy(_pad_pow2(order[lo:hi], max_batch)).to(dev)
-            laps(None)
-            steady = (hi - lo) >= max(max_batch, 4096)
-            if cand_mode == "exact":
-                cand_ids, cand_d, v, c = _exact_phase(
-                    nbrs, degs, points.data, batch, inserted, samples,
-                    R=R, L=L, vmax=vmax, metric=points.metric, n_valid=n)
-            elif fused_read and steady:
-                cand_ids, cand_d, v, c = _fused_read_phase(
-                    nbrs, degs, points.data, batch, R=R, L=L, vmax=vmax,
-                    metric=points.metric, n_valid=n)
-            else:
-                inline = build_inline(points.data, nbrs) if inline_ok and steady else None
-                cand_ids, cand_d, v, c = _read_phase(
-                    nbrs, degs, points.data, batch,
-                    batch.clamp(min=0)[:, None] if bp.single_batch else start, inline,
-                    R=R, L=L, vmax=vmax, metric=points.metric, n_valid=n)
-                del inline
-            laps("beam")
-            nbrs, degs = _write_batch(
-                nbrs, degs, points.data, batch, cand_ids, cand_d, alpha, laps,
-                R=R, metric=points.metric, n_valid=n)
-            if inserted is not None and p == 0:
-                inserted[batch[batch >= 0].long()] = True
-            tot_vis += v
-            tot_cmp += c
-            if verbose and bi % 8 == 0:
-                print(f"pass {p}: batch {bi + 1}/{len(sched)} ({hi}/{n})",
-                      flush=True)
+    rec = trace.recording(keep=False) if profile else contextlib.nullcontext()
+    with rec, trace.span("build"):
+        for p in range(bp.num_passes):
+            alpha = bp.alpha if p == bp.num_passes - 1 else 1.0
+            order = rng.permutation(n).astype(np.int32)
+            for bi, (lo, hi) in enumerate(sched):
+                batch = torch.from_numpy(_pad_pow2(order[lo:hi], max_batch)).to(dev)
+                steady = (hi - lo) >= max(max_batch, 4096)
+                with _phase("build.read", dev, times):
+                    if cand_mode == "exact":
+                        cand_ids, cand_d, v, c = _exact_phase(
+                            nbrs, degs, points.data, batch, inserted, samples,
+                            R=R, L=L, vmax=vmax, metric=points.metric, n_valid=n)
+                    elif fused_read and steady:
+                        cand_ids, cand_d, v, c = _fused_read_phase(
+                            nbrs, degs, points.data, batch, R=R, L=L, vmax=vmax,
+                            metric=points.metric, n_valid=n)
+                    else:
+                        inline = (build_inline(points.data, nbrs)
+                                  if inline_ok and steady else None)
+                        cand_ids, cand_d, v, c = _read_phase(
+                            nbrs, degs, points.data, batch,
+                            batch.clamp(min=0)[:, None] if bp.single_batch else start,
+                            inline, R=R, L=L, vmax=vmax, metric=points.metric,
+                            n_valid=n)
+                        del inline
+                    trace.count("visits", v)
+                    trace.count("cmps", c)
+                nbrs, degs = _write_batch(
+                    nbrs, degs, points.data, batch, cand_ids, cand_d, alpha, times,
+                    R=R, metric=points.metric, n_valid=n)
+                if inserted is not None and p == 0:
+                    inserted[batch[batch >= 0].long()] = True
+                tot_vis += v
+                tot_cmp += c
+                if verbose and bi % 8 == 0:
+                    print(f"pass {p}: batch {bi + 1}/{len(sched)} ({hi}/{n})",
+                          flush=True)
 
-    nbrs = _sort_rows_by_distance(nbrs, degs, points.data, R=R,
-                                  metric=points.metric)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        nbrs = _sort_rows_by_distance(nbrs, degs, points.data, R=R,
+                                      metric=points.metric)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
     graph = GraphIndexData(neighbors=nbrs, degrees=degs, n=n, max_degree=R)
-    t = laps.times
-    stats = BuildStats(dt, t["beam"], t["bidirect"], t["prune"], int(tot_vis),
-                       int(tot_cmp), 0)
+    stats = BuildStats(dt, *_split(times or {}), int(tot_vis), int(tot_cmp), 0)
     if verbose:
         avg, mx = graph.stats()
         print(f"Vamana build: {dt:.2f}s  avg/max degree {avg:.2f}/{mx}  "
@@ -426,19 +446,17 @@ def profile_one_batch(points: PointSet, bp: BuildParams, graph: GraphIndexData,
     best = [float("inf")] * 3
     for _ in range(repeats + 1):  # the first run warms up
         nbrs, degs = graph.neighbors.clone(), graph.degrees.clone()
-        laps = _Laps(dev)
-        laps(None)
-        inline = build_inline(points.data, nbrs) if use_inline else None
-        cand_ids, cand_d, _, _ = _read_phase(
-            nbrs, degs, points.data, batch, start, inline, R=R, L=L, vmax=vmax,
-            metric=points.metric, n_valid=n)
-        del inline
-        laps("beam")
-        _write_batch(nbrs, degs, points.data, batch, cand_ids, cand_d, bp.alpha, laps,
-                     R=R, metric=points.metric, n_valid=n)
-        t = laps.times
-        best = [min(best[0], t["beam"]), min(best[1], t["bidirect"]),
-                min(best[2], t["prune"])]
+        times = {}
+        with trace.recording(keep=False):
+            with _phase("build.read", dev, times):
+                inline = build_inline(points.data, nbrs) if use_inline else None
+                cand_ids, cand_d, _, _ = _read_phase(
+                    nbrs, degs, points.data, batch, start, inline, R=R, L=L,
+                    vmax=vmax, metric=points.metric, n_valid=n)
+                del inline
+            _write_batch(nbrs, degs, points.data, batch, cand_ids, cand_d, bp.alpha,
+                         times, R=R, metric=points.metric, n_valid=n)
+        best = [min(b, t) for b, t in zip(best, _split(times))]
     return tuple(best)
 
 

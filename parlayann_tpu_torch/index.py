@@ -55,6 +55,7 @@ from parlayann_tpu_torch.ops.kernels.fusedbeam import beam_search_fused
 from parlayann_tpu_torch.search.beam import beam_search_batch
 from parlayann_tpu_torch.search.fused import FusedResult, fused_search
 from parlayann_tpu_torch.search.rerank import rerank_topk
+from parlayann_tpu_torch.utils import trace
 from parlayann_tpu_torch.utils.timing import timed_rounds
 
 
@@ -225,84 +226,106 @@ class Index:
         The JAX package's ``two_phase`` (resume at most B // 4 unconverged
         queries in a second phase) and ``expand_group`` (group expansions
         into one TPU step) schedule work on the TPU: both are accepted and
-        every query runs its untruncated search."""
-        qp = QueryParams(k=k, beamSize=beam_size, cut=cut, limit=limit,
-                         degree_limit=degree_limit).resolved(
-            self.graph.max_degree, self.points.n)
-        qf = torch.as_tensor(queries).to(self.device, torch.float32)
-        if starts is not None:
-            start_arr = torch.as_tensor(starts).to(self.device, torch.int32)
-            if start_arr.dim() == 1:
-                start_arr = start_arr[:, None]
-        elif random_starts > 0:
-            rs = np.random.default_rng(seed).integers(
-                0, self.points.n, (qf.shape[0], random_starts))
-            start_arr = torch.from_numpy(rs.astype(np.int32)).to(self.device)
-        elif self.use_entry and self.points.n >= self.entry_min_n:
-            # never clobber a caller-built tier (index.py:323-331)
-            if self.entry_ids is None:
-                self.build_entry_cache()
-            start_arr = _entry_top1(qf, self.entry_vecs, self.entry_ids,
-                                    metric=self.points.metric)
-        else:
-            start_arr = torch.tensor([self.start_point], dtype=torch.int32,
-                                     device=self.device)
-        L = max(qp.beamSize, k)
-        pool = min(max(k * rerank_factor, k), L)
-        # the coarse 1-bit and 2-bit tiers have huge tie classes, so the
-        # metric cut rule is unusable: they search with k=0 (pure beam) and
-        # the rerank restores precision (beamSearch.h:394-454)
-        if self.bit_points is not None:
-            tier = self.bit_points
-            q = quantize.bit_translate_query(qf, tier)
-            bits, search_k = 1, 0
-        elif self.jl_tier is not None:
-            tier = self.jl_tier.points
-            q = self.jl_tier.translate_query(qf)
-            bits = 1 if self.jl_tier.bits == 1 else 32
-            search_k = 0 if bits == 1 else k
-        elif self.t2_points is not None:
-            tier = self.t2_points
-            q = quantize.mips_2bit_translate_query(qf, tier)
-            bits, search_k = 2, 0
-        elif self.t4_points is not None:
-            tier = self.t4_points
-            q = quantize.mips_4bit_translate_query(qf, tier)
-            bits, search_k = 4, k
-        elif (self.qpoints is not None and self.qpoints.data.dtype == torch.int8
-              and self.use_fused and expand == 1
-              and qp.degree_limit >= self.graph.max_degree):
-            return self._search_q8(qf, start_arr, qp, k, L, pool)
-        else:
-            tier = self.qpoints if self.qpoints is not None else self.points
-            res = fused_search(
-                qf, tier, self.points.data, self.graph.neighbors,
-                self.graph.degrees, start_arr, self.build_inline_cache(), k=k,
-                L=L, cut=qp.cut, limit=qp.limit, degree_limit=qp.degree_limit,
-                expand=expand, rerank_pool=pool,
-                do_rerank=tier is not self.points)
-            return res.ids, res.dists, res
-        inline = self.build_inline_bits_cache(tier) if bits == 1 else None
-        res = beam_search_batch(
-            q, tier.data, self.graph.neighbors, self.graph.degrees, start_arr,
-            None, inline, metric=tier.metric, n_valid=tier.n, k=search_k, L=L,
-            cut=qp.cut, limit=qp.limit, degree_limit=qp.degree_limit,
-            expand=expand, bits=bits)
-        ids, dists = rerank_topk(qf, self.points.data, res.beam_ids, k=k,
-                                 pool=pool, metric=self.points.metric)
-        return ids, dists, res
+        every query runs its untruncated search.
+
+        Under the recorder (``utils/trace.py``) the call is a ``search``
+        span (host time; counting its ``queries``) over ``search.entry``,
+        ``search.translate``, ``search.walk`` (counting the walk's
+        ``visits`` and ``cmps``) and ``search.rerank``, which time the
+        stream where they are timed."""
+        with trace.span("search"):
+            qp = QueryParams(k=k, beamSize=beam_size, cut=cut, limit=limit,
+                             degree_limit=degree_limit).resolved(
+                self.graph.max_degree, self.points.n)
+            qf = torch.as_tensor(queries).to(self.device, torch.float32)
+            trace.count("queries", qf.shape[0])
+            if starts is not None:
+                start_arr = torch.as_tensor(starts).to(self.device, torch.int32)
+                if start_arr.dim() == 1:
+                    start_arr = start_arr[:, None]
+            elif random_starts > 0:
+                rs = np.random.default_rng(seed).integers(
+                    0, self.points.n, (qf.shape[0], random_starts))
+                start_arr = torch.from_numpy(rs.astype(np.int32)).to(self.device)
+            elif self.use_entry and self.points.n >= self.entry_min_n:
+                # never clobber a caller-built tier (index.py:323-331)
+                if self.entry_ids is None:
+                    self.build_entry_cache()
+                with trace.span("search.entry", self.device):
+                    start_arr = _entry_top1(qf, self.entry_vecs, self.entry_ids,
+                                            metric=self.points.metric)
+            else:
+                start_arr = torch.tensor([self.start_point], dtype=torch.int32,
+                                         device=self.device)
+            L = max(qp.beamSize, k)
+            pool = min(max(k * rerank_factor, k), L)
+            # the coarse 1-bit and 2-bit tiers have huge tie classes, so the
+            # metric cut rule is unusable: they search with k=0 (pure beam) and
+            # the rerank restores precision (beamSearch.h:394-454)
+            if self.bit_points is not None:
+                tier = self.bit_points
+                with trace.span("search.translate", self.device):
+                    q = quantize.bit_translate_query(qf, tier)
+                bits, search_k = 1, 0
+            elif self.jl_tier is not None:
+                tier = self.jl_tier.points
+                with trace.span("search.translate", self.device):
+                    q = self.jl_tier.translate_query(qf)
+                bits = 1 if self.jl_tier.bits == 1 else 32
+                search_k = 0 if bits == 1 else k
+            elif self.t2_points is not None:
+                tier = self.t2_points
+                with trace.span("search.translate", self.device):
+                    q = quantize.mips_2bit_translate_query(qf, tier)
+                bits, search_k = 2, 0
+            elif self.t4_points is not None:
+                tier = self.t4_points
+                with trace.span("search.translate", self.device):
+                    q = quantize.mips_4bit_translate_query(qf, tier)
+                bits, search_k = 4, k
+            elif (self.qpoints is not None and self.qpoints.data.dtype == torch.int8
+                  and self.use_fused and expand == 1
+                  and qp.degree_limit >= self.graph.max_degree):
+                return self._search_q8(qf, start_arr, qp, k, L, pool)
+            else:
+                tier = self.qpoints if self.qpoints is not None else self.points
+                res = fused_search(
+                    qf, tier, self.points.data, self.graph.neighbors,
+                    self.graph.degrees, start_arr, self.build_inline_cache(), k=k,
+                    L=L, cut=qp.cut, limit=qp.limit, degree_limit=qp.degree_limit,
+                    expand=expand, rerank_pool=pool,
+                    do_rerank=tier is not self.points)
+                return res.ids, res.dists, res
+            inline = self.build_inline_bits_cache(tier) if bits == 1 else None
+            with trace.span("search.walk", self.device):
+                res = beam_search_batch(
+                    q, tier.data, self.graph.neighbors, self.graph.degrees, start_arr,
+                    None, inline, metric=tier.metric, n_valid=tier.n, k=search_k, L=L,
+                    cut=qp.cut, limit=qp.limit, degree_limit=qp.degree_limit,
+                    expand=expand, bits=bits)
+                trace.count("visits", res.num_visited)
+                trace.count("cmps", res.dist_cmps)
+            with trace.span("search.rerank", self.device):
+                ids, dists = rerank_topk(qf, self.points.data, res.beam_ids, k=k,
+                                         pool=pool, metric=self.points.metric)
+            return ids, dists, res
 
     def _search_q8(self, qf, start_arr, qp, k, L, pool):
         """The fused path of a scalar tier stored in int8: kernel 3 walks
         each query, then the rerank."""
         tier = self.qpoints
-        q_t = quantize.translate_query(qf, tier).float()
-        fid, _, nv, cmps = beam_search_fused(
-            q_t, tier.data, self.graph.neighbors, self.graph.degrees, start_arr,
-            metric=tier.metric, n_valid=tier.n, k=k, L=L, cut=qp.cut,
-            limit=qp.limit)
-        ids, dists = rerank_topk(qf, self.points.data, fid, k=k, pool=pool,
-                                 metric=self.points.metric)
+        with trace.span("search.translate", self.device):
+            q_t = quantize.translate_query(qf, tier).float()
+        with trace.span("search.walk", self.device):
+            fid, _, nv, cmps = beam_search_fused(
+                q_t, tier.data, self.graph.neighbors, self.graph.degrees, start_arr,
+                metric=tier.metric, n_valid=tier.n, k=k, L=L, cut=qp.cut,
+                limit=qp.limit)
+            trace.count("visits", nv)
+            trace.count("cmps", cmps)
+        with trace.span("search.rerank", self.device):
+            ids, dists = rerank_topk(qf, self.points.data, fid, k=k, pool=pool,
+                                     metric=self.points.metric)
         return ids, dists, FusedResult(
             ids, dists, nv, cmps, torch.zeros((), dtype=torch.int32, device=ids.device))
 

@@ -24,7 +24,7 @@ import torch
 
 from parlayann_tpu_torch.types import BuildParams, Metric
 from parlayann_tpu_torch.build.vamana import (
-    _Laps, _pad_pow2, _read_phase, _sort_rows_by_distance, _write_batch,
+    _pad_pow2, _read_phase, _sort_rows_by_distance, _write_batch,
     batch_schedule,
 )
 from parlayann_tpu_torch.ops.distance import INF
@@ -92,7 +92,6 @@ def build_sharded_vamana(
     nbrs = torch.zeros((nl, R), dtype=torch.int32, device=dev)
     degs = torch.zeros((nl,), dtype=torch.int32, device=dev)
     start = torch.zeros((1,), dtype=torch.int32, device=dev)
-    laps = _Laps(dev, on=False)
 
     counts = [min(nl, max(0, n - i * nl)) for i in range(D)]
     rng = np.random.default_rng(bp.seed)
@@ -115,7 +114,7 @@ def build_sharded_vamana(
                 nbrs, degs, points, batch, start, None, R=R, L=L, vmax=vmax,
                 metric=metric, n_valid=nl, expand=1)
             nbrs, degs = _write_batch(nbrs, degs, points, batch, cand_ids, cand_d,
-                                      alpha, laps, R=R, metric=metric, n_valid=nl)
+                                      alpha, R=R, metric=metric, n_valid=nl)
         if verbose:
             print(f"sharded build: pass {p} done", flush=True)
     nbrs = _sort_rows_by_distance(nbrs, degs, points, R=R, metric=metric)

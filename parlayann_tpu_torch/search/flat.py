@@ -24,6 +24,7 @@ from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.ops import quantize as qz
 from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk, flat_topk_plain
 from parlayann_tpu_torch.types import Metric
+from parlayann_tpu_torch.utils import trace
 from parlayann_tpu_torch.utils.timing import timed_rounds
 
 SELECTS = ("sort", "groupmin", "approx", "pallas")
@@ -74,13 +75,22 @@ class FlatIndex:
         """-> (ids (B, k), dists (B, k)); q8-tier distances are in the
         tier's domain. Other keywords (``Index.batch_search``'s
         ``beam_size``, ``cut``, ...) are ignored, as the JAX package's
-        FlatIndex ignores them, so a harness can search either index."""
-        q = torch.as_tensor(queries).to(self.device, torch.float32)
-        ps = self.qpoints or self.points
-        if self.qpoints is not None:
-            q = qz.translate_query(q, self.qpoints).float()
-        return flat_search_batch(q, ps.data, k=k, metric=self.points.metric,
-                                 n_valid=ps.n, chunk=chunk, select=select)
+        FlatIndex ignores them, so a harness can search either index.
+        Under the recorder (``utils/trace.py``) the call is a ``search``
+        span (host time; counting its ``queries``) over
+        ``search.translate`` (the q8 tier) and ``flat.scan`` (the top-k
+        selection with its finish), which time the stream where they are
+        timed."""
+        with trace.span("search"):
+            q = torch.as_tensor(queries).to(self.device, torch.float32)
+            trace.count("queries", q.shape[0])
+            ps = self.qpoints or self.points
+            if self.qpoints is not None:
+                with trace.span("search.translate", self.device):
+                    q = qz.translate_query(q, self.qpoints).float()
+            with trace.span("flat.scan", self.device):
+                return flat_search_batch(q, ps.data, k=k, metric=self.points.metric,
+                                         n_valid=ps.n, chunk=chunk, select=select)
 
     def batch_search_timed(self, queries, warmup: bool = True, rounds: int = 1,
                            **kw):

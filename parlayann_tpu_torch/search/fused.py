@@ -15,6 +15,10 @@ scalar tiers of 9 to 16 bits (int16 levels) and the q8 tier at ``expand >
   3. ``rerank_topk`` at full precision when the tier is not the points,
      else the first k beam entries (``top_k_from_beam``).
 
+Under the recorder (``utils/trace.py``) the steps are the spans
+``search.translate``, ``search.walk`` (counting ``visits`` and ``cmps``)
+and ``search.rerank``.
+
 The JAX function's two-phase straggler compaction (fused.py:97-142; at
 most ``compact_w`` unconverged queries resume after ``t1`` visits, the
 rest keep their phase-1 result) is a schedule for the TPU's lock-step
@@ -32,6 +36,7 @@ from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.ops import quantize
 from parlayann_tpu_torch.search.beam import beam_search_batch, top_k_from_beam
 from parlayann_tpu_torch.search.rerank import rerank_topk
+from parlayann_tpu_torch.utils import trace
 
 
 class FusedResult(NamedTuple):
@@ -61,15 +66,21 @@ def fused_search(
     do_rerank: bool = False,
 ) -> FusedResult:
     """(See module docstring.)"""
-    q = quantize.translate_query(q_full, tier).float()
-    res = beam_search_batch(
-        q, tier.data, nbrs, degs, start, None, inline, metric=tier.metric,
-        n_valid=tier.n, k=k, L=L, cut=cut, limit=limit,
-        degree_limit=degree_limit, expand=expand)
-    if do_rerank:
-        ids, dists = rerank_topk(q_full.float(), points_data, res.beam_ids, k=k,
-                                 pool=min(max(rerank_pool, k), L), metric=tier.metric)
-    else:
-        ids, dists = top_k_from_beam(res, k)
+    with trace.span("search.translate", q_full.device):
+        q = quantize.translate_query(q_full, tier).float()
+    with trace.span("search.walk", q_full.device):
+        res = beam_search_batch(
+            q, tier.data, nbrs, degs, start, None, inline, metric=tier.metric,
+            n_valid=tier.n, k=k, L=L, cut=cut, limit=limit,
+            degree_limit=degree_limit, expand=expand)
+        trace.count("visits", res.num_visited)
+        trace.count("cmps", res.dist_cmps)
+    with trace.span("search.rerank", q_full.device):
+        if do_rerank:
+            ids, dists = rerank_topk(q_full.float(), points_data, res.beam_ids, k=k,
+                                     pool=min(max(rerank_pool, k), L),
+                                     metric=tier.metric)
+        else:
+            ids, dists = top_k_from_beam(res, k)
     n_trunc = torch.zeros((), dtype=torch.int32, device=q_full.device)
     return FusedResult(ids, dists, res.num_visited, res.dist_cmps, n_trunc)

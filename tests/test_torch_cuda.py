@@ -1630,3 +1630,44 @@ def test_torch_cuda_nccl_four_ranks_match_gloo(cuda, tmp_path):
     assert abs(r_host - r_card) <= 0.03, (r_host, r_card)
     for mode in ("global", "sharded", "cluster"):
         assert card[f"dry_{mode}_ids"].shape == host[f"dry_{mode}_ids"].shape, mode
+
+
+def test_torch_cuda_search_spans_on_the_card(cluster_data, cuda):
+    """A q8 search recorded on the card: the same answers as unrecorded;
+    the root's children have stream times, and the walk's counters equal
+    the FusedResult's sums. A profiler session that traces the device
+    alone turns the recorder on and times one search in SAMPLE."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from parlayann_tpu_torch.utils import trace
+
+    X, Q = cluster_data
+    g, ps, _ = build_vamana_index(X, R=16, L=32, device=cuda)
+    idx = Index(points=ps, graph=g).enable_quantized(8)
+    idx.entry_min_n = 0
+    want = idx.batch_search(Q, k=10, beam_size=32)
+    trace.clear()
+    with trace.recording():
+        got = idx.batch_search(Q, k=10, beam_size=32)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    spans = trace.spans()
+    names = [s.name for s in spans]
+    assert names == ["search", "search.entry", "search.translate", "search.walk",
+                     "search.rerank"]
+    assert spans[0].stream_ms is None  # the root times the host alone
+    assert all(s.stream_ms is not None and s.stream_ms > 0 for s in spans[1:])
+    walk = spans[3]
+    assert walk.counters["cmps"] == int(got[2].dist_cmps.sum())
+    assert walk.counters["visits"] == int(got[2].num_visited.sum())
+    trace.clear()
+    with profile(activities=[ProfilerActivity.CUDA]):
+        assert trace.on()
+        for _ in range(trace.SAMPLE):
+            idx.batch_search(Q, k=10, beam_size=32)
+    torch.cuda.synchronize()
+    spans = trace.spans()
+    assert [s.name for s in spans] == names * trace.SAMPLE
+    assert sum(s.timed for s in spans) == len(names)
+    assert all((s.stream_ms is not None) is (s.timed and s.name != "search") for s in spans)
+    trace.clear()
