@@ -19,7 +19,11 @@ Phases:
      order (kernel 1's own; kernel 2 rechecks in it); then kernel 1's int16
      mode (B=10,000 over a (100000, 32, 128) int16 inline array, L2 and
      MIPS, rows and queries at the extreme levels so that an int32 sum
-     would overflow), equal to its plain version (both sum in int64).
+     would overflow), equal to its plain version (both sum in int64); then
+     the entry top-1 (``entry_top1``: B=10,000 queries against a 4,096-point
+     entry tier of the 100K set, L2 and MIPS) against its plain version,
+     ids equal or within rounding of the best entry in float64, timed beside
+     its bound, the plain chain and ``torch.addmm`` + ``argmin``.
   3. the slice through the user entry points: a q8 Vamana build of the
      synthetic clustered 100K x 128 set (R=32, L=64, alpha=1.2, two passes,
      batch_cap_frac=0.16), then q8 ``Index.batch_search`` of 10K queries at
@@ -246,8 +250,14 @@ kernel 4's; the f32-core bound of its earlier design, 2 C d over 67 T/s,
 is printed beside it); kernel 2's bytes are each row's
 distances and rounds (8 B C) and its live candidates' vectors.
 ``library_ms`` is one PyTorch call
-computing the same function where there is one (only for kernel 4: the cuBLAS product of the
-same distance matrix, which is not the top-k), else null.
+computing the same function where there is one (kernel 4: the cuBLAS product of the
+same distance matrix, which is not the top-k; the entry top-1: ``torch.addmm``
+of the biased product, then ``argmin``), else null. The entry top-1's bound
+counts 3 TF32 passes of 2 B E d over 495 T/s, as kernel 4's; its
+``max_abs_err`` (L2; ``mips_max_abs_err``) is the worst float64 distance
+gap between its entry and the best one over the queries whose ids differ
+from the plain chain's (``differ`` of them; ``rel_gap`` the worst gap
+relative to the best distance), 0 where none differ.
 
 The second-to-last line is a JSON summary of the kernels, the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -807,15 +817,92 @@ def kernel_flat(X, Q, gen, dev):
                 **bounds["f32"])
 
 
+ENTRY_E = 4096  # the search's entry tier (Index.build_entry_cache)
+ENTRY_WIDE_D = 200  # a width past the 128 dimensions the kernel keeps at once
+
+
+def kernel_entry(X, Q, dev):
+    """The entry top-1 (``ops/kernels/entry.py``, over the tier that
+    ``entry_tier`` makes once) at the search's shape: B = 10,000 queries
+    against the E = 4,096-point entry tier of the 100K set, d = 128, L2 and
+    MIPS, against its plain version (ids equal, or the kernel's entry within
+    1e-5 of the best in float64, relative: the worst such gap and the count
+    of ids that differ are reported), timed beside its bound (3 TF32 passes
+    of 2 B E d at 495 TFLOP/s; the bytes are 7 MB), the plain chain and one
+    library call (``torch.addmm`` of the biased (B, E) product, then
+    ``argmin``); then once past d = 128 (``ENTRY_WIDE_D``, the queries in
+    128-dimension chunks) on Gaussian data, beside its plain chain."""
+    from parlayann_tpu_torch.types import Metric
+    from parlayann_tpu_torch.ops.kernels.entry import (
+        _slots, entry_tier, entry_top1, entry_top1_plain, grid)
+
+    def gap(q, tier, got, want):
+        """-> (ids that differ, the worst (mine - best) / |best| and the
+        worst mine - best over them, distances in float64; 0 when none
+        differ)."""
+        differ = (got != want)[:, 0]
+        if not bool(differ.any()):
+            return 0, 0.0, 0.0
+        q64, e64 = q[differ].double(), tier.rows.double()
+        dist = (-(q64 @ e64.T) if tier.metric is Metric.MIPS else
+                (q64 * q64).sum(1)[:, None] + (e64 * e64).sum(1)[None] - 2 * q64 @ e64.T)
+        pos_of = torch.zeros(int(tier.ids.max()) + 1, dtype=torch.int64, device=dev)
+        pos_of[tier.ids.long()] = torch.arange(tier.ids.shape[0], device=dev)
+        mine = dist.gather(1, pos_of[got[differ].long()])[:, 0]
+        best = dist.min(dim=1).values
+        return (int(differ.sum()), float(((mine - best) / best.abs()).max()),
+                float((mine - best).max()))
+
+    def run(q, tier, label, reps):
+        got = entry_top1(q, tier)
+        want = entry_top1_plain(q, tier.rows, tier.bias, tier.ids, metric=tier.metric)
+        differ, worst, worst_abs = gap(q, tier, got, want)
+        check(worst <= 1e-5, f"entry_top1 {label}: an entry beyond rounding of the best "
+                             f"({worst:.3e} relative)")
+        ms = time_ms(lambda: entry_top1(q, tier), reps)
+        plain_ms = time_ms(lambda: entry_top1_plain(q, tier.rows, tier.bias, tier.ids,
+                                                    metric=tier.metric), 10)
+        log(f"entry_top1 {label}: {differ} ids differ from the plain chain, the worst "
+            f"{worst:.3e} relative of the best; {ms:.4f} ms vs plain {plain_ms:.4f} ms")
+        return dict(ms=ms, plain_ms=plain_ms, differ=differ, rel_gap=worst, abs_gap=worst_abs)
+
+    B, d = len(Q), X.shape[1]
+    ids = torch.from_numpy(np.random.default_rng(0).choice(
+        len(X), ENTRY_E, replace=False).astype(np.int32)).to(dev)
+    ev = torch.from_numpy(X).to(dev)[ids.long()]
+    q = torch.from_numpy(Q).to(dev)
+    out = {m.name: run(q, entry_tier(ev, ids, m), f"{m.name} B={B} E={ENTRY_E} d={d}", 50)
+           for m in (Metric.L2, Metric.MIPS)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    wide = run(torch.randn((B, ENTRY_WIDE_D), generator=gen, device=dev),
+               entry_tier(torch.randn((ENTRY_E, ENTRY_WIDE_D), generator=gen, device=dev),
+                          ids, Metric.L2), f"L2 B={B} E={ENTRY_E} d={ENTRY_WIDE_D}", 20)
+    tier = entry_tier(ev, ids, Metric.L2)
+    lib_ms = time_ms(lambda: torch.addmm(tier.bias[None], q, tier.rows.T, beta=1.0,
+                                         alpha=-2.0).argmin(1), 10)
+    b = bound(B * d * 4 + ENTRY_E * (d + 2) * 4 + B * 4, 3 * 2 * B * ENTRY_E * d, TF32_OPS)
+    R, T, G = grid(B, ENTRY_E, _slots(d, dev))
+    log(f"entry_top1 L2: {out['L2']['ms']:.4f} ms vs plain {out['L2']['plain_ms']:.4f} ms; "
+        f"torch.addmm + argmin {lib_ms:.4f} ms; bound {b['bound_ms']:.4f} ms "
+        f"({b['bound_by']}, 3 TF32 passes); {G} CTAs over {R} row blocks x {T} tiles")
+    return dict(max_abs_err=out["L2"]["abs_gap"], rel_gap=out["L2"]["rel_gap"],
+                differ=out["L2"]["differ"], mips_max_abs_err=out["MIPS"]["abs_gap"],
+                mips_rel_gap=out["MIPS"]["rel_gap"], mips_differ=out["MIPS"]["differ"],
+                ms=out["L2"]["ms"], plain_ms=out["L2"]["plain_ms"], library_ms=lib_ms,
+                mips_ms=out["MIPS"]["ms"], wide_d=ENTRY_WIDE_D, wide_ms=wide["ms"],
+                wide_plain_ms=wide["plain_ms"], wide_differ=wide["differ"], **b)
+
+
 def slice_run(X, Q, dev):
     import parlayann_tpu_torch as pt
     from parlayann_tpu_torch.ops.kernels.expand import expand_distances
     from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
     from parlayann_tpu_torch.ops.kernels.fusedbeam import beam_search_fused
+    from parlayann_tpu_torch.ops.kernels.entry import entry_top1
     from parlayann_tpu_torch.search import exact
     from parlayann_tpu_torch.harness.recall import compute_recall
 
-    wrappers = (expand_distances, occlusion_rounds, beam_search_fused)
+    wrappers = (expand_distances, occlusion_rounds, beam_search_fused, entry_top1)
     for w in wrappers:
         w.launches = 0
     torch.cuda.synchronize()
@@ -885,14 +972,14 @@ def fused_args(idx, Q, L, dev):
     """Kernel 3's inputs as the q8 search makes them for queries Q at beam
     L -> (args, kwargs): the translated (integer-valued) queries, the int8
     tier, the graph and the entry tier's top-1 starts."""
-    from parlayann_tpu_torch.index import _entry_top1
     from parlayann_tpu_torch.ops import quantize
+    from parlayann_tpu_torch.ops.kernels.entry import entry_tier, entry_top1
 
     q = torch.as_tensor(Q).to(dev)
     tier, g = idx.qpoints, idx.graph
     if idx.entry_ids is None:
         idx.build_entry_cache()  # the search's own entry tier (kept if built)
-    starts = _entry_top1(q, idx.entry_vecs, idx.entry_ids, metric=tier.metric)
+    starts = entry_top1(q, entry_tier(idx.entry_vecs, idx.entry_ids, tier.metric))
     q_t = quantize.translate_query(q, tier).float()
     return ((q_t, tier.data, g.neighbors, g.degrees, starts),
             dict(metric=tier.metric, n_valid=tier.n, k=K, L=L, limit=tier.n))
@@ -1794,6 +1881,7 @@ def tier_run(dev):
     the tiers' inline words and query words for kernel 6's check)."""
     import parlayann_tpu_torch as pt
     from parlayann_tpu_torch.ops import quantize
+    from parlayann_tpu_torch.ops.kernels.entry import entry_top1
     from parlayann_tpu_torch.ops.kernels.expand import expand_bits_flat, expand_distances
     from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
     from parlayann_tpu_torch.search import exact
@@ -1805,7 +1893,7 @@ def tier_run(dev):
                                cluster_std=0.35, seed=SEED)
     log(f"data: synthetic clustered {X.shape}, {len(Q)} queries, 10000 clusters "
         f"({time.perf_counter() - t0:.2f} s)")
-    wrappers = (expand_distances, occlusion_rounds, expand_bits_flat)
+    wrappers = (expand_distances, occlusion_rounds, expand_bits_flat, entry_top1)
     for w in wrappers:
         w.launches = 0
     torch.cuda.synchronize()
@@ -1997,6 +2085,7 @@ def run_cli(args, what):
 def _wrappers():
     """Every kernel wrapper, each counting its launches."""
     from parlayann_tpu_torch.ops.kernels.clusterbeam import cluster_walk
+    from parlayann_tpu_torch.ops.kernels.entry import entry_top1
     from parlayann_tpu_torch.ops.kernels.expand import (
         expand_bits_flat, expand_distances, expand_distances_multi)
     from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk
@@ -2004,7 +2093,7 @@ def _wrappers():
     from parlayann_tpu_torch.ops.kernels.occlude import occlusion_rounds
 
     return (expand_distances, expand_distances_multi, occlusion_rounds, beam_search_fused,
-            build_beam_fused, flat_topk, cluster_walk, expand_bits_flat)
+            build_beam_fused, flat_topk, cluster_walk, expand_bits_flat, entry_top1)
 
 
 def _zero_launches():
@@ -2078,7 +2167,7 @@ def tutorial_run(X, Q, dev):
         f"and every sweep row has degree_limit = min(32, 5 l) = 32, so the fused walk runs")
     check(recall >= RECALL_BAR, f"10a: recall@{K} at -Q 64 is {recall:.4f} < {RECALL_BAR}")
     check(any(b >= 0.95 for b, *_ in buckets), "10a: the CSV has no bucket at 0.95 or above")
-    for name in ("occlusion_rounds", "beam_search_fused"):
+    for name in ("occlusion_rounds", "beam_search_fused", "entry_top1"):
         check(launches[name] > 0, f"{name} was not launched by phase 10a")
     log(f"phase 10a: recall@{K} at -Q 64 {recall:.4f}; build {build_s:.3f} s; "
         f"sweep {sweep_s:.3f} s")
@@ -2344,7 +2433,7 @@ def tiers11_run(points, graph, Q, gt, dev):
     1's int16 mode) and the 4-bit scalar tier (int8 levels, kernel 3) on
     phase 3's graph -> {kernel: launches}."""
     import parlayann_tpu_torch as pt
-    from parlayann_tpu_torch.index import _entry_top1
+    from parlayann_tpu_torch.ops.kernels.entry import entry_tier, entry_top1
     from parlayann_tpu_torch.ops import quantize
     from parlayann_tpu_torch.search.beam import beam_search_batch
 
@@ -2365,7 +2454,7 @@ def tiers11_run(points, graph, Q, gt, dev):
     # the card against the CPU on Q16_CPU queries from the same starts
     qs = q[:Q16_CPU]
     idx.build_entry_cache()
-    starts = _entry_top1(qs, idx.entry_vecs, idx.entry_ids, metric=points.metric)
+    starts = entry_top1(qs, entry_tier(idx.entry_vecs, idx.entry_ids, points.metric))
     cpu_pts, cpu_graph = _on_cpu(points, graph)
     cidx = pt.Index(points=cpu_pts, graph=cpu_graph).enable_quantized(bits=16)
     check(torch.equal(cidx.qpoints.data, idx.qpoints.data.cpu()),
@@ -2388,7 +2477,7 @@ def tiers11_run(points, graph, Q, gt, dev):
     log(f"11a: the 16-bit walk of {Q16_CPU} queries at beam 64 equal on the card and the "
         f"CPU (beams, distances, visits, comparisons); reranked ids equal but at ties "
         f"({int((gi.cpu() != wi).sum())} differ)")
-    for name in ("expand_distances (int16 rows)", "beam_search_fused"):
+    for name in ("expand_distances (int16 rows)", "beam_search_fused", "entry_top1"):
         check(launches[name] > 0, f"{name} was not launched by phase 11a")
     check(recall[64] >= RECALL_BAR,
           f"16-bit tier recall@{K} at beam 64 is {recall[64]:.4f} < {RECALL_BAR}")
@@ -2484,7 +2573,7 @@ def mips11_run(dev):
     trimmed q8 tier and the f32 walk with the q8 filter -> {kernel:
     launches}."""
     import parlayann_tpu_torch as pt
-    from parlayann_tpu_torch.index import _entry_top1
+    from parlayann_tpu_torch.ops.kernels.entry import entry_tier, entry_top1
     from parlayann_tpu_torch.ops import quantize
     from parlayann_tpu_torch.search import exact
     from parlayann_tpu_torch.search.beam import beam_search_batch
@@ -2529,7 +2618,7 @@ def mips11_run(dev):
     # (bench_tier_filter.py's B and C), from the entry tier's starts
     tier = q8_idx.qpoints
     q8_idx.build_entry_cache()
-    starts = _entry_top1(q, q8_idx.entry_vecs, q8_idx.entry_ids, metric=points.metric)
+    starts = entry_top1(q, entry_tier(q8_idx.entry_vecs, q8_idx.entry_ids, points.metric))
     fq = quantize.translate_query(q, tier).float()
 
     def walk(filt):
@@ -2553,7 +2642,7 @@ def mips11_run(dev):
     log(f"peak device memory in phase 11c: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     launches = _launch_counts()
     log("launches during phase 11c:", {k: v for k, v in launches.items() if v})
-    for name in ("expand_distances", "occlusion_rounds", "beam_search_fused"):
+    for name in ("expand_distances", "occlusion_rounds", "beam_search_fused", "entry_top1"):
         check(launches[name] > 0, f"{name} was not launched by phase 11c")
     for name in ("q8", "4bit"):
         best = max(recall[name].values())
@@ -3107,6 +3196,7 @@ def main():
     k1i = kernel_expand_i16(dev)
     kb = bitonic_check(gen, dev)
     k4 = kernel_flat(X, Q, gen, dev)
+    ke = kernel_entry(X, Q, dev)
     phase("phase 3: the slice (q8 Vamana build + q8 fused search)")
     idx, launches, gt, build_s = slice_run(X, Q, dev)
     phase("phase 3 (continued): the 100K build once more under torch.profiler")
@@ -3273,6 +3363,11 @@ def main():
              source="parlayann_tpu_torch/csrc/clusterbeam.cu",
              replaces="parlayann_tpu/ops/pallas/clusterbeam.py:351",
              launches=launches["cluster_walk"], **k5),
+        # no Pallas kernel: the XLA-fused dot and argmin of the JAX search
+        dict(name="entry_top1", route="cuda", source="parlayann_tpu_torch/csrc/entry.cu",
+             replaces="none (parlayann_tpu/index.py:39-55, XLA-fused)",
+             launches=launches["entry_top1"], phase6_launches=tier_launches["entry_top1"],
+             **ke),
         # also the bits=1 mode of expand_distances (expand.py:129)
         dict(name="expand_bits_flat", route="cuda",
              source="parlayann_tpu_torch/csrc/expandbits.cu",

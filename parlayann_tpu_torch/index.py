@@ -26,7 +26,17 @@ Counterpart of parlayann_tpu/index.py (GraphIndex, python/graph_index.cpp:
 
 Every tier starts from the entry top-1 over a sampled tier (or the given
 starts, or ``start_point``); the quantized tiers end in the
-full-precision rerank, the f32 tier in the beam's first k entries. The
+full-precision rerank, the f32 tier in the beam's first k entries. On the
+card the entry top-1 is one launch of ``ops/kernels/entry.py:entry_top1``
+(``csrc/entry.cu``): the (B, E) distances in 3xTF32 ``wgmma`` tiles on the
+tensor cores, folded into each row's argmin in registers, so no (B, E)
+array reaches device memory (the JAX package's fused dot and argmin,
+index.py:39-55); on the CPU one float32 matmul and a row argmin. What it
+reads of the tier (``entry_tier``: the float32 rows, their bias,
+``||e||^2`` for L2 or 0 for MIPS, the int32 ids and, on the card, the rows
+split into TF32 hi and lo parts) is made once a tier (``_entry_tier``),
+also for a tier that ``interop`` or the HNSW index installs as
+``entry_vecs``. The
 JAX package's TPU-only eligibility tests of the fused kernel (its VMEM
 beam-state budget, ``d >= R8``) are not carried over: kernel 3 takes any
 L up to 4096 and any d. ``random_starts`` draws each query's starts as
@@ -50,6 +60,7 @@ from parlayann_tpu_torch.types import Metric, QueryParams
 from parlayann_tpu_torch.data.pointset import PointSet
 from parlayann_tpu_torch.data.graph import GraphIndexData
 from parlayann_tpu_torch.ops import quantize
+from parlayann_tpu_torch.ops.kernels.entry import EntryTier, entry_tier, entry_top1
 from parlayann_tpu_torch.ops.kernels.expand import build_inline, build_inline_bits
 from parlayann_tpu_torch.ops.kernels.fusedbeam import beam_search_fused
 from parlayann_tpu_torch.search.beam import beam_search_batch
@@ -57,19 +68,6 @@ from parlayann_tpu_torch.search.fused import FusedResult, fused_search
 from parlayann_tpu_torch.search.rerank import rerank_topk
 from parlayann_tpu_torch.utils import trace
 from parlayann_tpu_torch.utils.timing import timed_rounds
-
-
-def _entry_top1(q: torch.Tensor, evecs: torch.Tensor, eids: torch.Tensor, *,
-                metric: Metric) -> torch.Tensor:
-    """Exact nearest sampled point per query -> (B, 1) start ids: one
-    (B, E) float32 matmul and a row argmin (first index on ties)."""
-    ev = evecs.float()
-    dot = q.float() @ ev.T
-    if metric is Metric.MIPS:
-        dist = -dot
-    else:
-        dist = (ev * ev).sum(dim=1)[None, :] - 2.0 * dot
-    return eids[dist.argmin(dim=1)][:, None]
 
 
 @dataclasses.dataclass
@@ -98,6 +96,10 @@ class Index:
     entry_vecs: Optional[torch.Tensor] = None
     use_entry: bool = True
     entry_min_n: int = 20_000  # below this the start point is fine
+    # what the entry top-1 reads of the tier (_entry_tier), and the
+    # (entry_vecs, entry_ids) it was made from
+    _entry: Optional[EntryTier] = None
+    _entry_src: Optional[tuple] = None
 
     @property
     def device(self) -> torch.device:
@@ -203,6 +205,19 @@ class Index:
             self.points.n, E, replace=False).astype(np.int32)
         self.entry_ids = torch.from_numpy(ids).to(self.device)
         self.entry_vecs = self.points.data[self.entry_ids.long()]
+        self._entry_tier()
+
+    def _entry_tier(self) -> EntryTier:
+        """-> the entry tier as ``entry_top1`` reads it, made once a tier:
+        again only when ``entry_vecs`` or ``entry_ids`` is another tensor than
+        the one it was made from (``build_entry_cache`` makes it at once; a
+        tier that ``interop`` or the HNSW index installs gets its own at the
+        next search), never once a batch."""
+        src = (self.entry_vecs, self.entry_ids)
+        if self._entry_src is None or any(a is not b for a, b in zip(src, self._entry_src)):
+            self._entry = entry_tier(self.entry_vecs, self.entry_ids, self.points.metric)
+            self._entry_src = src
+        return self._entry
 
     def batch_search(self, queries, k: int = 10, beam_size: int = 128,
                      cut: float = 1.35, limit: Optional[int] = None,
@@ -251,9 +266,11 @@ class Index:
                 # never clobber a caller-built tier (index.py:323-331)
                 if self.entry_ids is None:
                     self.build_entry_cache()
+                tier = self._entry_tier()
                 with trace.span("search.entry", self.device):
-                    start_arr = _entry_top1(qf, self.entry_vecs, self.entry_ids,
-                                            metric=self.points.metric)
+                    before = entry_top1.launches
+                    start_arr = entry_top1(qf.contiguous(), tier)
+                    trace.count("launches", entry_top1.launches - before)
             else:
                 start_arr = torch.tensor([self.start_point], dtype=torch.int32,
                                          device=self.device)

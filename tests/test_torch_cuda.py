@@ -16,7 +16,10 @@ kernel and its plain version sum in another order. Flat top-k distances agree to
 norms), and ids agree except where two distances lie within that
 tolerance; cluster-walk distances agree to rtol 1e-5 (L2) or to 1e-5 of
 the largest magnitude (MIPS, whose dot products can cancel). Hamming
-distances over packed words are exact integers: equal.
+distances over packed words are exact integers: equal. The entry top-1's
+ids equal its plain version's, or where a rounding tells two entries apart
+differently, the kernel's entry, recomputed in float64, lies within 1e-5
+of the best entry's distance, relative.
 """
 
 import numpy as np
@@ -38,6 +41,8 @@ from parlayann_tpu_torch.ops.kernels.flatscan import (
     MAX_K, flat_topk, flat_topk_plain, splits)
 from parlayann_tpu_torch.ops.kernels.clusterbeam import (
     cluster_walk, cluster_walk_plain, seed_centroids)
+from parlayann_tpu_torch.ops.kernels.entry import (
+    ROWS, EntryTier, entry_tier, entry_top1, entry_top1_plain, grid)
 from parlayann_tpu_torch.ops.topk import lexsort
 from parlayann_tpu_torch.utils.arrays import pow2
 from parlayann_tpu_torch.api import build_cluster_index, build_hnsw_index, build_vamana_index
@@ -1655,6 +1660,7 @@ def test_torch_cuda_search_spans_on_the_card(cluster_data, cuda):
     names = [s.name for s in spans]
     assert names == ["search", "search.entry", "search.translate", "search.walk",
                      "search.rerank"]
+    assert spans[1].counters == {"launches": 1}  # the entry top-1's kernel
     assert spans[0].stream_ms is None  # the root times the host alone
     assert all(s.stream_ms is not None and s.stream_ms > 0 for s in spans[1:])
     walk = spans[3]
@@ -1671,3 +1677,129 @@ def test_torch_cuda_search_spans_on_the_card(cluster_data, cuda):
     assert sum(s.timed for s in spans) == len(names)
     assert all((s.stream_ms is not None) is (s.timed and s.name != "search") for s in spans)
     trace.clear()
+
+
+def _entry_case(gen, dev, B, E, d, metric, src, dup=False):
+    """Queries and an entry tier as the search makes them: offset like
+    SIFT's non-negative values; uint8 source points as their float32 rows;
+    ``dup`` draws every row from E // 8 distinct ones, so most rows have
+    equal twins at other positions -> (q, tier, rows drawn)."""
+    q = gen.normal(30, 20, (B, d)).astype(np.float32)
+    if src == "u8":
+        ev = gen.integers(0, 256, (E, d)).astype(np.uint8)
+    else:
+        ev = gen.normal(30, 20, (E, d)).astype(np.float32)
+    pick = gen.integers(0, max(E // 8, 1), E) if dup else np.arange(E)
+    ev = ev[pick]
+    eids = gen.permutation(10 * E)[:E].astype(np.int32)
+    return t(q, dev), entry_tier(t(ev, dev), t(eids, dev), metric), pick
+
+
+def _entry_dist64(q, ev, metric):
+    """(B, E) float64 distances: squared L2, or -q.e (MIPS)."""
+    q64, e64 = q.double(), ev.double()
+    if metric is Metric.MIPS:
+        return -(q64 @ e64.T)
+    return ((q64 * q64).sum(1)[:, None] + (e64 * e64).sum(1)[None, :]
+            - 2.0 * (q64 @ e64.T)).clamp(min=0.0)
+
+
+def _check_entry(q, tier):
+    """The kernel against its plain version -> the kernel's positions."""
+    got = entry_top1(q, tier)
+    want = entry_top1_plain(q, tier.rows, tier.bias, tier.ids, metric=tier.metric)
+    assert got.shape == want.shape == (q.shape[0], 1) and got.dtype == torch.int32
+    pos_of = torch.full((int(tier.ids.max()) + 1,), -1, dtype=torch.int64, device=q.device)
+    pos_of[tier.ids.long()] = torch.arange(tier.ids.shape[0], device=q.device)
+    pos = pos_of[got[:, 0].long()]
+    assert bool((pos >= 0).all())
+    differ = (got != want)[:, 0]
+    if bool(differ.any()):
+        dist = _entry_dist64(q[differ], tier.rows, tier.metric)
+        best = dist.min(dim=1).values
+        mine = dist.gather(1, pos[differ][:, None])[:, 0]
+        assert bool(((mine - best).abs() <= 1e-5 * best.abs()).all())
+    return pos
+
+
+@pytest.mark.parametrize("src", ["f32", "u8"])
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.MIPS])
+@pytest.mark.parametrize("B,E", [(1, 4096), (10_000, 4096), (777, 1000), (64, 40_000)])
+def test_torch_cuda_entry_top1_equal(gen, cuda, B, E, metric, src):
+    q, tier, _ = _entry_case(gen, cuda, B, E, 128, metric, src)
+    _check_entry(q, tier)
+
+
+@pytest.mark.parametrize("B,E,d", [(300, 777, 96), (50, 3000, 100), (2000, 513, 37),
+                                   (100, 2000, 256), (70, 900, 300), (33, 1500, 960),
+                                   (10_000, 4096, 200), (500, 1000, 129), (5, 3000, 513)])
+def test_torch_cuda_entry_top1_widths(gen, cuda, B, E, d):
+    """Every width: up to d = 128 the split queries stay in shared memory
+    for the whole scan, past it they pass through it 128 dimensions at a
+    time for each tile; ragged d, E and B."""
+    q, tier, _ = _entry_case(gen, cuda, B, E, d, Metric.L2, "f32")
+    _check_entry(q, tier)
+
+
+@pytest.mark.parametrize("B,E", [(10_000, 4096), (5, 40_000)])
+def test_torch_cuda_entry_top1_ties(gen, cuda, B, E):
+    """Equal rows at other positions, in one lane, across lanes, warps,
+    tiles and CTAs (B = 5 splits E over the card): the lowest position of
+    the winning row wins, as argmin's."""
+    q, tier, pick = _entry_case(gen, cuda, B, E, 128, Metric.L2, "f32", dup=True)
+    pos = _check_entry(q, tier).cpu().numpy()
+    first = {}
+    for i, r in enumerate(pick.tolist()):
+        first.setdefault(r, i)
+    assert all(first[pick[j]] == j for j in pos)
+
+
+@pytest.mark.parametrize("B,E", [(10_000, 4096), (1, 4096), (64, 40_000)])
+def test_torch_cuda_entry_top1_one_launch(gen, cuda, B, E):
+    """One launch a call, whether each row block has one CTA or several
+    share it (then the C side fills the workspace first), and no (B, E)
+    array: the call's peak allocation is far below one."""
+    q, tier, _ = _entry_case(gen, cuda, B, E, 128, Metric.L2, "f32")
+    assert tier.pack is not None and tier.pack.shape == (E, 256)
+    entry_top1(q, tier)
+    torch.cuda.synchronize()
+    before = entry_top1.launches
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    for _ in range(3):
+        entry_top1(q, tier)
+    torch.cuda.synchronize()
+    assert entry_top1.launches - before == 3
+    assert torch.cuda.max_memory_allocated(cuda) - base < B * E  # below a byte a pair
+    R, T, G = grid(B, E, 132)
+    assert (R, T) == (-(-B // ROWS), -(-E // 128)) and 1 <= G <= R * T
+
+
+def test_torch_cuda_entry_top1_rejects_bad_input(gen, cuda):
+    q, tier, _ = _entry_case(gen, cuda, 10, 300, 16, Metric.L2, "f32")
+    rows, bias, ids, pack = tier.rows, tier.bias, tier.ids, tier.pack
+
+    def tier_of(**kw):
+        return EntryTier(**{**dict(rows=rows, bias=bias, ids=ids, metric=Metric.L2,
+                                   pack=pack), **kw})
+
+    with pytest.raises(ValueError):
+        entry_top1(q.double(), tier)
+    with pytest.raises(ValueError):
+        entry_top1(q, tier_of(ids=ids.long()))
+    with pytest.raises(ValueError):
+        entry_top1(q[:, :8], tier)
+    with pytest.raises(ValueError):  # a tier of another width, even with a pack as wide
+        entry_top1(q[:, :8].contiguous(), tier)
+    with pytest.raises(ValueError):
+        entry_top1(q, tier_of(bias=bias.cpu()))
+    with pytest.raises(ValueError):  # the pack of another tier
+        entry_top1(q, tier_of(pack=pack[:100]))
+    with pytest.raises(ValueError):  # a tier on the card without its pack
+        entry_top1(q, tier_of(pack=None))
+    with pytest.raises(ValueError):  # a pack 4 bytes past a 16-byte boundary
+        odd = torch.empty(pack.numel() + 4, dtype=torch.float32, device=cuda)
+        off = (-(odd.data_ptr() // 4) + 1) % 4
+        shifted = odd[off:off + pack.numel()].view(pack.shape).copy_(pack)
+        assert shifted.data_ptr() % 16 == 4
+        entry_top1(q, tier_of(pack=shifted))

@@ -183,6 +183,8 @@ def test_search_same_results_recorded_or_not(rec, built, tier):
     if tier != "flat":
         walk = next(s for s in got if s.name == "search.walk")
         assert walk.counters["cmps"] > walk.counters["visits"] > 0
+        entry = next(s for s in got if s.name == "search.entry")
+        assert entry.counters == {"launches": 0}  # the plain path on the CPU
 
 
 def test_recorded_build_same_graph_and_phase_spans(rec):
