@@ -192,12 +192,14 @@ Phases:
      adaptive row (32, 4, 1.35), each through the meta seed (kernel 1's
      multi mode on int8 blocks), and n_probe 8 with
      ``seed_mode="stream"``; recall@10 at n_probe 8 through the meta seed
-     at least ``HIER_BAR``. Phase 2 then holds kernel 1 to its plain
-     version on the router's f32 blocks (R8 = 112, B = 8192, each query at
-     its nearest cell) and the seed's int8 blocks (R8 = 24, B = 10,000);
-     the multi mode at the router's real shape (the first 16,384 points at
-     their top-16 cells) and the seed's (the 10K q8 queries at their top
-     16), each equal to its plain version and to 16 single launches, timed
+     at least ``HIER_BAR``, no cluster empty, and every query K results
+     on the cut-0 rows (the adaptive row's queries short of K are counted:
+     its expanded clusters can hold fewer than K points). Phase 2 then
+     holds kernel 1 to its plain version on the router's f32 blocks (R8 =
+     112, B = 8192, each query at its nearest cell) and the seed's int8
+     blocks (R8 = 24, B = 10,000); the multi mode at the router's real
+     shape (the first 16,384 points at their top-16 cells) and the seed's
+     (the 10K q8 queries at their top 16), each equal to its plain version and to 16 single launches, timed
      beside them with its bound and its grouping / scoring split; one
      router chunk fenced and split into the meta-centroid scan and
      select, kernel 1, the mask and gather, and ``smallest_k``; and
@@ -2779,7 +2781,9 @@ def hier_run(dev):
     got = ci.members[ci.members >= 0]
     check(len(got) == HIER_N and len(np.unique(got)) == HIER_N,
           "phase 12: the membership is not a partition of the points")
-    log(f"{int((ci.members < 0).all(axis=1).sum())} of {ci.C} clusters are empty")
+    check(bool((ci.members >= 0).any(axis=1).all()), "phase 12: the index holds an empty cluster")
+    log(f"{ci.C} clusters, none empty; the smallest holds "
+        f"{int((ci.members >= 0).sum(axis=1).min())} points")
     rows = [(p, 0, 0.0, "argmin") for p in HIER_PROBES] + [(*HIER_ADAPTIVE, "argmin"),
                                                           (8, 0, 0.0, "stream")]
     recall = {}
@@ -2790,22 +2794,27 @@ def hier_run(dev):
         r = compute_recall(ids.cpu().numpy(), *gt, K)
         recall[(n_probe, cut, mode)] = r
         seed = "meta seed" if mode == "argmin" else "streamed exact seed"
-        # a query can return -1 (INF) past its last result: an empty
-        # cluster keeps a zero centroid (as in the JAX package), and a walk
-        # seeded among them can find no member
+        # a query short of K ids ends in -1 (INF). The build drops empty
+        # clusters (no zero centroid can capture a seed), so at cut 0 a
+        # query expands n_probe clusters with members, about 32 points
+        # each here, and a short one is a fault; the adaptive row may stop
+        # after min_probe clusters that hold fewer than K points
         short = ids < 0
         check(ids.shape == (HIER_NQ, K) and bool((ids < HIER_N).all())
               and bool((dists[short] >= INF).all())
               and bool((short[:, :-1] <= short[:, 1:]).all()),
               f"phase 12 n_probe={n_probe} {seed}: malformed ids")
+        n_short = int(short.any(1).sum())
+        check(cut > 0 or n_short == 0, f"phase 12 n_probe={n_probe} {seed}: {n_short} "
+              f"queries with fewer than {K} results at cut 0")
         check(_no_duplicates(ids), f"phase 12 n_probe={n_probe}: duplicate ids")
         check(bool(torch.isfinite(dists).all()), f"phase 12 n_probe={n_probe}: distances")
         check(bool((nv <= n_probe).all()), f"phase 12 n_probe={n_probe}: nv > n_probe")
         log(f"10M cluster search n_probe={n_probe} min_probe={min_probe} cut={cut} {seed} "
             f"(seed_probes {HIER_SEED_PROBES}): recall@{K} {r:.4f}  QPS {HIER_NQ / dt:.1f}  "
             f"({dt * 1e3:.3f} ms; nv {float(nv.float().mean()):.3f} "
-            f"cmps {float(cm.float().mean()):.1f}; {int(short.any(1).sum())} queries with "
-            f"fewer than {K} results)")
+            f"cmps {float(cm.float().mean()):.1f}; {n_short} queries with fewer than {K} "
+            f"results)")
     launches = _launch_counts()
     log("launches during phase 12:", {k: v for k, v in launches.items() if v})
     check(launches["cluster_walk"] > 0, "cluster_walk was not launched by phase 12")

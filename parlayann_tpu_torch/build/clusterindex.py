@@ -26,6 +26,23 @@ through ``approx_assign`` too when C^2 passes ``EXACT_LIMIT``. Past
 ``clusterbeam.ARGMIN_SEED_CUTOFF`` centroids ``_finish`` adds a query-seed
 quantizer over the tier-domain centroids (``ClusterIndex.seed_meta``).
 
+A cluster that ends the partition with no member is left out before the
+adjacency, the ext rows and the seed quantizer are made
+(:func:`drop_empty`), so ``C`` counts the clusters with members and no
+seed or walk reaches an empty one. The JAX package keeps them with zero
+centroids (its ``_recenter``): all at the origin, they are each other's
+nearest neighbours, in data centred there they can be nearer a centroid
+than its real neighbours and take its adjacency slots and the walk's
+probes, and a query seeded among them can get fewer than k results
+(PARITY.md).
+
+Under the recorder (``utils/trace.py``) a build is the span ``build`` over
+``build.assign`` (each assignment of the points to centroids: the k-means
+and its assignment, or each routed assign of the hierarchical rounds and
+the final one), ``build.balance`` (each capacity balance, with a round's
+recentring and teleport), ``build.respill``, ``build.polish``,
+``build.adjacency`` and ``build.finish``, on the points' device.
+
 The partition is always L2 (clustering by inner product is degenerate);
 MIPS indexes score by the true metric at query time. Every balance runs
 the host library's ``native.balance_assign``; :func:`balance_assign` is its
@@ -53,6 +70,7 @@ from parlayann_tpu_torch.ops import quantize
 from parlayann_tpu_torch.ops.kernels import clusterbeam
 from parlayann_tpu_torch.ops.kernels.clusterbeam import cluster_search_fused, meta_topk
 from parlayann_tpu_torch.search.flat import flat_search_batch
+from parlayann_tpu_torch.utils import trace
 from parlayann_tpu_torch.utils.timing import fence, timed_rounds
 
 # past this many point-centroid pairs (n x C) the build runs its
@@ -465,17 +483,19 @@ def _hier_partition(data: torch.Tensor, n: int, C: int, m: int, cand: int,
     for r in range(HIER_ROUNDS):
         t0 = time.perf_counter()
         cents_in = cents
-        nbr_ids, nbr_d = approx_assign(data, n, cents, C, cand, cmetric, P=HIER_P,
-                                       meta_m=META_M, seed=seed + r)
-        members = _balance(nbr_ids, nbr_d, C, caps[r])
-        # recentre on the locally placed points; keep the centroid of a
-        # cluster left with none
-        local = _mask_spilled(members, nbr_ids)
-        nonempty = torch.from_numpy((local >= 0).any(axis=1)).to(dev)
-        cents = torch.where(nonempty[:, None], _recenter(data, local, C), cents)
-        moved = 0
-        if HIER_TELEPORT and r < HIER_ROUNDS - 1:
-            cents, moved = _teleport_centroids(data, cents, nbr_ids, nbr_d, C, m)
+        with trace.span("build.assign"):
+            nbr_ids, nbr_d = approx_assign(data, n, cents, C, cand, cmetric, P=HIER_P,
+                                           meta_m=META_M, seed=seed + r)
+        with trace.span("build.balance"):
+            members = _balance(nbr_ids, nbr_d, C, caps[r])
+            # recentre on the locally placed points; keep the centroid of a
+            # cluster left with none
+            local = _mask_spilled(members, nbr_ids)
+            nonempty = torch.from_numpy((local >= 0).any(axis=1)).to(dev)
+            cents = torch.where(nonempty[:, None], _recenter(data, local, C), cents)
+            moved = 0
+            if HIER_TELEPORT and r < HIER_ROUNDS - 1:
+                cents, moved = _teleport_centroids(data, cents, nbr_ids, nbr_d, C, m)
         if verbose:
             fence(dev)
             secs = time.perf_counter() - t0
@@ -493,25 +513,29 @@ def _hier_partition(data: torch.Tensor, n: int, C: int, m: int, cand: int,
                   + f" router top1-agree {agree:.3f} true-top1-in-cand {incand:.3f}",
                   flush=True)
     t0 = time.perf_counter()
-    nbr_ids, nbr_d = approx_assign(data, n, cents, C, cand, cmetric, P=HIER_P,
-                                   meta_m=META_M, seed=seed + HIER_ROUNDS)
-    members = _balance(nbr_ids, nbr_d, C, m)
+    with trace.span("build.assign"):
+        nbr_ids, nbr_d = approx_assign(data, n, cents, C, cand, cmetric, P=HIER_P,
+                                       meta_m=META_M, seed=seed + HIER_ROUNDS)
+    with trace.span("build.balance"):
+        members = _balance(nbr_ids, nbr_d, C, m)
     if verbose:
         spilled = int((members >= 0).sum() - (_mask_spilled(members, nbr_ids) >= 0).sum())
         print(f"final assign: {time.perf_counter() - t0:.1f}s spilled {spilled} "
               f"({spilled / n:.3f})", flush=True)
     t1 = time.perf_counter()
-    members = _respill_local(data, n, members, nbr_ids, cents, C, m, cmetric,
-                             verbose=verbose)
-    cents = _recenter(data, members, C)
+    with trace.span("build.respill"):
+        members = _respill_local(data, n, members, nbr_ids, cents, C, m, cmetric,
+                                 verbose=verbose)
+        cents = _recenter(data, members, C)
     if verbose:
         fence(dev)
         print(f"respill: {time.perf_counter() - t1:.1f}s", flush=True)
     if POLISH > 0:
         t1 = time.perf_counter()
-        members = _polish_misassigned(data, n, members, cents, C, m, cmetric,
-                                      frac=POLISH, verbose=verbose)
-        cents = _recenter(data, members, C)
+        with trace.span("build.polish"):
+            members = _polish_misassigned(data, n, members, cents, C, m, cmetric,
+                                          frac=POLISH, verbose=verbose)
+            cents = _recenter(data, members, C)
         if verbose:
             fence(dev)
             print(f"polish: {time.perf_counter() - t1:.1f}s", flush=True)
@@ -534,6 +558,25 @@ def _seed_quantizer(cents_tier: torch.Tensor, C: int, blocks_dtype=None):
     if blocks_dtype is not None:
         blocks = blocks.to(blocks_dtype)
     return mc, blocks, idtab
+
+
+def drop_empty(members: np.ndarray, cents: torch.Tensor, adj: Optional[np.ndarray] = None):
+    """The clusters that have members -> (members, cents, adj): the rows
+    of (C, m) ``members`` with no member left out, with their rows of
+    ``cents``, and ``adj`` (if given) renumbered onto the kept clusters,
+    an edge to a dropped cluster removed and each row compacted left, -1
+    padded."""
+    keep = (members >= 0).any(axis=1)
+    if keep.all():
+        return members, cents, adj
+    members = np.ascontiguousarray(members[keep])
+    cents = cents[torch.from_numpy(np.flatnonzero(keep)).to(cents.device)]
+    if adj is not None:
+        new_id = np.where(keep, np.cumsum(keep) - 1, -1).astype(np.int32)
+        adj = np.where(adj >= 0, new_id[np.clip(adj, 0, None)], -1)[keep]
+        ordr = np.argsort(adj < 0, axis=1, kind="stable")
+        adj = np.ascontiguousarray(np.take_along_axis(adj, ordr, axis=1)).astype(np.int32)
+    return members, cents, adj
 
 
 def _c_pad(C: int) -> int:
@@ -651,32 +694,41 @@ class ClusterIndex:
         t0 = time.perf_counter()
         data = points.data[:n].float()
         cmetric = Metric.L2
-        if float(n) * C > EXACT_LIMIT:
-            members, cents = _hier_partition(data, n, C, m, cand, seed, verbose)
-        else:
-            step = _kmeans_chunk_for(C)
-            cents = kmeans(data, n, C, metric=cmetric, iters=iters, seed=seed,
-                           step=step)
-            nbr_ids, nbr_d = _assign_all(data, n, cents, C, cand, cmetric, step=step)
-            members = _balance(nbr_ids, nbr_d, C, m)
-            members = _respill_local(data, n, members, nbr_ids, cents, C, m,
-                                     cmetric, verbose=verbose)
-            del nbr_ids, nbr_d
-            cents = _recenter(data, members, C)
-        t1 = time.perf_counter()
-        if float(C) * C > EXACT_LIMIT:
-            aid, _ = approx_assign(cents, C, cents, C, Rc + 1, cmetric, meta_m=META_M,
-                                   seed=seed + 101)
-        else:
-            aid, _ = _assign_all(cents, C, cents, C, Rc + 1, cmetric, step=8192)
-        # drop self (always the nearest) and compact each row left
-        adj = np.where(aid == np.arange(C, dtype=aid.dtype)[:, None], -1, aid)
-        ordr = np.argsort(adj < 0, axis=1, kind="stable")
-        adj = np.ascontiguousarray(
-            np.take_along_axis(adj, ordr, axis=1)[:, :Rc]).astype(np.int32)
-        t2 = time.perf_counter()
-        out = ClusterIndex._finish(points, members, adj, cents, C, m, Rc,
-                                   ext_dtype=ext_dtype)
+        with trace.span("build", points.device):
+            if float(n) * C > EXACT_LIMIT:
+                members, cents = _hier_partition(data, n, C, m, cand, seed, verbose)
+            else:
+                step = _kmeans_chunk_for(C)
+                with trace.span("build.assign"):
+                    cents = kmeans(data, n, C, metric=cmetric, iters=iters, seed=seed,
+                                   step=step)
+                    nbr_ids, nbr_d = _assign_all(data, n, cents, C, cand, cmetric,
+                                                 step=step)
+                with trace.span("build.balance"):
+                    members = _balance(nbr_ids, nbr_d, C, m)
+                with trace.span("build.respill"):
+                    members = _respill_local(data, n, members, nbr_ids, cents, C, m,
+                                             cmetric, verbose=verbose)
+                    del nbr_ids, nbr_d
+                    cents = _recenter(data, members, C)
+            members, cents, _ = drop_empty(members, cents)
+            C = members.shape[0]
+            t1 = time.perf_counter()
+            with trace.span("build.adjacency"):
+                if float(C) * C > EXACT_LIMIT:
+                    aid, _ = approx_assign(cents, C, cents, C, Rc + 1, cmetric,
+                                           meta_m=META_M, seed=seed + 101)
+                else:
+                    aid, _ = _assign_all(cents, C, cents, C, Rc + 1, cmetric, step=8192)
+                # drop self (always the nearest) and compact each row left
+                adj = np.where(aid == np.arange(C, dtype=aid.dtype)[:, None], -1, aid)
+                ordr = np.argsort(adj < 0, axis=1, kind="stable")
+                adj = np.ascontiguousarray(
+                    np.take_along_axis(adj, ordr, axis=1)[:, :Rc]).astype(np.int32)
+            t2 = time.perf_counter()
+            with trace.span("build.finish"):
+                out = ClusterIndex._finish(points, members, adj, cents, C, m, Rc,
+                                           ext_dtype=ext_dtype)
         if verbose:
             fence(data.device)
             print(f"cluster build: C={C} in {time.perf_counter() - t0:.2f} s "
@@ -692,7 +744,11 @@ class ClusterIndex:
         """Pack the ext rows. int8 mode quantizes points and centroids into
         one q8 domain (one query translation serves both); f32 mode packs
         the raw vectors. Past ``ARGMIN_SEED_CUTOFF`` centroids the query
-        seed's quantizer is built over the ext-domain centroids."""
+        seed's quantizer is built over the ext-domain centroids. Clusters
+        with no member are dropped first (:func:`drop_empty`), so the
+        index's ``C`` can be below the given one."""
+        members, cents, adj = drop_empty(members, cents[:C], adj)
+        C = members.shape[0]
         n, d = points.n, points.d
         C_pad = _c_pad(C)
         if ext_dtype == "auto":
@@ -763,22 +819,28 @@ class ClusterIndex:
         (cut 1.35 with a min_probe 3 floor) stops a query once its best
         remaining centroid is beyond cut x its best seen, and cut=0
         always runs n_probe probes. ``rerank="auto"`` is "tier" on the f32
-        layout (its pool scores are exact) and "full" on the int8 one."""
-        q_full = torch.as_tensor(queries).to(self.device, torch.float32)
-        pool = min(max(k * rerank_factor, k), 128)
-        if rerank == "auto":
-            rerank = "tier" if self.ext_dtype == "f32" else "full"
-        qp = self.qpoints
-        meta = self.seed_meta if seed_mode != "stream" else None
-        return cluster_search_fused(
-            q_full, self.centroids_q, self.ext, self.points.data,
-            None if qp is None else qp.quant_slope,
-            None if qp is None else qp.quant_offset, *(meta or (None,) * 3),
-            metric=self.points.metric, C=self.C, m=self.m, Rc=self.Rc,
-            n_points=self.points.n, k=k, n_probe=n_probe, min_probe=min_probe,
-            cut=cut, S=starts, pool=pool, tier_bits=32 if qp is None else qp.bits,
-            rerank=rerank, seed_mode=seed_mode, select_mode=select_mode,
-            seed_probes=seed_probes)
+        layout (its pool scores are exact) and "full" on the int8 one.
+
+        Under the recorder (``utils/trace.py``) the call is a ``search``
+        span (host time; counting its ``queries``) over the steps of
+        :func:`~parlayann_tpu_torch.ops.kernels.clusterbeam.cluster_search_fused`."""
+        with trace.span("search"):
+            q_full = torch.as_tensor(queries).to(self.device, torch.float32)
+            trace.count("queries", q_full.shape[0])
+            pool = min(max(k * rerank_factor, k), 128)
+            if rerank == "auto":
+                rerank = "tier" if self.ext_dtype == "f32" else "full"
+            qp = self.qpoints
+            meta = self.seed_meta if seed_mode != "stream" else None
+            return cluster_search_fused(
+                q_full, self.centroids_q, self.ext, self.points.data,
+                None if qp is None else qp.quant_slope,
+                None if qp is None else qp.quant_offset, *(meta or (None,) * 3),
+                metric=self.points.metric, C=self.C, m=self.m, Rc=self.Rc,
+                n_points=self.points.n, k=k, n_probe=n_probe, min_probe=min_probe,
+                cut=cut, S=starts, pool=pool, tier_bits=32 if qp is None else qp.bits,
+                rerank=rerank, seed_mode=seed_mode, select_mode=select_mode,
+                seed_probes=seed_probes)
 
     def search_timed(self, queries, *, rounds: int = 1, warmup: bool = True,
                      **kw):

@@ -55,6 +55,7 @@ from parlayann_tpu_torch.ops.kernels.expand import expand_distances_multi
 from parlayann_tpu_torch.ops.topk import lexsort, smallest_k
 from parlayann_tpu_torch.search.flat import flat_search_batch
 from parlayann_tpu_torch.search.rerank import rerank_topk
+from parlayann_tpu_torch.utils import trace
 from parlayann_tpu_torch.utils.arrays import pow2
 
 # past this many centroid rows the "argmin" seed (one (B, C_pad) matmul)
@@ -345,34 +346,48 @@ def cluster_search_fused(q_full, centroids_q, ext, points_full, slope=None,
     by (distance, id) ("sort" and "group" are the same exact selection
     here), and ``rerank="full"`` re-scores its ``pool`` best at full
     precision while ``"tier"`` returns its k best as they are (exact f32
-    scores on the f32 layout, q8-domain scores on the int8 one)."""
+    scores on the f32 layout, q8-domain scores on the int8 one).
+
+    Under the recorder (``utils/trace.py``) the steps are the spans
+    ``search.translate``, ``search.seed``, ``search.walk`` (counting the
+    walk's ``probes``, the expansions, and ``cmps``), ``search.pool`` (the
+    pool's sort) and ``search.rerank`` (the rerank, or the pool's k best
+    on ``rerank="tier"``), on the queries' device."""
     if rerank not in ("full", "tier"):
         raise ValueError(f"rerank must be 'full' or 'tier', got {rerank!r}")
     if select_mode not in ("sort", "group"):
         raise ValueError(f"select_mode must be 'sort' or 'group', got {select_mode!r}")
+    dev = q_full.device
     q_full = q_full.float()
-    if tier_bits < 32 and slope is not None:
-        if metric is Metric.L2:
-            q = quantize.euclidean_translate(q_full, slope, offset, tier_bits)
+    with trace.span("search.translate", dev):
+        if tier_bits < 32 and slope is not None:
+            if metric is Metric.L2:
+                q = quantize.euclidean_translate(q_full, slope, offset, tier_bits)
+            else:
+                q = quantize.mips_translate(q_full, slope, offset, tier_bits)
+            q = q.float()
         else:
-            q = quantize.mips_translate(q_full, slope, offset, tier_bits)
-        q = q.float()
-    else:
-        q = q_full
+            q = q_full
     meta = None if meta_cents is None else (meta_cents, meta_blocks, meta_idtab)
-    sd, sid = seed_centroids(q, centroids_q, C=C, S=S, metric=metric,
-                             seed_mode=seed_mode, meta=meta, seed_probes=seed_probes)
-    pd, pi, nv = cluster_walk(q.contiguous(), ext, sd.contiguous(),
-                              sid.contiguous(), metric=metric, C=C, m=m, Rc=Rc,
-                              n_points=n_points, n_probe=n_probe,
-                              min_probe=min_probe, cut=cut)
-    pd, pi = lexsort((pd, pi))
-    if rerank == "tier":
-        ids = torch.where(pd[:, :k] < INF, pi[:, :k], -1)
-        dists = pd[:, :k]
-    else:
-        cand = torch.where(pd[:, :pool] < INF, pi[:, :pool], -1)
-        ids, dists = rerank_topk(q_full, points_full, cand, k=k, pool=pool,
-                                 metric=metric)
-    cmps = C + nv * (m + Rc)
+    with trace.span("search.seed", dev):
+        sd, sid = seed_centroids(q, centroids_q, C=C, S=S, metric=metric,
+                                 seed_mode=seed_mode, meta=meta, seed_probes=seed_probes)
+    with trace.span("search.walk", dev):
+        pd, pi, nv = cluster_walk(q.contiguous(), ext, sd.contiguous(),
+                                  sid.contiguous(), metric=metric, C=C, m=m, Rc=Rc,
+                                  n_points=n_points, n_probe=n_probe,
+                                  min_probe=min_probe, cut=cut)
+        cmps = C + nv * (m + Rc)
+        trace.count("probes", nv)
+        trace.count("cmps", cmps)
+    with trace.span("search.pool", dev):
+        pd, pi = lexsort((pd, pi))
+    with trace.span("search.rerank", dev):
+        if rerank == "tier":
+            ids = torch.where(pd[:, :k] < INF, pi[:, :k], -1)
+            dists = pd[:, :k]
+        else:
+            cand = torch.where(pd[:, :pool] < INF, pi[:, :pool], -1)
+            ids, dists = rerank_topk(q_full, points_full, cand, k=k, pool=pool,
+                                     metric=metric)
     return ids, dists, (nv, cmps)

@@ -7,7 +7,8 @@ the seed, the warm-up), then traces ``trace_batches`` batches of the
 closed loop twice, as the benchmark's two stretches do:
 
 - the device traced alone: wall and busy ms a batch; the readers of the
-  spans (``entry_ms``, ``rerank_ms``, ``walk_cmps``) and ``walk_ms``; per
+  spans (``entry_ms``, ``rerank_ms``, ``walk_cmps``, ``seed_ms``,
+  ``pool_ms``) and of the walks' kernels (``walk_ms``, ``cwalk_ms``); per
   span name, the stream ms a timed batch and the host self ms a batch;
   the search root's children's stream ms over the wall ms a batch;
 - host and device traced: the share of spans whose ``time_ns`` stamps lie
@@ -181,14 +182,14 @@ def main(argv=None) -> int:
                      ops=ops, gaps={}, port=atrace.port_kernel_names())
     r = run.Run(cell=cell, spans={}, window=None, trace=t, recall=None, peak_bytes=0)
     out["metrics"] = {m: spec.metric(m).read(r) for m in
-                      ("entry_ms", "rerank_ms", "walk_cmps", "walk_ms", "glue_ms",
-                       "idle_share")}
+                      ("entry_ms", "rerank_ms", "walk_cmps", "walk_ms", "seed_ms", "pool_ms",
+                       "cwalk_ms", "glue_ms", "idle_share")}
     roots = [s for s in spans if s.name == "search" and s.parent is None]
     out["roots"], out["timed_roots"] = len(roots), sum(s.timed for s in roots)
     out["wall_ms_a_batch"], out["busy_ms_a_batch"] = wall * 1e3 / b, t.busy_s * 1e3 / b
     per = _per_name(spans, roots, _extents(spans, events))
     out["device_alone"] = per
-    kids = ("search.entry", "search.translate", "search.walk", "search.rerank")
+    kids = [n for n in per if n != "search"]
     out["children_stream_cover"] = (sum(per.get(n, {}).get("stream_ms", 0.0) for n in kids)
                                     / out["wall_ms_a_batch"])
     out["children_extent_cover"] = (sum(per.get(n, {}).get("extent_ms", 0.0) for n in kids)

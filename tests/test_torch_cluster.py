@@ -252,9 +252,22 @@ def test_torch_cluster_stream_seed_and_hier_build_run(built, monkeypatch):
     assert (ids.numpy() >= 0).all()
     assert torch.equal(ids, sids) and torch.equal(dists, sdists)
     monkeypatch.setattr(tci, "EXACT_LIMIT", 1e3)
+    partitions = []
+    real = tci.drop_empty
+
+    def spy(members, cents, adj=None):
+        partitions.append(members)
+        return real(members, cents, adj)
+
+    monkeypatch.setattr(tci, "drop_empty", spy)
     hier = tci.ClusterIndex.build(built["tps"], m=M_, Rc=RC)
     mem = hier.members[hier.members >= 0]
-    assert hier.C == built["jax"]["int8"].C
+    # the JAX build's C counts the clusters the partition starts from; the
+    # port leaves out those that end it empty (two here, PARITY.md)
+    n_empty = int((partitions[0] < 0).all(axis=1).sum())
+    assert partitions[0].shape[0] == built["jax"]["int8"].C and n_empty == 2
+    assert hier.C == built["jax"]["int8"].C - n_empty
+    assert (hier.members >= 0).any(axis=1).all()
     assert len(mem) == built["tps"].n and len(np.unique(mem)) == built["tps"].n
     assert ((hier.members >= 0).sum(1) <= M_).all()
 

@@ -1679,6 +1679,43 @@ def test_torch_cuda_search_spans_on_the_card(cluster_data, cuda):
     trace.clear()
 
 
+
+def test_torch_cuda_cluster_spans_on_the_card(cluster_data, cuda, monkeypatch):
+    """A ClusterIndex built and searched under the recorder on the card,
+    the hierarchical build and the meta seed forced: the same answers as
+    unrecorded; every build phase and search step has a stream time, and
+    the walk's counters equal the search's sums."""
+    from parlayann_tpu_torch.build import clusterindex as tci
+    from parlayann_tpu_torch.ops.kernels import clusterbeam
+    from parlayann_tpu_torch.utils import trace
+
+    X, Q = cluster_data
+    monkeypatch.setattr(tci, "EXACT_LIMIT", 1.0)
+    monkeypatch.setattr(clusterbeam, "ARGMIN_SEED_CUTOFF", 8)
+    trace.clear()
+    with trace.recording():
+        ci = build_cluster_index(X, m=32, Rc=16, ext_dtype="int8", device=cuda)
+    torch.cuda.synchronize()
+    build = trace.spans()
+    assert build[0].name == "build" and ci.seed_meta is not None
+    assert {s.name for s in build[1:]} == {"build.assign", "build.balance", "build.respill",
+                                          "build.polish", "build.adjacency", "build.finish"}
+    assert all(s.stream_ms is not None and s.stream_ms > 0 for s in build)
+    trace.clear()
+    want = ci.search(Q, k=10, n_probe=8, cut=0.0, seed_probes=16)
+    with trace.recording():
+        got = ci.search(Q, k=10, n_probe=8, cut=0.0, seed_probes=16)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    spans = trace.spans()
+    assert [s.name for s in spans] == ["search", "search.translate", "search.seed",
+                                       "search.walk", "search.pool", "search.rerank"]
+    assert spans[0].counters == {"queries": len(Q)} and spans[0].stream_ms is None
+    assert all(s.stream_ms is not None and s.stream_ms > 0 for s in spans[1:])
+    nv, cmps = got[2]
+    assert spans[3].counters == {"probes": int(nv.sum()), "cmps": int(cmps.sum())}
+    trace.clear()
+
 def _entry_case(gen, dev, B, E, d, metric, src, dup=False):
     """Queries and an entry tier as the search makes them: offset like
     SIFT's non-negative values; uint8 source points as their float32 rows;

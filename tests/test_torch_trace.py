@@ -299,3 +299,58 @@ def test_recording_keep_false_forgets_its_spans(rec):
             with trace.span("kept"):
                 pass
     assert [s.name for s in trace.spans()] == ["before", "kept"]
+
+
+CLUSTER = ("search.translate", "search.seed", "search.walk", "search.pool", "search.rerank")
+
+
+@pytest.fixture(scope="module")
+def cluster_data():
+    return synthetic.clustered(2000, 32, n_queries=30, n_clusters=20, cluster_std=0.35,
+                               seed=5)
+
+
+@pytest.mark.parametrize("layout", ["int8", "f32"])
+def test_cluster_search_spans(rec, cluster_data, layout):
+    """``ClusterIndex.search``: the same results recorded or not; a
+    ``search`` root counting the queries over the five steps, the walk
+    counting its expansions and distance computations."""
+    X, Q = cluster_data
+    ci = pt.build_cluster_index(X, m=16, Rc=8, iters=2, ext_dtype=layout, device="cpu")
+    off = ci.search(Q, k=5, n_probe=6, cut=0.0)
+    assert trace.spans() == []
+    with trace.recording():
+        on = ci.search(Q, k=5, n_probe=6, cut=0.0)
+    assert torch.equal(off[0], on[0]) and torch.equal(off[1], on[1])
+    got = trace.spans()
+    (root, names), = _tree(got).items()
+    assert names == [("search", None)] + [(n, "search") for n in CLUSTER]
+    assert got[0].counters == {"queries": len(Q)}
+    walk = next(s for s in got if s.name == "search.walk")
+    nv, cmps = on[2]
+    assert walk.counters == {"probes": int(nv.sum()), "cmps": int(cmps.sum())}
+    assert walk.counters["probes"] == 6 * len(Q)
+
+
+@pytest.mark.parametrize("hier", [False, True])
+def test_cluster_build_spans(rec, cluster_data, monkeypatch, hier):
+    """A ClusterIndex build recorded: the same index as unrecorded, one
+    ``build`` root over its phases in order (the hierarchical build forced
+    at this size: three rounds and the final assignment)."""
+    from parlayann_tpu_torch.build import clusterindex as tci
+
+    X, _ = cluster_data
+    if hier:
+        monkeypatch.setattr(tci, "EXACT_LIMIT", 1.0)
+    ps = pt.PointSet.from_numpy(X, device="cpu")
+    a = tci.ClusterIndex.build(ps, m=16, Rc=8, iters=2, ext_dtype="int8")
+    assert trace.spans() == []
+    with trace.recording():
+        b = tci.ClusterIndex.build(ps, m=16, Rc=8, iters=2, ext_dtype="int8")
+    np.testing.assert_array_equal(a.members, b.members)
+    np.testing.assert_array_equal(a.adj, b.adj)
+    (root, names), = _tree(trace.spans()).items()
+    assert names[0] == ("build", None) and {p for _, p in names[1:]} == {"build"}
+    rounds = ["build.assign", "build.balance"] * (tci.HIER_ROUNDS + 1 if hier else 1)
+    tail = ["build.respill"] + (["build.polish"] if hier else [])
+    assert [n for n, _ in names[1:]] == rounds + tail + ["build.adjacency", "build.finish"]
