@@ -202,8 +202,10 @@ Phases:
      (the 10K q8 queries at their top 16), each equal to its plain version and to 16 single launches, timed
      beside them with its bound and its grouping / scoring split; one
      router chunk fenced and split into the meta-centroid scan and
-     select, kernel 1, the mask and gather, and ``smallest_k``; and
-     kernel 5 over the 10M ext at n_probe 8 from the meta seeds.
+     select (kernel 4), kernel 1, the mask and gather, and
+     ``smallest_k``; kernel 4 as that scan at the router's and the seed's
+     shapes (top-16) against the plain path; and kernel 5 over the 10M
+     ext at n_probe 8 from the meta seeds.
   13. the multi-device modes (``parlayann_tpu_torch.parallel``), after
      phase 12, on phase 6's set (synthetic clustered 1M x 128, 10K
      queries) with exact ground truth from kernel 4, in a process group of
@@ -2778,6 +2780,11 @@ def hier_run(dev):
           f"than one a chunk ({tci.HIER_ROUNDS + 1} x {chunks})")
     check(modes["single f32"] == 0 and modes["single int8"] == 0,
           "the hierarchical build launched kernel 1's single mode")
+    # kernel 4 scans the meta-centroids of every router chunk (and once
+    # the ground truth, above)
+    check(build["flat_topk"] >= (tci.HIER_ROUNDS + 1) * chunks + 1,
+          f"the router launched kernel 4 {build['flat_topk'] - 1} times, fewer than one "
+          f"a chunk ({tci.HIER_ROUNDS + 1} x {chunks})")
     got = ci.members[ci.members >= 0]
     check(len(got) == HIER_N and len(np.unique(got)) == HIER_N,
           "phase 12: the membership is not a partition of the points")
@@ -2820,6 +2827,8 @@ def hier_run(dev):
     check(launches["cluster_walk"] > 0, "cluster_walk was not launched by phase 12")
     check(launches["expand_distances_multi"] > build["expand_distances_multi"],
           "expand_distances_multi (int8 rows) was not launched by the meta-seeded search")
+    check(launches["flat_topk"] > build["flat_topk"],
+          "flat_topk was not launched by the meta-seeded search")
     check(launches["expand_distances"] == 0 and launches["expand_distances (f32 rows)"] == 0,
           "phase 12 launched kernel 1's single mode")
     r8 = recall[(8, 0.0, "argmin")]
@@ -2844,13 +2853,12 @@ def kernel_multi(name, blocks, mcents, q, E):
     splits the grouping kernels from the scoring kernel."""
     from parlayann_tpu_torch.ops.kernels.expand import (
         expand_distances, expand_distances_multi, expand_distances_multi_plain)
-    from parlayann_tpu_torch.search.flat import flat_search_batch
+    from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk
     from parlayann_tpu_torch.types import Metric
 
     Cm, cap, d = blocks.shape
     B = q.shape[0]
-    mt_i, _ = flat_search_batch(q, mcents, k=E, metric=Metric.L2, n_valid=Cm,
-                                chunk=min(Cm, 32768), select="sort")
+    mt_i, _ = flat_topk(q, mcents, k=E, metric=Metric.L2, n_valid=Cm)
     ids = mt_i.clamp(0, Cm - 1).to(torch.int32).contiguous()
     cols = [ids[:, e].contiguous() for e in range(E)]
     got = expand_distances_multi(blocks, ids, q, metric=Metric.L2)
@@ -2884,18 +2892,48 @@ def kernel_multi(name, blocks, mcents, q, E):
                 distinct_blocks=n_blk, **b)
 
 
+def kernel_meta_scan(name, mcents, q, P):
+    """Kernel 4 as ``meta_topk``'s scan: the B queries ``q`` against the
+    (Cm, d) meta-centroids ``mcents``, top-``P`` under L2 -> the JSON entry,
+    checked against the plain path (``flat_topk_plain``, the scan
+    ``meta_topk`` ran before kernel 4) by ``check_topk`` and timed beside
+    it. Bound: the centroids, their bias and the queries read once and the
+    (B, P) lists written, against 3 TF32 passes of 2 B Cm d."""
+    from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk, flat_topk_plain, splits
+    from parlayann_tpu_torch.types import Metric
+
+    Cm, d = mcents.shape
+    q = q.contiguous()
+    B = q.shape[0]
+    kw = dict(k=P, metric=Metric.L2, n_valid=Cm)
+    got = flat_topk(q, mcents, **kw)
+    want = flat_topk_plain(q, mcents, **kw)
+    scale = (q * q).sum(1) + (mcents * mcents).sum(1).max()
+    rel, n_tie = check_topk(got, want, scale, f"flat_topk over the {name} meta-centroids")
+    ms = time_ms(lambda: flat_topk(q, mcents, **kw), 20)
+    plain_ms = time_ms(lambda: flat_topk_plain(q, mcents, **kw), 3)
+    b = bound(Cm * d * 4 + Cm * 4 + B * d * 4 + B * P * 8, 3 * 2 * B * Cm * d, TF32_OPS)
+    S, per = splits(B, Cm, P, False, q.device)
+    log(f"kernel 4 flat_topk over the {name} meta-centroids ({Cm}, {d}) B={B} k={P}: max "
+        f"rel err {rel:.3g}, {n_tie} rows with tie swaps; {ms:.4f} ms vs plain "
+        f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}); S={S} splits "
+        f"of {per} points")
+    return dict(max_rel_err=rel, tie_rows=n_tie, ms=ms, plain_ms=plain_ms, splits=S,
+                **b)
+
+
 def router_chunk(router, X, k):
     """One chunk of the build's router (``approx_assign``: the first 16,384
     points, top-``HIER_P`` cells, k candidates), fenced, split into the
-    meta-centroid scan and select, kernel 1's multi launch, the mask and
-    the ``idtab`` gather, and ``smallest_k`` (CUDA events; ``meta_topk``'s
-    steps, checked equal to it) -> {part: ms}."""
+    meta-centroid scan and select (kernel 4), kernel 1's multi launch, the
+    mask and the ``idtab`` gather, and ``smallest_k`` (CUDA events;
+    ``meta_topk``'s steps, checked equal to it) -> {part: ms}."""
     from parlayann_tpu_torch.build import clusterindex as tci
     from parlayann_tpu_torch.ops.distance import INF
     from parlayann_tpu_torch.ops.kernels.clusterbeam import meta_topk
     from parlayann_tpu_torch.ops.kernels.expand import expand_distances_multi
+    from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk
     from parlayann_tpu_torch.ops.topk import smallest_k
-    from parlayann_tpu_torch.search.flat import flat_search_batch
     from parlayann_tpu_torch.types import Metric
 
     mcents, blocks, idtab = router
@@ -2908,8 +2946,7 @@ def router_chunk(router, X, k):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ev[0].record()
-        mt_i, _ = flat_search_batch(q, mcents, k=P, metric=Metric.L2, n_valid=Cm,
-                                    chunk=min(Cm, 32768), select="sort")
+        mt_i, _ = flat_topk(q, mcents, k=P, metric=Metric.L2, n_valid=Cm)
         ev[1].record()
         mi = mt_i.clamp(0, Cm - 1).to(torch.int32)
         dp = expand_distances_multi(blocks, mi, q, metric=Metric.L2)
@@ -2935,7 +2972,8 @@ def kernel_hier(ci, X, Q, dev):
     """Kernel 1 on the hierarchical build's blocks and kernel 5 over the 10M
     ext, each against its plain version -> {"router": f32 entry, "seed":
     int8 entry, "router_multi", "seed_multi": the multi-probe mode's
-    entries, "chunk": the router chunk's split, "walk": kernel 5 entry}.
+    entries, "chunk": the router chunk's split, "router_scan",
+    "seed_scan": kernel 4 over the meta-centroids, "walk": kernel 5 entry}.
     The router's blocks are the build's adjacency quantizer rebuilt over the
     final centroids, queried by the first 8,192 points (half a chunk of
     ``approx_assign``), each at its nearest cell, then in the multi mode by
@@ -2985,6 +3023,9 @@ def kernel_hier(ci, X, Q, dev):
     out["seed_multi"] = kernel_multi("seed", ci.seed_meta[1], ci.seed_meta[0], q8.contiguous(),
                                      HIER_SEED_PROBES)
     out["chunk"] = router_chunk(router, X, HIER_BUILD["cand"])
+    out["router_scan"] = kernel_meta_scan(
+        "router", router[0], X[:tci._kmeans_chunk_for(router[1].shape[0])], tci.HIER_P)
+    out["seed_scan"] = kernel_meta_scan("seed", ci.seed_meta[0], q8, HIER_SEED_PROBES)
     sd, sid = seed_centroids(q8, ci.centroids_q, C=ci.C, S=2, metric=Metric.L2,
                              meta=ci.seed_meta, seed_probes=HIER_SEED_PROBES)
     args = (q8.contiguous(), ci.ext, sd.contiguous(), sid.contiguous())
@@ -3297,6 +3338,8 @@ def main():
     k1f["shapes"] = {"hnsw_R8_40_f32_B8000": k1h["f32"],
                      "hier_router_blocks_R8_112_f32_B8192": k12["router"]}
     k4["shapes"] = k4m
+    k4["shapes"].update(hier_router_meta_scan=k12["router_scan"],
+                        hier_seed_meta_scan=k12["seed_scan"])
     k3["shapes"].update({f"hnsw_R40_B{B}_L{L}": v for (B, L), v in k3h.items()})
     # kernel 5's times over phase 12's 10M ext
     k5["shapes"]["int8_10M_B10000_p8_meta_seed"] = k12["walk"]

@@ -8,9 +8,10 @@ the same function in PyTorch, all queries in lock-step. :func:`cluster_search_fu
 is the whole search: the top-S centroid seed, the walk, the pool sort and
 the rerank. The seed is exact up to ``ARGMIN_SEED_CUTOFF`` centroid rows;
 past it an index with a seed quantizer (``ClusterIndex.seed_meta``) routes
-it through :func:`meta_topk`: a scan of the meta-centroids, then kernel
-1's multi-probe mode (``expand_distances_multi``) on the nearest cells'
-packed centroid blocks, the build's ``approx_assign`` on the query side.
+it through :func:`meta_topk`: kernel 4's exact top-P over the
+meta-centroids (``flat_topk``), then kernel 1's multi-probe mode
+(``expand_distances_multi``) on the nearest cells' packed centroid blocks,
+the build's ``approx_assign`` on the query side.
 
 A query keeps two structures. The cluster beam (Wc = pow2(max(Lc, S, 8))
 lanes of (distance, packed id), pack = id * 2 + unexpanded bit, live lanes
@@ -52,6 +53,7 @@ from parlayann_tpu_torch.ops import distance, quantize
 from parlayann_tpu_torch.ops.distance import INF
 from parlayann_tpu_torch.ops.kernels import _lib
 from parlayann_tpu_torch.ops.kernels.expand import expand_distances_multi
+from parlayann_tpu_torch.ops.kernels.flatscan import flat_topk
 from parlayann_tpu_torch.ops.topk import lexsort, smallest_k
 from parlayann_tpu_torch.search.flat import flat_search_batch
 from parlayann_tpu_torch.search.rerank import rerank_topk
@@ -258,18 +260,20 @@ cluster_walk.launches = 0
 def meta_topk(q: torch.Tensor, mcents: torch.Tensor, blocks: torch.Tensor,
               idtab: torch.Tensor, *, k: int, P: int, metric: Metric):
     """Meta-routed top-k centroids -> (ids (B, k) int32, dists (B, k) f32
-    ascending): the top-P of the (Cm, d) meta-centroids by the flat scan,
-    then one launch of kernel 1's multi-probe mode over the (Cm, cap, d)
-    cell blocks for all B x P probes, whose ``idtab`` (Cm, cap) holds each
-    slot's centroid id (-1 empty), and the k smallest of the B x P * cap
-    candidates, probe-major (equal distances keep probe order). Distances
-    are exact, in the blocks' domain. JAX clusterindex.py:208-236 and
-    clusterbeam.py:522-556, which loop one launch a probe."""
+    ascending): the exact top-P of the (Cm, d) meta-centroids by (distance,
+    id) from one launch of kernel 4 (``flat_topk``, P <= ``MAX_K``; its
+    plain version on the CPU), then one launch of kernel 1's multi-probe
+    mode over the (Cm, cap, d) cell blocks for all B x P probes, whose
+    ``idtab`` (Cm, cap) holds each slot's centroid id (-1 empty), and the k
+    smallest of the B x P * cap candidates, probe-major (equal distances
+    keep probe order). Distances are exact, in the blocks' domain. JAX
+    clusterindex.py:208-236 and clusterbeam.py:522-556, which loop one
+    launch a probe."""
     B, Cm, cap = q.shape[0], blocks.shape[0], blocks.shape[1]
-    mt_i, _ = flat_search_batch(q, mcents, k=P, metric=metric, n_valid=Cm,
-                                chunk=min(Cm, 32768), select="sort")
+    q = q.contiguous()
+    mt_i, _ = flat_topk(q, mcents, k=P, metric=metric, n_valid=Cm)
     mi = mt_i.clamp(0, Cm - 1).to(torch.int32)
-    dp = expand_distances_multi(blocks, mi, q.contiguous(), metric=metric)
+    dp = expand_distances_multi(blocks, mi, q, metric=metric)
     ip = idtab[mi.long()]
     dp = torch.where((ip >= 0) & (mt_i >= 0)[:, :, None], dp, INF)
     d, i = smallest_k(dp.reshape(B, P * cap), ip.reshape(B, P * cap), k)
@@ -349,10 +353,12 @@ def cluster_search_fused(q_full, centroids_q, ext, points_full, slope=None,
     scores on the f32 layout, q8-domain scores on the int8 one).
 
     Under the recorder (``utils/trace.py``) the steps are the spans
-    ``search.translate``, ``search.seed``, ``search.walk`` (counting the
-    walk's ``probes``, the expansions, and ``cmps``), ``search.pool`` (the
-    pool's sort) and ``search.rerank`` (the rerank, or the pool's k best
-    on ``rerank="tier"``), on the queries' device."""
+    ``search.translate``, ``search.seed`` (counting kernel 4's
+    ``launches``: 1 with a seed quantizer on the card, 0 on the CPU),
+    ``search.walk`` (counting the walk's ``probes``, the expansions, and
+    ``cmps``), ``search.pool`` (the pool's sort) and ``search.rerank``
+    (the rerank, or the pool's k best on ``rerank="tier"``), on the
+    queries' device."""
     if rerank not in ("full", "tier"):
         raise ValueError(f"rerank must be 'full' or 'tier', got {rerank!r}")
     if select_mode not in ("sort", "group"):
@@ -370,8 +376,10 @@ def cluster_search_fused(q_full, centroids_q, ext, points_full, slope=None,
             q = q_full
     meta = None if meta_cents is None else (meta_cents, meta_blocks, meta_idtab)
     with trace.span("search.seed", dev):
+        before = flat_topk.launches
         sd, sid = seed_centroids(q, centroids_q, C=C, S=S, metric=metric,
                                  seed_mode=seed_mode, meta=meta, seed_probes=seed_probes)
+        trace.count("launches", flat_topk.launches - before)
     with trace.span("search.walk", dev):
         pd, pi, nv = cluster_walk(q.contiguous(), ext, sd.contiguous(),
                                   sid.contiguous(), metric=metric, C=C, m=m, Rc=Rc,

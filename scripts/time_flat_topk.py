@@ -3,7 +3,8 @@
 Usage, on a machine with an NVIDIA GPU and nvcc:
 
     python3 scripts/time_flat_topk.py [--kernel flat_topk|masked|occlusion|fusedbeam|
-                                                fusedbuild|cluster|router|multi] [--root DIR]
+                                                fusedbuild|cluster|router|multi|meta]
+                                      [--root DIR]
                                       [--reps N] [--tag NAME]
                                       [--f32] [--build N ...] [--build-reps K]
                                       [--f32-build]
@@ -108,6 +109,12 @@ checkout in turns (A, B, B, A) in one call on one machine.
   at their top-16 cells). Each launch is checked equal to the checkout's
   plain version and timed; the checkout's CTA shape (consumer warps,
   stages) is whatever its ``launch_multi`` picks.
+- ``--kernel meta`` (kernel 4 as the meta-centroid scan): the same two
+  shapes, the router's 16,384 points over its (4,070, 128) meta-centroids
+  and the seed's 10,000 q8 queries over its (24,415, 128), top-16: kernel 4
+  checked against the plain path and timed beside it (chip_smoke.py's
+  ``kernel_meta_scan``), then the checkout's ``meta_topk`` (the scan,
+  kernel 1's multi mode and the select) at k = 8 and 2.
 
 ``--build N`` (100000 or 1000000, repeatable) also builds chip_smoke.py's
 q8 Vamana index over its synthetic clustered N x 128 set (R=32, L=64,
@@ -417,12 +424,12 @@ def time_router(chip, reps, dev):
             **{f"{w.__name__}_launches": w.launches for w in wrappers}}
 
 
-def time_multi(chip, reps, dev):
+def meta_shapes(chip, dev):
+    """The router's and the query seed's meta-routed top-k inputs of phase
+    12 -> {"router" | "seed": ((mcents, blocks, idtab), queries, top-E)}."""
     import torch
     from parlayann_tpu_torch.build import clusterindex as tci
     from parlayann_tpu_torch.ops import quantize
-    from parlayann_tpu_torch.ops.kernels import expand
-    from parlayann_tpu_torch.search.flat import flat_search_batch
     from parlayann_tpu_torch.types import Metric
 
     X, Q, cents = router_inputs(chip, dev)
@@ -431,11 +438,35 @@ def time_multi(chip, reps, dev):
     router = tci._meta_quantizer(cents, C, Metric.L2, meta_m=tci.META_M, seed=0)
     seed = tci._seed_quantizer(quantize.euclidean_translate(cents, slope, offset).float(), C,
                                torch.int8)
-    shapes = {"router": (router, X[:tci._kmeans_chunk_for(router[1].shape[0])], tci.HIER_P),
-              "seed": (seed, quantize.euclidean_translate(Q, slope, offset).float(),
-                       chip.HIER_SEED_PROBES)}
+    return {"router": (router, X[:tci._kmeans_chunk_for(router[1].shape[0])], tci.HIER_P),
+            "seed": (seed, quantize.euclidean_translate(Q, slope, offset).float(),
+                     chip.HIER_SEED_PROBES)}
+
+
+def time_meta(chip, reps, dev):
+    """Kernel 4 as the meta-centroid scan at both shapes (chip_smoke.py's
+    ``kernel_meta_scan``: checked against the plain path, timed beside it),
+    then the checkout's whole ``meta_topk`` at k = 8 (the router's
+    candidates) and k = 2 (the seed's starts)."""
+    from parlayann_tpu_torch.ops.kernels.clusterbeam import meta_topk
+    from parlayann_tpu_torch.types import Metric
+
     out = {}
-    for name, ((mc, blocks, _), q, E) in shapes.items():
+    for (name, ((mc, blocks, idtab), q, E)), k in zip(meta_shapes(chip, dev).items(), (8, 2)):
+        out[f"{name}_scan"] = chip.kernel_meta_scan(name, mc, q, E)
+        out[f"{name}_meta_topk_ms"] = chip.time_ms(
+            lambda: meta_topk(q, mc, blocks, idtab, k=k, P=E, metric=Metric.L2), reps)
+    return out
+
+
+def time_multi(chip, reps, dev):
+    import torch
+    from parlayann_tpu_torch.ops.kernels import expand
+    from parlayann_tpu_torch.search.flat import flat_search_batch
+    from parlayann_tpu_torch.types import Metric
+
+    out = {}
+    for name, ((mc, blocks, _), q, E) in meta_shapes(chip, dev).items():
         Cm = blocks.shape[0]
         ids, _ = flat_search_batch(q, mc, k=E, metric=Metric.L2, n_valid=Cm,
                                    chunk=min(Cm, 32768), select="sort")
@@ -589,13 +620,13 @@ def time_fusedbuild(chip, reps, dev, cache=None):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("flat_topk", "masked", "occlusion", "fusedbeam",
-                                         "fusedbuild", "cluster", "router", "multi"),
+                                         "fusedbuild", "cluster", "router", "multi", "meta"),
                     default="flat_topk")
     ap.add_argument("--root", default=str(REPO),
                     help="checkout whose parlayann_tpu_torch is timed")
     ap.add_argument("--reps", type=int, default=None,
                     help="timed launches (default 20 for flat_topk, masked, fusedbeam, "
-                         "cluster and multi, 50 for occlusion; router: timed passes, "
+                         "cluster, multi and meta, 50 for occlusion; router: timed passes, "
                          "default 2)")
     ap.add_argument("--tag", default="", help="a name for the checkout in the output")
     ap.add_argument("--build", type=int, action="append", default=[], choices=sorted(BUILDS),
@@ -648,6 +679,8 @@ def main():
         out.update(time_router(chip, args.reps or 2, dev))
     elif args.kernel == "multi":
         out.update(time_multi(chip, args.reps or 20, dev))
+    elif args.kernel == "meta":
+        out.update(time_meta(chip, args.reps or 20, dev))
     else:
         out.update(time_occlusion(chip, args.reps or 50, dev, args.f32))
     for n in args.build:

@@ -1475,6 +1475,108 @@ def test_torch_cuda_approx_assign_equals_cpu(cluster_data, cuda):
     assert (cell_tie | cand_tie).all(), np.flatnonzero(~same)
 
 
+@pytest.fixture(scope="module")
+def seed_quantizers():
+    """Seed quantizers (``_meta_quantizer`` at the query seed's settings,
+    built on the CPU) over 3,000 clustered centroids: (235, 24) cells, Cm
+    off every multiple of 128; f32, and int8 blocks over q8-domain integer
+    centroids -> {dtype: (centroids (C, d) f64, (mcents, blocks, idtab),
+    queries (B, d) f32)}."""
+    from parlayann_tpu_torch.build import clusterindex as tci
+
+    rng = np.random.default_rng(17)
+    C, B, d = 3000, 700, 128
+    out = {}
+    for dtype in ("f32", "int8"):
+        centres = rng.standard_normal((30, d))
+        cents = centres[rng.integers(0, 30, C)] + 0.4 * rng.standard_normal((C, d))
+        q = centres[rng.integers(0, 30, B)] + 0.4 * rng.standard_normal((B, d))
+        if dtype == "int8":  # the q8 domain: integers in [-128, 127]
+            cents, q = (np.clip(np.rint(40 * a), -128, 127) for a in (cents, q))
+        mc, blocks, idtab = tci._meta_quantizer(torch.from_numpy(cents.astype(np.float32)), C,
+                                                Metric.L2, meta_m=tci.SEED_META_M,
+                                                seed=1009, iters=3)
+        if dtype == "int8":
+            blocks = blocks.to(torch.int8)
+        out[dtype] = (cents.astype(np.float32).astype(np.float64), (mc, blocks, idtab),
+                      q.astype(np.float32))
+    return out
+
+
+def _meta_topk_plain_scan(q, mcents, blocks, idtab, *, k, P, metric):
+    """``meta_topk`` as it was before kernel 4 scanned the meta-centroids:
+    the plain path (an f32 product and a sort) picks the top-P cells."""
+    from parlayann_tpu_torch.ops.distance import INF
+    from parlayann_tpu_torch.ops.topk import smallest_k
+
+    B, Cm, cap = q.shape[0], blocks.shape[0], blocks.shape[1]
+    mt_i, _ = flat_topk_plain(q, mcents, k=P, metric=metric, n_valid=Cm,
+                              chunk=min(Cm, 32768))
+    mi = mt_i.clamp(0, Cm - 1).to(torch.int32)
+    dp = expand_distances_multi(blocks, mi, q, metric=metric)
+    ip = idtab[mi.long()]
+    dp = torch.where((ip >= 0) & (mt_i >= 0)[:, :, None], dp, INF)
+    d, i = smallest_k(dp.reshape(B, P * cap), ip.reshape(B, P * cap), k)
+    return i, d
+
+
+def _near_ties(sorted_d, n):
+    """(B,) bool: rows whose first ``n`` + 1 ascending float64 distances
+    hold two within 1e-5 of the n-th (of the last finite one where fewer
+    than n are), relative."""
+    head = sorted_d[:, :n + 1]
+    last = np.isfinite(head[:, :n]).sum(axis=1) - 1
+    nth = np.where(last >= 0, np.abs(head[np.arange(len(head)), np.maximum(last, 0)]), 0.0)
+    with np.errstate(invalid="ignore"):  # inf - inf past the valid entries
+        gaps = np.nan_to_num(np.diff(head, axis=1), nan=np.inf)
+    return (gaps <= 1e-5 * nth[:, None]).any(axis=1)
+
+
+@pytest.mark.parametrize("k", [1, 2, 10])
+@pytest.mark.parametrize("P", [1, 8, 16])
+@pytest.mark.parametrize("metric", [Metric.L2, Metric.MIPS])
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+def test_torch_cuda_meta_topk_kernel4_scan(seed_quantizers, cuda, dtype, metric, P, k):
+    """``meta_topk`` on the card, its meta-centroid scan on kernel 4 (one
+    launch), returns the ids of the former plain-path scan and of a float64
+    brute force of the same route (the top-P cells by float64 distance,
+    then the k nearest of their centroids), except in rows where two cells
+    near the P-th or two candidates near the k-th lie within 1e-5 of it in
+    float64; its distances lie within float32 rounding of the float64 ones."""
+    from parlayann_tpu_torch.ops.kernels.clusterbeam import meta_topk
+
+    cents, quant, Q = seed_quantizers[dtype]
+    mc, blocks, idtab = (a.to(cuda) for a in quant)
+    q = t(Q, cuda)
+    before = flat_topk.launches
+    gi, gd = meta_topk(q, mc, blocks, idtab, k=k, P=P, metric=metric)
+    assert flat_topk.launches == before + 1
+    oi, _ = _meta_topk_plain_scan(q, mc, blocks, idtab, k=k, P=P, metric=metric)
+    gi, gd, oi = gi.cpu().numpy(), gd.cpu().numpy(), oi.cpu().numpy()
+    # float64: every query to every centroid, then the route's cells and candidates
+    q64, mc64, tab = Q.astype(np.float64), quant[0].double().numpy(), quant[2].numpy()
+    if metric is Metric.L2:
+        dall = ((q64 * q64).sum(1)[:, None] - 2 * q64 @ cents.T + (cents * cents).sum(1))
+        dm = ((q64 * q64).sum(1)[:, None] - 2 * q64 @ mc64.T + (mc64 * mc64).sum(1))
+    else:
+        dall, dm = -q64 @ cents.T, -q64 @ mc64.T
+    scale = (q64 * q64).sum(1) + (cents * cents).sum(1).max()
+    cells = np.argsort(dm, axis=1, kind="stable")
+    cand = tab[cells[:, :P]].reshape(len(Q), -1)
+    cd = np.where(cand >= 0, np.take_along_axis(dall, np.maximum(cand, 0), axis=1), np.inf)
+    order = np.argsort(cd, axis=1, kind="stable")
+    sd = np.take_along_axis(cd, order, axis=1)
+    wi = np.where(np.isfinite(sd[:, :k]), np.take_along_axis(cand, order, axis=1)[:, :k], -1)
+    tie = (_near_ties(np.take_along_axis(dm, cells, axis=1), P) | _near_ties(sd, k))
+    for other in (oi, wi):
+        bad = (gi != other).any(axis=1)
+        assert not (bad & ~tie).any(), np.flatnonzero(bad & ~tie)
+    ok = gi >= 0
+    d64 = np.take_along_axis(dall, np.maximum(gi, 0), axis=1)
+    tol = 1e-5 * np.abs(d64) + 1e-6 * scale[:, None]
+    assert (np.abs(gd.astype(np.float64) - d64) <= tol)[ok].all()
+
+
 def test_torch_cuda_hier_build_and_meta_seed(cluster_data, cuda, monkeypatch):
     """A hierarchical build on the card (``EXACT_LIMIT`` lowered) with the
     meta-routed query seed (``ARGMIN_SEED_CUTOFF`` lowered): kernel 1 runs
@@ -1712,6 +1814,7 @@ def test_torch_cuda_cluster_spans_on_the_card(cluster_data, cuda, monkeypatch):
                                        "search.walk", "search.pool", "search.rerank"]
     assert spans[0].counters == {"queries": len(Q)} and spans[0].stream_ms is None
     assert all(s.stream_ms is not None and s.stream_ms > 0 for s in spans[1:])
+    assert spans[2].counters == {"launches": 1}  # kernel 4's meta-centroid scan
     nv, cmps = got[2]
     assert spans[3].counters == {"probes": int(nv.sum()), "cmps": int(cmps.sum())}
     trace.clear()

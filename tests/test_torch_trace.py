@@ -332,6 +332,49 @@ def test_cluster_search_spans(rec, cluster_data, layout):
     assert walk.counters["probes"] == 6 * len(Q)
 
 
+@pytest.mark.parametrize("layout", ["int8", "f32"])
+def test_cluster_meta_seed_counts_kernel4(rec, cluster_data, monkeypatch, layout):
+    """The meta seed recorded: ``search.seed`` counts kernel 4's
+    ``launches`` (0 on the CPU, where ``flat_topk`` runs its plain
+    version), and ``meta_topk`` scans the seed quantizer's meta-centroids
+    through ``flat_topk`` (spied) at k = P, with the same results recorded
+    or not."""
+    from parlayann_tpu_torch.build import clusterindex as tci
+    from parlayann_tpu_torch.ops.kernels import clusterbeam as tcb
+    from parlayann_tpu_torch.types import Metric
+
+    X, Q = cluster_data
+    ci = pt.build_cluster_index(X, m=8, Rc=8, iters=2, ext_dtype=layout, device="cpu")
+    mc, blocks, idtab = tci._meta_quantizer(ci.centroids_q[:ci.C].float(), ci.C, Metric.L2,
+                                            meta_m=tci.SEED_META_M, seed=1009, iters=3)
+    if layout == "int8":
+        blocks = blocks.to(torch.int8)
+    ci.seed_meta = (mc, blocks, idtab)
+    real, calls = tcb.flat_topk, []
+
+    class Spy:
+        launches = property(lambda self: real.launches)
+
+        def __call__(self, q, points, *a, **kw):
+            calls.append((points, kw))
+            return real(q, points, *a, **kw)
+
+    monkeypatch.setattr(tcb, "flat_topk", Spy())
+    kw = dict(k=5, n_probe=6, cut=0.0, seed_mode="meta", seed_probes=4)
+    off = ci.search(Q, **kw)
+    with trace.recording():
+        on = ci.search(Q, **kw)
+    assert torch.equal(off[0], on[0]) and torch.equal(off[1], on[1])
+    assert 200 <= ci.C and len(calls) == 2
+    for points, args in calls:
+        assert points is mc and args["k"] == 4 and args["n_valid"] == mc.shape[0]
+    got = trace.spans()
+    (root, names), = _tree(got).items()
+    assert names == [("search", None)] + [(n, "search") for n in CLUSTER]
+    seed = next(s for s in got if s.name == "search.seed")
+    assert seed.counters == {"launches": 0}  # the plain path on the CPU
+
+
 @pytest.mark.parametrize("hier", [False, True])
 def test_cluster_build_spans(rec, cluster_data, monkeypatch, hier):
     """A ClusterIndex build recorded: the same index as unrecorded, one
